@@ -295,9 +295,9 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
     """``staleness_agg`` at the shapes of the main path's last aggregate:
     the sweep form (weights scattered over the whole [C, W] buffer) or the
     rows form (only the K referenced rows)."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels.ops import SUBLANE
-    from repro_torch.kernels.staleness_agg import (staleness_agg,
-                                                   staleness_agg_plain)
+    from repro_torch.kernels.staleness_agg import staleness_agg
 
     last = record["rounds"][-1]
     C, W = last["store_capacity"], record["row_width"]
@@ -314,7 +314,9 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
         args = (buf, w, rows)
         nbytes = (k * W + W) * 4 + kp * (4 + 8)
         flops = 2 * k * W
-        library = None
+        # one bag of the referenced rows, weighted and summed
+        library = lambda: torch.nn.functional.embedding_bag(
+            rows[None], buf, mode="sum", per_sample_weights=w[None])[0]
     else:
         full_w = torch.zeros(C, device=dev).index_add_(0, rows, w)
         args = (buf, full_w, None)
@@ -329,13 +331,11 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
              "launches": record["launches"]["staleness_agg"],
              "shape": {"C": C, "W": W, "K": k, "K_padded": kp,
                        "rows_form": rows_form},
-             **check(name, got, staleness_agg_plain(*args))}
-    if library is not None:
-        lib_err = float((library() - got).abs().max())
-        entry["library_max_abs_diff"] = lib_err
+             **check(name, got, ref.staleness_agg(*args))}
+    entry["library_max_abs_diff"] = float((library() - got).abs().max())
     entry["ms"] = time_ms(lambda: staleness_agg(*args))
-    entry["plain_ms"] = time_ms(lambda: staleness_agg_plain(*args))
-    entry["library_ms"] = time_ms(library) if library is not None else None
+    entry["plain_ms"] = time_ms(lambda: ref.staleness_agg(*args))
+    entry["library_ms"] = time_ms(library)
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
     entry["bytes"] = nbytes
     return entry
@@ -345,7 +345,8 @@ def adam_kernel_entry(record: dict, dev) -> dict:
     """``fused_adam`` at the main path's largest cohort: Kp lanes (the
     cohort padded to a power of two), the pad lanes inactive."""
     from repro_torch.core.client import DEFAULT_COHORT_FLOOR, _bucket
-    from repro_torch.kernels.fused_adam import fused_adam, fused_adam_plain
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_adam import fused_adam
 
     k = max(record["cohort_sizes"])
     kp, W = _bucket(k, DEFAULT_COHORT_FLOOR), record["row_width"]
@@ -362,7 +363,7 @@ def adam_kernel_entry(record: dict, dev) -> dict:
     mine = [t.clone() for t in (p, m, v)]
     plain = [t.clone() for t in (p, m, v)]
     fused_adam(*mine, g, steps, s, **hyper)
-    fused_adam_plain(*plain, g, steps, s, **hyper)
+    ref.fused_adam(*plain, g, steps, s, **hyper)
     torch.cuda.synchronize()
     errs = [check("fused_adam", a, b) for a, b in zip(mine, plain)]
     entry = {"name": "fused_adam", "route": "cuda",
@@ -373,7 +374,7 @@ def adam_kernel_entry(record: dict, dev) -> dict:
              **{k: max(e[k] for e in errs) for k in errs[0]}}
     entry["ms"] = time_ms(lambda: fused_adam(*mine, g, steps, s, **hyper))
     entry["plain_ms"] = time_ms(
-        lambda: fused_adam_plain(*plain, g, steps, s, **hyper))
+        lambda: ref.fused_adam(*plain, g, steps, s, **hyper))
 
     # yardstick: PyTorch's own fused Adam over the active lanes' rows
     lib = [list(t[:k].clone().unbind(0)) for t in (p, m, v)]
@@ -442,7 +443,7 @@ def main() -> int:
         emit("kernel", **e)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(smi, flush=True)
+    print(smi, flush=True)   # the card's name and power limit, verbatim
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

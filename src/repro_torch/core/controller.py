@@ -33,7 +33,6 @@ class Controller(FLRuntime):
         round_ = self.db.round
         while round_ < cfg.rounds and self.loop.now < cfg.max_sim_time:
             t0 = self.loop.now
-            self._t0 = t0
             selection = strat.select(self.db, round_)
             if not selection:
                 # every client busy: advance until something completes

@@ -15,10 +15,12 @@ and the three round services the poll loop calls:
 This slice of the port runs the ``Controller`` poll loop with the device
 update and data planes, on the ``object`` or ``columnar`` control plane.
 Settings that need a later slice raise ``NotImplementedError`` naming it
-(``_check_supported``): the ``Scheduler`` engine and its reactive
-policies, the blob update plane and host data plane, SCAFFOLD,
-``apodotiko-topk``, fault and traffic profiles, durability and
-checkpointing, and meshes other than ``1x1``.
+(``_check_supported``): the ``Scheduler`` engine, megastep, its reactive
+policies and recovery layer, the blob update plane and host data plane,
+SCAFFOLD, ``apodotiko-topk``, fault and traffic profiles, durability and
+checkpointing, and meshes other than ``1x1``. The reference's fields that
+only tune one of those features (retry backoff, quarantine length, hedge
+fraction, journal sync and snapshot cadence) are not fields here.
 """
 from __future__ import annotations
 
@@ -32,7 +34,6 @@ from repro_torch.core.aggregation import weighted_aggregate_rows
 from repro_torch.core.client import CohortTrainer
 from repro_torch.core.data_plane import DatasetStore
 from repro_torch.core.database import ClientRecord, Database, ResultRecord
-from repro_torch.core.protocol import Event, InvocationFailed, ResultLanded
 from repro_torch.core.scoring import decay_rate
 from repro_torch.core.strategies.base import (Strategy, StrategyConfig,
                                               build_strategy)
@@ -54,6 +55,19 @@ def _resolve(value: str, default: str) -> str:
 def _check_supported(cfg: "FLConfig") -> None:
     """Raise for every setting this slice of the port does not run."""
     later = "comes with a later slice of the port"
+    scheduler = "needs the Scheduler engine, which " + later
+    engine = _resolve(cfg.engine, "legacy")
+    if engine == "scheduler":
+        raise NotImplementedError(f"engine='scheduler' {later}")
+    if engine != "legacy":
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    if _resolve(cfg.megastep, "stepwise") != "stepwise":
+        raise NotImplementedError(f"megastep={cfg.megastep!r} {scheduler}")
+    for knob in ("invocation_timeout", "retry_budget", "quarantine_threshold"):
+        if getattr(cfg, knob):
+            raise NotImplementedError(f"recovery ({knob}) {scheduler}")
+    if cfg.quorum_fraction < 1.0:
+        raise NotImplementedError(f"quorum_fraction < 1 {scheduler}")
     if _resolve(cfg.update_plane, "device") != "device":
         raise NotImplementedError(f"update_plane={cfg.update_plane!r} {later}")
     if _resolve(cfg.data_plane, "device") != "device":
@@ -106,9 +120,6 @@ class FLConfig:
     max_staleness: int = 5         # staleness cap: results from at most this
     #                                 many previous rounds aggregate (§III-B)
     round_timeout: float = 300.0   # sync-strategy round deadline, sim-seconds
-    hedge_fraction: float = 0.5    # apodotiko-hedge: fraction of outstanding
-    #                                 invocations speculatively re-invoked at
-    #                                 the CR gate (slowest first)
     # -- FaaS platform simulation (§IV-A) --------------------------------------
     keep_warm: float = 600.0       # provider keep-warm window before
     #                                 scale-to-zero, sim-seconds
@@ -120,20 +131,14 @@ class FLConfig:
     #                                 this slice (no extra RNG draws)
     traffic_profile: str = "auto"  # open-loop traffic: "auto"/"off" only in
     #                                 this slice (fixed fleet)
-    # -- recovery layer (DESIGN.md §12; scheduler engine only) -----------------
-    invocation_timeout: float = 0.0  # per-invocation kill timer, sim-seconds
-    #                                 (distinct from round_timeout; 0 = off)
-    retry_budget: int = 0          # max retries per round (0 = no retries)
-    retry_base_delay: float = 2.0  # backoff: delay = base * backoff^(k-1)
-    retry_backoff: float = 2.0     #   * (1 + jitter * U[0,1)) for the k-th
-    retry_jitter: float = 0.1      #   retry of a client within a round
-    quarantine_threshold: int = 0  # circuit breaker: quarantine a client
-    #                                 after this many consecutive failures
-    #                                 (0 = off)
-    quarantine_rounds: int = 3     # rounds a quarantined client sits out
+    # -- recovery layer (Scheduler engine only): only "off" in this slice ------
+    invocation_timeout: float = 0.0  # per-invocation kill timer (0 = off)
+    retry_budget: int = 0          # max retries per round (0 = off)
+    quarantine_threshold: int = 0  # circuit breaker after this many
+    #                                 consecutive failures (0 = off)
     quorum_fraction: float = 1.0   # sync rounds aggregate once this cohort
-    #                                 fraction completed (graceful
-    #                                 degradation; 1.0 = legacy full gate)
+    #                                 fraction completed (1.0 = full gate,
+    #                                 the only value in this slice)
     # -- aggregation (§III-B) --------------------------------------------------
     prox_mu: float = 0.01          # mu, FedProx proximal coefficient
     staleness_fn: str = "eq2"      # "eq2" = 1/sqrt(T - t_i + 1) (Eq. 2,
@@ -141,8 +146,9 @@ class FLConfig:
     update_plane: str = "auto"     # client-update transport: "device"
     #                                 (= "auto"): updates stay rows of one
     #                                 card-resident [capacity, W] buffer
-    engine: str = "auto"           # the reference's engine choice; the port's
-    #                                 entry point is the Controller poll loop
+    engine: str = "auto"           # round driver: "legacy" (= "auto"), the
+    #                                 Controller poll loop; "scheduler" comes
+    #                                 with a later slice
     control_plane: str = "auto"    # per-client fleet state: "columnar"
     #                                 (= "auto") struct-of-arrays columns, or
     #                                 "object", the per-client ClientRecord
@@ -150,12 +156,10 @@ class FLConfig:
     data_plane: str = "auto"       # training-input transport: "device"
     #                                 (= "auto"): the dataset stays resident
     #                                 on the card, minibatches gathered there
-    megastep: str = "auto"         # the reference's fused-round switch
-    #                                 (Scheduler only); unused by the port
+    megastep: str = "auto"         # fused rounds (Scheduler only): "stepwise"
+    #                                 (= "auto") only in this slice
     durability: str = "auto"       # durable runs: "auto"/"off" only in this
     #                                 slice
-    durability_sync: str = "auto"  # journal fsync policy (durability only)
-    durability_snap_every: int = 1  # snapshot cadence (durability only)
     mesh: str = "auto"             # device mesh: "1x1" (= "auto") only in
     #                                 this slice
     # -- harness ---------------------------------------------------------------
@@ -176,7 +180,6 @@ def strategy_config(cfg: FLConfig) -> StrategyConfig:
         round_timeout=cfg.round_timeout,
         prox_mu=cfg.prox_mu,
         staleness_fn=cfg.staleness_fn,
-        hedge_fraction=cfg.hedge_fraction,
         quorum_fraction=cfg.quorum_fraction,
         seed=cfg.seed)
 
@@ -190,35 +193,6 @@ class RoundLog:
     n_aggregated: int
     n_stale: int
     mean_loss: float
-
-
-@dataclass
-class _Payload:
-    """One trained client update, shared by an invocation and its hedge
-    siblings. Freed exactly once: either ownership passes to the landed
-    ``ResultRecord`` (``landed``) or the last reference releases it."""
-
-    row: int = -1          # UpdateStore row handle
-    refs: int = 1
-    landed: bool = False
-
-
-@dataclass
-class Inflight:
-    """Registry entry for one live invocation (the satellite fix for
-    ``remove_clients`` and the substrate for Hedge/CancelInvocation)."""
-
-    client_id: int
-    round: int
-    steps: float
-    t_invoked: float
-    rec: InvocationRecord
-    payload: _Payload
-    n_samples: int
-    loss: float
-    is_hedge: bool = False
-    done: bool = False
-    event: Any = None      # the loop completion event (cancellable)
 
 
 class FLRuntime:
@@ -274,10 +248,6 @@ class FLRuntime:
         self._acc = 0.0             # last evaluated accuracy (carried across
         #                             rounds when eval_every > 1)
         self._completed_this_round: set[int] = set()
-        self.inflight: dict[int, list[Inflight]] = {}
-        self.n_hedges = 0           # the poll loop never hedges or cancels;
-        self.n_hedge_wins = 0       # kept so results land exactly as in the
-        self.n_cancelled = 0        # reference's shared completion path
 
         # update plane: trained models stay rows of one card-resident buffer
         self.update_plane = "device"
@@ -289,113 +259,41 @@ class FLRuntime:
         self.data_plane = "device"
         self.dataset = DatasetStore(data, device=self.device)
 
-    @property
-    def current_round(self) -> int:
-        return self.db.round
-
-    @property
-    def round_start(self) -> float:
-        return getattr(self, "_t0", 0.0)
-
-    def _emit(self, event: Event) -> None:
-        """Protocol hook: a no-op for the poll loop (the reference's
-        Scheduler dispatches here; durability journals here)."""
-
     # -------------------------------------------------- invocation service
-    def invoke_round(self, round_: int, selection: list[int],
-                     *, reset_completed: bool = True) -> None:
+    def invoke_round(self, round_: int, selection: list[int]) -> None:
         """Train the selected cohort against the current global model and
         start their simulated invocations."""
         cfg = self.cfg
-        if reset_completed:
-            self._completed_this_round = set()
+        self._completed_this_round = set()
         n_i = self.data.n[selection]   # raises on an out-of-range selection
         steps = np.ceil(n_i / cfg.batch_size).astype(np.int64) * cfg.local_epochs
         steps = np.maximum(steps, 1)
-        row_ids, _, losses = self.trainer.train_cohort_indexed(
+        row_ids, _, _ = self.trainer.train_cohort_indexed(
             self.params, self.dataset, selection, n_i, steps,
             update_sink=self.store)
         for k, cid in enumerate(selection):
-            self._launch(cid, round_, float(steps[k]),
-                         _Payload(row=int(row_ids[k])), int(n_i[k]),
-                         float(losses[k]))
+            rec = self.platform.invoke(cid, round_, self.loop.now,
+                                       float(steps[k]), self.hw[cid],
+                                       cfg.base_step_time)
+            self.db.mark_running(cid, round_)
+            self.loop.schedule(rec.duration, lambda cid=cid, rec=rec,
+                               row=int(row_ids[k]), n=int(n_i[k]):
+                               self._complete(cid, round_, rec, row, n))
 
-    def _launch(self, cid: int, round_: int, steps: float, payload: _Payload,
-                n_samples: int, loss: float, *, is_hedge: bool = False
-                ) -> Inflight:
-        rec = self.platform.invoke(cid, round_, self.loop.now, steps,
-                                   self.hw[cid], self.cfg.base_step_time)
-        self.db.mark_running(cid, round_)
-        inv = Inflight(client_id=cid, round=round_, steps=steps,
-                       t_invoked=self.loop.now, rec=rec, payload=payload,
-                       n_samples=n_samples, loss=loss, is_hedge=is_hedge)
-        inv.event = self.loop.schedule(rec.duration,
-                                       lambda: self._complete(inv))
-        self.inflight.setdefault(cid, []).append(inv)
-        return inv
-
-    def _complete(self, inv: Inflight) -> None:
-        """Completion callback: land the result (or record the failure),
-        settle the payload, and cancel any losing hedge siblings."""
-        inv.done = True
-        self._drop_inflight(inv)
-        pay = inv.payload
-        siblings = [o for o in self.inflight.get(inv.client_id, ())
-                    if o.round == inv.round and not o.done]
-        if inv.rec.failed:
-            if siblings:
-                self.db.incr_failures(inv.client_id)
-            else:
-                self.db.mark_failed(inv.client_id)
-            pay.refs -= 1
-            if pay.refs <= 0 and not pay.landed:
-                self._free_payload(pay)
-            self._emit(InvocationFailed(t=self.loop.now, round=inv.round,
-                                        client_id=inv.client_id))
+    def _complete(self, cid: int, round_: int, rec: InvocationRecord,
+                  row: int, n_samples: int) -> None:
+        """Completion callback: land the trained row as a result, or record
+        the failure and free the row."""
+        if rec.failed:
+            self.db.mark_failed(cid)
+            self.store.free([row])
             return
-        train_dur = inv.rec.duration  # includes startup/load/upload
-        self.db.mark_complete(inv.client_id, train_dur)
-        result = ResultRecord(client_id=inv.client_id, round=inv.round,
-                              n_samples=inv.n_samples,
-                              train_duration=train_dur,
+        self.db.mark_complete(cid, rec.duration)  # includes startup/upload
+        result = ResultRecord(client_id=cid, round=round_,
+                              n_samples=n_samples, train_duration=rec.duration,
                               t_available=self.loop.now)
-        self.db.put_update_row(result, pay.row)
-        pay.landed = True
-        pay.refs -= 1
-        self._completed_this_round.add(inv.client_id)
-        if inv.is_hedge:
-            self.n_hedge_wins += 1
-        for sib in siblings:        # losers of the hedge race
-            self._cancel_inflight(sib)
-        self._emit(ResultLanded(t=self.loop.now, round=inv.round,
-                                result=result))
-
-    def _drop_inflight(self, inv: Inflight) -> None:
-        invs = self.inflight.get(inv.client_id)
-        if invs and inv in invs:
-            invs.remove(inv)
-            if not invs:
-                self.inflight.pop(inv.client_id, None)
-
-    def _cancel_inflight(self, inv: Inflight) -> None:
-        if inv.done:
-            return
-        inv.done = True
-        self.loop.cancel(inv.event)
-        self._drop_inflight(inv)
-        live = [i.rec.t_completed
-                for i in self.inflight.get(inv.client_id, ()) if not i.done]
-        self.platform.cancel(inv.rec, self.loop.now,
-                             live_until=max(live) if live else None)
-        self.n_cancelled += 1
-        pay = inv.payload
-        pay.refs -= 1
-        if pay.refs <= 0 and not pay.landed:
-            self._free_payload(pay)
-
-    def _free_payload(self, pay: _Payload) -> None:
-        if pay.row >= 0:
-            self.store.free([pay.row])
+        self.db.put_update_row(result, row)
+        self._completed_this_round.add(cid)
 
     # ------------------------------------------------- aggregation service
     def aggregate_round(self, round_: int) -> tuple[int, int, float]:

@@ -3,42 +3,19 @@
 ``fused_adam(p, m, v, g, steps, s, ...)`` updates the stacked ``[Kp, W]``
 fp32 params and moments in place; lanes with ``s >= steps[lane]`` are left
 untouched (their local training has ended). A CPU tensor takes the plain
-torch version (``fused_adam_plain``); a CUDA tensor launches the kernel or
+torch version (``ref.fused_adam``); a CUDA tensor launches the kernel or
 raises. ``fused_adam.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 VEC = 4          # the kernel moves float4: W is a multiple of 4
 MAX_LANES = 65535  # grid.y bound
-
-
-def bias_corrections(t: int, b1: float, b2: float) -> tuple[float, float]:
-    """``(1/(1-b1^t), 1/(1-b2^t))`` computed in fp32, as the reference's
-    kernel wrapper does (``repro/kernels/fused_adam.py``)."""
-    one, tf = np.float32(1.0), np.float32(t)
-    bc1 = one / (one - np.float32(b1) ** tf)
-    bc2 = one / (one - np.float32(b2) ** tf)
-    return float(bc1), float(bc2)
-
-
-def fused_adam_plain(p, m, v, g, steps, s: int, *, lr: float, b1: float,
-                     b2: float, eps: float) -> None:
-    """The kernel's arithmetic in plain torch, masked and in place."""
-    bc1, bc2 = bias_corrections(s + 1, b1, b2)
-    active = (steps > s)[:, None]
-    m_new = b1 * m + (1.0 - b1) * g
-    v_new = b2 * v + (1.0 - b2) * g * g
-    p_new = p - lr * ((m_new * bc1) / (torch.sqrt(v_new * bc2) + eps))
-    p.copy_(torch.where(active, p_new, p))
-    m.copy_(torch.where(active, m_new, m))
-    v.copy_(torch.where(active, v_new, v))
 
 
 def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
@@ -53,8 +30,8 @@ def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"steps must be int32 [{Kp}], got {steps.dtype} "
                          f"{tuple(steps.shape)}")
     if p.device.type == "cpu":
-        return fused_adam_plain(p, m, v, g, steps, s, lr=lr, b1=b1, b2=b2,
-                                eps=eps)
+        return ref.fused_adam(p, m, v, g, steps, s, lr=lr, b1=b1, b2=b2,
+                              eps=eps)
     tensors = (p, m, v, g, steps)
     if any(t.device != p.device for t in tensors):
         raise ValueError("fused_adam takes tensors on one device")
@@ -67,7 +44,7 @@ def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
                          "buffer 16-byte aligned")
     if Kp > MAX_LANES:
         raise ValueError(f"at most {MAX_LANES} lanes, got {Kp}")
-    bc1, bc2 = bias_corrections(s + 1, b1, b2)
+    bc1, bc2 = ref.bias_corrections(s + 1, b1, b2)
     lib = _build.load("fused_adam")
     fn = lib.fused_adam_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int32, ctypes.c_int64,

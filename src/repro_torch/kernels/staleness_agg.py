@@ -3,7 +3,7 @@
 ``staleness_agg(updates, weights, rows=None)`` returns
 ``sum_k weights[k] * updates[rows[k]]`` (``rows[k] = k`` when ``rows`` is
 None) as a flat fp32 ``[N]``. A CPU tensor takes the plain torch version
-(``staleness_agg_plain``); a CUDA tensor launches the kernel or raises.
+(``ref.staleness_agg``); a CUDA tensor launches the kernel or raises.
 ``staleness_agg.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -13,17 +13,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 
 VEC = 4   # the kernel loads float4: N and the row stride are multiples of 4
-
-
-def staleness_agg_plain(updates: torch.Tensor, weights: torch.Tensor,
-                        rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's arithmetic in plain torch: scale each row, sum them."""
-    u = updates if rows is None else updates.index_select(0, rows)
-    w = weights.to(torch.float32)
-    return (u.to(torch.float32) * w[:, None]).sum(0)
 
 
 def _check(updates, weights, rows) -> int:
@@ -47,7 +39,7 @@ def staleness_agg(updates: torch.Tensor, weights: torch.Tensor,
     every tensor on the same card; row ids must lie in [0, C)."""
     K = _check(updates, weights, rows)
     if updates.device.type == "cpu":
-        return staleness_agg_plain(updates, weights, rows)
+        return ref.staleness_agg(updates, weights, rows)
     tensors = (updates, weights) + ((rows,) if rows is not None else ())
     if any(t.device != updates.device for t in tensors):
         raise ValueError("updates, weights and rows must be on one device")

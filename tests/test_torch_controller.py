@@ -37,9 +37,8 @@ def host_trace(engine):
     return hist, inv
 
 
-@pytest.mark.parametrize("strategy", ["fedavg", "apodotiko"])
-def test_controller_matches_reference(strategy):
-    kw = base_cfg_kw(strategy=strategy, rounds=3)
+def _run_both(kw):
+    """The reference and the port Controller on the same data and params."""
     jdata = jax_dataset("mnist", n_clients=N_CLIENTS, scale=0.05, seed=0)
     data = make_federated_dataset("mnist", n_clients=N_CLIENTS, scale=0.05,
                                   seed=0)
@@ -56,7 +55,13 @@ def test_controller_matches_reference(strategy):
                       init_params=params_from_numpy(init, "cpu"))
     port.trainer.batch_indices = JaxBatchIndices(kw["seed"], kw["batch_size"])
     m = port.run()
+    return port, m, ref, m_ref, data
 
+
+@pytest.mark.parametrize("strategy", ["fedavg", "apodotiko"])
+def test_controller_matches_reference(strategy):
+    port, m, ref, m_ref, data = _run_both(
+        base_cfg_kw(strategy=strategy, rounds=3))
     assert m["rounds"] == m_ref["rounds"] == 3
     assert host_trace(port) == host_trace(ref)
     for key in ("total_time", "total_cost_usd", "cold_start_ratio",
@@ -72,3 +77,16 @@ def test_controller_matches_reference(strategy):
     n_eval = len(data.eval_y)
     assert ([round(l.accuracy * n_eval) for l in port.history]
             == [round(float(l.accuracy) * n_eval) for l in ref.history])
+
+
+def test_controller_matches_reference_with_failed_invocations():
+    """Crashed invocations free their rows and mark the client failed, as
+    in the reference: same trace, same free list, same params."""
+    port, m, ref, m_ref, _ = _run_both(
+        base_cfg_kw(strategy="apodotiko", rounds=3, failure_rate=0.3))
+    assert m["n_failures"] == m_ref["n_failures"] > 0
+    assert host_trace(port) == host_trace(ref)
+    assert port.store._free == ref.store._free
+    for name, leaf in port.params.items():
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(ref.params[name]),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)

@@ -45,9 +45,6 @@ def test_staleness_agg_plain_matches_reference(k, n):
         interpret=True))[:n]
     np.testing.assert_allclose(got, want_ref, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, want_pallas, rtol=RTOL, atol=ATOL)
-    np.testing.assert_allclose(
-        ref.staleness_agg(torch.as_tensor(u), torch.as_tensor(w)).numpy(),
-        want_ref, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("c, k", [(16, 3), (40, 8), (24, 11)])
@@ -118,7 +115,7 @@ def test_fused_adam_plain_matches_reference_over_five_steps(w):
 
 def test_fused_adam_bias_corrections_in_fp32():
     for t in (1, 2, 5, 100):
-        bc1, bc2 = fa.bias_corrections(t, B1, B2)
+        bc1, bc2 = ref.bias_corrections(t, B1, B2)
         tf = np.float32(t)
         assert bc1 == float(np.float32(1) / (np.float32(1) - np.float32(B1) ** tf))
         assert bc2 == float(np.float32(1) / (np.float32(1) - np.float32(B2) ** tf))
@@ -141,8 +138,8 @@ def test_wrappers_take_no_plain_fallback_off_the_cpu(monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("plain version reached for a non-CPU tensor")
 
-    monkeypatch.setattr(sa, "staleness_agg_plain", forbidden)
-    monkeypatch.setattr(fa, "fused_adam_plain", forbidden)
+    monkeypatch.setattr(ref, "staleness_agg", forbidden)
+    monkeypatch.setattr(ref, "fused_adam", forbidden)
     before = (sa.staleness_agg.launches, fa.fused_adam.launches)
     u = torch.zeros(8, 16, device="meta")
     with pytest.raises((RuntimeError, TypeError, ValueError,

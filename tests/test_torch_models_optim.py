@@ -96,7 +96,7 @@ def test_adam_trajectory_matches_reference_over_eight_steps(which):
                                        rtol=OPT_RTOL, atol=OPT_ATOL)
 
 
-@pytest.mark.parametrize("name", ["adam", "sgd"])
+@pytest.mark.parametrize("name", ["adam", "adam-plain", "sgd"])
 def test_cohort_step_matches_per_lane_reference(name):
     """The trainer's cohort form steps every active lane of a stacked
     [Kp, W] buffer in place and leaves finished lanes as they are; each
@@ -104,8 +104,11 @@ def test_cohort_step_matches_per_lane_reference(name):
     rng = np.random.default_rng(5)
     steps = np.array([4, 1, 0, 3], np.int32)
     flat0 = rng.normal(size=(4, 16)).astype(np.float32)
-    opt = optim.build_optimizer(name, 1e-2)
-    jopt = joptim.build_optimizer(name, 1e-2)
+    if name == "adam-plain":
+        opt, jopt = optim.adam(1e-2), joptim.adam(1e-2)
+    else:
+        opt = optim.build_optimizer(name, 1e-2)
+        jopt = joptim.build_optimizer(name, 1e-2)
     flat = torch.as_tensor(flat0.copy())
     state = opt.cohort_init(flat)
     lanes = [{"p": jnp.asarray(r)} for r in flat0]

@@ -99,6 +99,12 @@ def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
     (dict(mesh="2x1"), "mesh"),
     (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpointing"),
     (dict(optimizer="adafactor"), "adafactor"),
+    (dict(engine="scheduler"), "engine"),
+    (dict(megastep="fused"), "megastep"),
+    (dict(invocation_timeout=30.0), "invocation_timeout"),
+    (dict(retry_budget=2), "retry_budget"),
+    (dict(quarantine_threshold=3), "quarantine_threshold"),
+    (dict(quorum_fraction=0.5), "quorum_fraction"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
@@ -107,6 +113,15 @@ def test_left_out_settings_raise_naming_a_later_slice(kw, match):
         Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
                    device="cpu")
     assert "slice" in str(err.value)
+
+
+@pytest.mark.parametrize("field", ["retry_backoff", "quarantine_rounds",
+                                   "hedge_fraction", "durability_sync"])
+def test_tuning_fields_of_left_out_features_are_not_accepted(field):
+    """The reference's knobs that only tune a feature this slice leaves
+    out are not fields of the port's config: passing one is an error."""
+    with pytest.raises(TypeError, match=field):
+        FLConfig(**{field: 1})
 
 
 def test_scheduler_engine_raises_naming_the_next_slice():
