@@ -9,25 +9,35 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
   1. card: name and power limit (``nvidia-smi``), torch/CUDA versions, the
      TF32 flags (both set False: convolutions would otherwise run in TF32);
-  2. build: both kernels compiled from ``src/repro_torch/kernels/csrc``
+  2. build: the three kernels compiled from ``src/repro_torch/kernels/csrc``
      into ``build/kernels/`` (one ``nvcc`` per source, all started together);
   3. main path: the paper's MNIST setup at published width (MnistCNN,
      582,026 params; 200 clients on the 65/25/10 fleet, 100 per round,
-     E=5, B=10, Adam 1e-3, CR=0.3) through ``Controller.run()``, once with
-     ``apodotiko`` (3 rounds) and once with ``fedavg`` (1 round). Every
-     kernel count is set to 0 just before each run and read just after;
-     a kernel the run never launched fails the script. The result must be
-     finite, of the model's shapes, with a consistent update store;
-  4. profile: one more fedavg round under ``torch.profiler`` (device busy
+     E=5, B=10, Adam 1e-3, CR=0.3) through ``build_engine(...).run()`` (the
+     event-driven ``Scheduler``), with ``apodotiko`` (3 rounds), ``fedavg``
+     (1 round) and ``apodotiko-topk`` (3 rounds). Every kernel count is
+     set to 0 just before each run and read just after; a kernel of the
+     run's path that it never launched fails the script (``block_topk``:
+     at least once per round, and each ``select_topk`` timed). The result
+     must be finite, of the model's shapes, with a consistent update store;
+  4. fleet: the control plane at a million clients: ``select_topk(100,
+     1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
+     on a CPU copy of the same state; selections and the device booster
+     must be identical. Median ms per call and launches per call;
+  5. profile: one more fedavg round under ``torch.profiler`` (device busy
      time, idle share, kernel time by name; informational, no limit);
-  5. reference: a small ProxyCNN run on the card against the same run on
+  6. reference: small ProxyCNN runs on the card against the same runs on
      the CPU (the kernels' plain versions), on one shared minibatch-index
-     table: identical host trace, params within rtol 1e-4 / atol 1e-5;
-  6. kernels: each kernel at the shapes the main path gave it, against its
-     plain torch version on the same inputs (rtol 1e-5 / atol 1e-6), and
-     timed (median of CUDA-event times) beside the plain version, one
-     PyTorch library call where one computes the same function, and the
-     bound: the larger of bytes / HBM rate and operations / fp32 rate.
+     table, for ``fedavg``, ``apodotiko``, ``apodotiko-topk`` and
+     ``apodotiko-hedge`` (hedges firing): identical host trace, params
+     within rtol 1e-4 / atol 1e-5; and the ``Controller`` poll loop
+     against the ``Scheduler`` on the card: identical host trace;
+  7. kernels: each kernel at the shapes the main path gave it, against its
+     plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
+     ``block_topk`` exactly: values and indices), and timed (median of
+     CUDA-event times) beside the plain version, one PyTorch library call
+     where one computes the same function, and the bound: the larger of
+     bytes / HBM rate and operations / fp32 rate.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -101,6 +111,30 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_wrappers() -> dict:
+    """Every port kernel's wrapper, by name; each counts its launches."""
+    from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.kernels.staleness_agg import staleness_agg
+    from repro_torch.kernels.topk import block_topk
+    return {"staleness_agg": staleness_agg, "fused_adam": fused_adam,
+            "block_topk": block_topk}
+
+
+def zero_counts() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def path_kernels(strategy: str) -> tuple:
+    """The kernels a run of ``strategy`` must launch."""
+    base = ("staleness_agg", "fused_adam")
+    return base + ("block_topk",) if strategy == "apodotiko-topk" else base
+
+
 def host_trace(engine):
     hist = [(l.round, l.t_start, l.t_end, l.n_aggregated, l.n_stale)
             for l in engine.history]
@@ -110,30 +144,30 @@ def host_trace(engine):
 
 
 # ---------------------------------------------------------------- main path
-def paper_controller(strategy: str, rounds: int, data, dev):
+def paper_engine(strategy: str, rounds: int, data, dev):
     """The paper's MNIST setup (IV-A) at published width: MnistCNN, 200
     clients on the 65/25/10 fleet, 100 per round, E=5, B=10, Adam 1e-3,
-    CR=0.3. Only the number of rounds is cut."""
-    from repro_torch.core.controller import Controller, FLConfig
+    CR=0.3, through ``build_engine`` (the Scheduler). Only the number of
+    rounds is cut."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.core.services import FLConfig
     from repro_torch.faas.hardware import paper_fleet
     from repro_torch.models.paper_models import MnistCNN
 
     cfg = FLConfig(n_clients=200, clients_per_round=100, rounds=rounds,
                    strategy=strategy, concurrency_ratio=0.3, local_epochs=5,
                    batch_size=10, optimizer="adam", lr=1e-3, seed=SEED)
-    return Controller(cfg, MnistCNN(), data, list(paper_fleet(200)),
-                      device=dev)
+    return build_engine(cfg, MnistCNN(), data, list(paper_fleet(200)),
+                        device=dev)
 
 
 def run_main_path(strategy: str, rounds: int, data, dev):
-    """One paper-width Controller run with the kernel counts zeroed just
-    before and read just after. Returns (controller, record)."""
+    """One paper-width run with every kernel count zeroed just before and
+    read just after. Returns (engine, record)."""
     from repro_torch.core import aggregation
-    from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.staleness_agg import staleness_agg
     from repro_torch.models.paper_models import MnistCNN
 
-    ctl = paper_controller(strategy, rounds, data, dev)
+    ctl = paper_engine(strategy, rounds, data, dev)
     rounds_log = []
     clock = [time.perf_counter()]
 
@@ -147,18 +181,33 @@ def run_main_path(strategy: str, rounds: int, data, dev):
             "agg_route": aggregation.last_path()})
         clock[0] = now
 
+    # each selection's wall time on the card (the dirty flush, the score
+    # and masks, the top-k launches, the booster update and the copies of
+    # the cohort to the host), queued work drained before it starts
+    select_ms = []
+    select_topk = ctl.db.fleet.select_topk
+
+    def timed_select_topk(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = select_topk(*args, **kwargs)
+        torch.cuda.synchronize()
+        select_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    ctl.db.fleet.select_topk = timed_select_topk
     guard0 = aggregation.guard_recomputes()
-    staleness_agg.launches = 0
-    fused_adam.launches = 0
+    zero_counts()
     clock[0] = time.perf_counter()
     metrics = ctl.run(progress=progress)
     torch.cuda.synchronize()
-    launches = {"staleness_agg": staleness_agg.launches,
-                "fused_adam": fused_adam.launches}
+    launches = read_counts()
     cohorts = collections.Counter(r.round for r in ctl.platform.invocations)
-    record = {"strategy": strategy, "rounds": rounds_log,
+    record = {"strategy": strategy, "engine": metrics["engine"],
+              "rounds": rounds_log,
               "cohort_sizes": [cohorts[r] for r in sorted(cohorts)],
-              "launches": launches, "last_path": aggregation.last_path(),
+              "launches": launches, "select_topk_ms": select_ms,
+              "last_path": aggregation.last_path(),
               "guard_recomputes": aggregation.guard_recomputes() - guard0,
               "final_accuracy": metrics["final_accuracy"],
               "total_sim_time_s": metrics["total_time"],
@@ -168,6 +217,8 @@ def run_main_path(strategy: str, rounds: int, data, dev):
 
     # what comes out is right: the model's shapes, finite values, a
     # consistent update store, every kernel of the path launched
+    if metrics["engine"] != "scheduler":
+        raise AssertionError(f"build_engine ran {metrics['engine']}")
     if ctl.spec.n_params != 582_026:
         raise AssertionError(f"MnistCNN has {ctl.spec.n_params} params")
     if len(ctl.history) != rounds:
@@ -184,45 +235,143 @@ def run_main_path(strategy: str, rounds: int, data, dev):
     live = set(map(int, ctl.store.live_rows()))
     if not pending <= live:
         raise AssertionError("a pending result lost its update row")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in path_kernels(strategy):
+        if launches[name] <= 0:
             raise AssertionError(f"{strategy}: {name} was never launched")
+    if "block_topk" in path_kernels(strategy) and \
+            min(launches["block_topk"], len(select_ms)) < rounds:
+        raise AssertionError(f"{strategy}: block_topk launched "
+                             f"{launches['block_topk']} times in "
+                             f"{len(select_ms)} selections, {rounds} rounds")
     return ctl, record
 
 
+def straggler_fleet(n: int) -> list:
+    """The sweep's "straggler" hardware mix (75% 1vCPU, 25% GPU), as the
+    reference's hedging presets use it."""
+    from repro_torch.faas.hardware import HARDWARE_PROFILES
+    rng = np.random.default_rng(0)
+    n_slow = round(n * 0.75)
+    fleet = ([HARDWARE_PROFILES["cpu1"]] * n_slow
+             + [HARDWARE_PROFILES["gpu"]] * (n - n_slow))
+    rng.shuffle(fleet)
+    return fleet
+
+
+# -------------------------------------------------------------------- fleet
+FLEET_M, FLEET_CAPACITY, FLEET_K, FLEET_ROUNDS = 1_000_000, 1 << 20, 100, 5
+
+
+def fleet_store(where):
+    """A million clients, each invoked three times with seeded durations
+    (so selection scores, not only the uninvoked bootstrap), in a 2^20-slot
+    columnar store whose device score state lives on ``where``."""
+    from repro_torch.core.database import Database
+    from repro_torch.core.fleet_store import FleetStore
+
+    rng = np.random.default_rng(SEED)
+    card = rng.integers(50, 500, FLEET_M).astype(np.int64)
+    durs = rng.uniform(1.0, 60.0, (FLEET_M, 3))
+    db = Database(control_plane="columnar")
+    db.fleet = FleetStore(capacity=FLEET_CAPACITY, device=where)
+    db.register_clients_bulk(np.arange(FLEET_M), card, 10, 5)
+    db.fleet.bulk_history(durs)
+    return db
+
+
+def fleet_phase(dev) -> dict:
+    """Five rounds of ``select_topk`` at M = 1e6 on the card and on a CPU
+    copy of the same state: each round selects, marks the cohort running,
+    then completes it with seeded durations. Selections and the device
+    booster must be identical. Returns the phase record."""
+    from repro_torch.kernels.topk import block_topk
+
+    t0 = time.perf_counter()
+    card_db, cpu_db = fleet_store(dev), fleet_store("cpu")
+    setup_s = time.perf_counter() - t0
+    if card_db.fleet.capacity != FLEET_CAPACITY:
+        raise AssertionError(f"capacity {card_db.fleet.capacity}")
+    ms, launches = [], []
+    for t in range(FLEET_ROUNDS):
+        before = block_topk.launches
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sel = card_db.fleet.select_topk(FLEET_K, 1.2)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        launches.append(block_topk.launches - before)
+        before = block_topk.launches
+        sel_cpu = cpu_db.fleet.select_topk(FLEET_K, 1.2)
+        if block_topk.launches != before:
+            raise AssertionError("the CPU store launched the kernel")
+        if sel != sel_cpu or len(sel) != FLEET_K:
+            raise AssertionError(f"round {t}: card and CPU selections differ")
+        a = card_db.fleet._dev.booster.cpu().view(torch.int32)
+        b = cpu_db.fleet._dev.booster.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"round {t}: device booster differs")
+        for db in (card_db, cpu_db):
+            for j, cid in enumerate(sel):
+                db.mark_running(cid, t)
+                db.mark_complete(cid, 1.0 + ((cid * 7 + j + t) % 50))
+    record = {"M": FLEET_M, "capacity": FLEET_CAPACITY, "k": FLEET_K,
+              "rounds": FLEET_ROUNDS, "setup_s": setup_s,
+              "select_topk_ms": ms,
+              "select_topk_median_ms": statistics.median(ms),
+              "launches_per_call": launches}
+    emit("fleet", **record)
+    if min(launches) <= 0:
+        raise AssertionError("select_topk on the card launched no kernel")
+    return record
+
+
 def reference_phase(dev) -> None:
-    """Small ProxyCNN run on the card vs the same run on the CPU."""
-    from repro_torch.core.controller import Controller, FLConfig
+    """Small ProxyCNN runs on the card vs the same runs on the CPU, and the
+    Controller poll loop vs the Scheduler on the card."""
+    from repro_torch.core.controller import Controller
+    from repro_torch.core.scheduler import Scheduler, build_engine
+    from repro_torch.core.services import FLConfig
     from repro_torch.data.synthetic import make_federated_dataset
     from repro_torch.faas.hardware import paper_fleet
-    from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.staleness_agg import staleness_agg
     from repro_torch.models.convert import params_from_numpy, params_to_numpy
     from repro_torch.models.proxy_models import ProxyCNN
 
     data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
     init = params_to_numpy(ProxyCNN(10).init(torch.Generator().manual_seed(1)))
+    base = dict(n_clients=10, clients_per_round=4, rounds=3, local_epochs=1,
+                batch_size=5, base_step_time=0.5, round_timeout=200.0, seed=0)
+    # the reference's smoke_hedge setting, on its straggler hardware mix
+    hedge = dict(rounds=4, cold_start_s=120.0, keep_warm=30.0,
+                 hedge_fraction=1.0, concurrency_ratio=0.5)
     out = {}
-    for strategy in ("fedavg", "apodotiko"):
-        cfg = FLConfig(n_clients=10, clients_per_round=4, rounds=3,
-                       local_epochs=1, batch_size=5, base_step_time=0.5,
-                       round_timeout=200.0, strategy=strategy, seed=0)
+    for strategy in ("fedavg", "apodotiko", "apodotiko-topk",
+                     "apodotiko-hedge"):
+        kw = {**base, **(hedge if strategy == "apodotiko-hedge" else {}),
+              "strategy": strategy}
         runs = {}
         for where in (dev, "cpu"):
-            ctl = Controller(cfg, ProxyCNN(10), data,
-                             list(paper_fleet(10)), device=where,
-                             init_params=params_from_numpy(init, where))
-            ctl.trainer.batch_indices = NumpyBatchIndices(7, 5)
-            before = (staleness_agg.launches, fused_adam.launches)
-            ctl.run()
-            runs[str(where)] = (ctl, (staleness_agg.launches - before[0],
-                                      fused_adam.launches - before[1]))
-        (card, card_launches), (cpu, cpu_launches) = runs[str(dev)], runs["cpu"]
+            fleet = (straggler_fleet(10) if strategy == "apodotiko-hedge"
+                     else list(paper_fleet(10)))
+            eng = build_engine(FLConfig(**kw), ProxyCNN(10), data, fleet,
+                               device=where,
+                               init_params=params_from_numpy(init, where))
+            eng.trainer.batch_indices = NumpyBatchIndices(7, 5)
+            before = read_counts()
+            m = eng.run()
+            after = read_counts()
+            runs[str(where)] = (eng, m, tuple(after[k] - before[k]
+                                              for k in path_kernels(strategy)))
+        (card, m_card, card_launches) = runs[str(dev)]
+        (cpu, m_cpu, cpu_launches) = runs["cpu"]
         if host_trace(card) != host_trace(cpu):
             raise AssertionError(f"{strategy}: host trace differs card vs cpu")
         if min(card_launches) <= 0 or max(cpu_launches) != 0:
             raise AssertionError(f"{strategy}: launches card {card_launches} "
                                  f"cpu {cpu_launches}")
+        if m_card["n_hedges"] != m_cpu["n_hedges"]:
+            raise AssertionError(f"{strategy}: hedges differ")
+        if strategy == "apodotiko-hedge" and m_card["n_hedges"] <= 0:
+            raise AssertionError("apodotiko-hedge fired no hedge")
         err = 0.0
         for name, leaf in card.params.items():
             a, b = leaf.cpu().numpy(), cpu.params[name].numpy()
@@ -232,8 +381,28 @@ def reference_phase(dev) -> None:
         acc_card = [l.accuracy for l in card.history]
         acc_cpu = [l.accuracy for l in cpu.history]
         out[strategy] = {"params_max_abs_err": err, "acc_card": acc_card,
-                         "acc_cpu": acc_cpu,
-                         "rounds": len(card.history)}
+                         "acc_cpu": acc_cpu, "rounds": len(card.history),
+                         "engine": m_card["engine"],
+                         "n_hedges": m_card["n_hedges"],
+                         "card_launches": dict(zip(path_kernels(strategy),
+                                                   card_launches))}
+
+    # the poll loop against the Scheduler, both on the card
+    cfg = FLConfig(**base, strategy="apodotiko")
+    engines = []
+    for cls in (Controller, Scheduler):
+        eng = cls(cfg, ProxyCNN(10), data, list(paper_fleet(10)), device=dev,
+                  init_params=params_from_numpy(init, dev))
+        eng.trainer.batch_indices = NumpyBatchIndices(7, 5)
+        eng.run()
+        engines.append(eng)
+    if host_trace(engines[0]) != host_trace(engines[1]):
+        raise AssertionError("Controller and Scheduler traces differ")
+    out["controller_vs_scheduler"] = {
+        "identical_host_trace": True,
+        "params_max_abs_diff": max(
+            float((a - engines[1].params[n]).abs().max())
+            for n, a in engines[0].params.items())}
     emit("reference", rtol=PARAM_RTOL, atol=PARAM_ATOL, **out)
 
 
@@ -245,7 +414,7 @@ def profile_round(data, dev, unprofiled_wall_s: float) -> None:
     wall time of the main path's fedavg round."""
     from torch.profiler import ProfilerActivity, profile
 
-    ctl = paper_controller("fedavg", 1, data, dev)
+    ctl = paper_engine("fedavg", 1, data, dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ctl.run()
@@ -291,6 +460,11 @@ def check(name: str, got, want) -> dict:
             "tol_ratio": tol_ratio}
 
 
+def main_run(record: dict) -> str:
+    """Names the main-path run whose launch counts an entry reports."""
+    return f"main path: {record['strategy']}, {len(record['rounds'])} rounds"
+
+
 def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
     """``staleness_agg`` at the shapes of the main path's last aggregate:
     the sweep form (weights scattered over the whole [C, W] buffer) or the
@@ -329,6 +503,7 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
              "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
              "replaces": "src/repro/kernels/staleness_agg.py:38",
              "launches": record["launches"]["staleness_agg"],
+             "launches_run": main_run(record),
              "shape": {"C": C, "W": W, "K": k, "K_padded": kp,
                        "rows_form": rows_form},
              **check(name, got, ref.staleness_agg(*args))}
@@ -370,6 +545,7 @@ def adam_kernel_entry(record: dict, dev) -> dict:
              "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
              "replaces": "src/repro/kernels/fused_adam.py:52",
              "launches": record["launches"]["fused_adam"],
+             "launches_run": main_run(record),
              "shape": {"Kp": kp, "W": W, "active_lanes": k},
              **{k: max(e[k] for e in errs) for k in errs[0]}}
     entry["ms"] = time_ms(lambda: fused_adam(*mine, g, steps, s, **hyper))
@@ -391,6 +567,91 @@ def adam_kernel_entry(record: dict, dev) -> dict:
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, k * W * 14)
     entry["bytes"] = nbytes
     return entry
+
+
+def topk_scores(m: int, dev) -> torch.Tensor:
+    """Scores shaped like the selection's: about half -inf (busy or
+    unregistered slots), a few +inf (never invoked), and planted ties
+    across blocks."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + m)
+    s = torch.rand(m, device=dev, generator=gen) * 50.0
+    s[torch.rand(m, device=dev, generator=gen) < 0.5] = float("-inf")
+    s[torch.randperm(m, device=dev, generator=gen)[:8]] = float("inf")
+    tie = float(s[torch.isfinite(s)].max())
+    s[torch.randperm(m, device=dev, generator=gen)[:64]] = tie
+    return s
+
+
+def max_abs_finite(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference over the entries where ``want`` is finite (equal
+    infinities and NaNs were already checked bit for bit)."""
+    finite = torch.isfinite(want)
+    return float((got[finite] - want[finite]).abs().max()) if finite.any() \
+        else 0.0
+
+
+def topk_kernel_entry(name: str, m: int, k: int, launches: int,
+                      launches_run: str, dev) -> dict:
+    """``block_topk`` through the selection's top-k (``ops.masked_topk``:
+    one launch per pass until one block remains) at ``[m]``, against the
+    plain version (a stable descending sort) exactly: values to the bit and
+    indices. ``torch.topk`` computes the same values and is the library
+    yardstick; how many of its indices differ is recorded (its tie order
+    is not ``lax.top_k``'s). ``launches`` were counted in the run that
+    ``launches_run`` names. The bound is the function's, not this
+    kernel's k-round extraction: read the scores once and write the top k,
+    with about one comparison per score."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.topk import BLOCK_TOPK, block_topk
+
+    s = topk_scores(m, dev)
+    before = block_topk.launches
+    cand_v, cand_i = block_topk(s, k)
+    vals, idx = ops.masked_topk(s, k)
+    torch.cuda.synchronize()
+    passes = block_topk.launches - before - 1
+    want_cv, want_ci = ref.block_topk(s, k, BLOCK_TOPK)
+    want_v, want_i = ref.masked_topk(s, k)
+    if not (torch.equal(cand_i, want_ci) and torch.equal(idx, want_i)):
+        raise AssertionError(f"{name}: indices differ from the plain version")
+    if not (torch.equal(cand_v.view(torch.int32), want_cv.view(torch.int32))
+            and torch.equal(vals.view(torch.int32),
+                            want_v.view(torch.int32))):
+        raise AssertionError(f"{name}: values differ from the plain version")
+    lib_v, lib_i = torch.topk(s, k)
+    if not torch.equal(lib_v, vals):
+        raise AssertionError(f"{name}: torch.topk values differ")
+    nbytes = m * 4 + k * (4 + 8)          # read the scores, write the top k
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/topk.cu",
+             "replaces": "src/repro/kernels/topk.py:61",
+             "launches": launches, "launches_run": launches_run,
+             "shape": {"M": m, "k": k, "block": BLOCK_TOPK,
+                       "passes": passes,
+                       "finite": int(torch.isfinite(s).sum())},
+             "max_abs_err": max_abs_finite(vals, want_v), "exact": True,
+             "library_idx_differ": int((lib_i != idx).sum())}
+    entry["ms"] = time_ms(lambda: ops.masked_topk(s, k))
+    entry["first_pass_ms"] = time_ms(lambda: block_topk(s, k))
+    entry["plain_ms"] = time_ms(lambda: ref.masked_topk(s, k))
+    entry["library_ms"] = time_ms(lambda: torch.topk(s, k))
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, m)
+    entry["bytes"] = nbytes
+    return entry
+
+
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "launches_run", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def report_lines(kernels: list, kind: str, count: int) -> list:
+    """The last two lines of the output: the kernel list, then the result
+    line. Every line the script prints on stdout is one JSON object."""
+    return [json.dumps({"kernels": [{k: e[k] for k in KERNEL_KEYS}
+                                    for e in kernels]}),
+            json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": kind, "count": count}})]
 
 
 # --------------------------------------------------------------------- main
@@ -432,23 +693,27 @@ def main() -> int:
          eval_n=len(data.eval_y))
     _, apo = run_main_path("apodotiko", 3, data, dev)
     _, avg = run_main_path("fedavg", 1, data, dev)
+    topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
+    main_m = topk_engine.db.fleet.capacity
+    fleet = fleet_phase(dev)
     reference_phase(dev)
     profile_round(data, dev, avg["rounds"][0]["wall_s"])
 
+    n_topk = top["launches"]["block_topk"]
     kernels = [agg_kernel_entry("staleness_agg", avg, dev, rows_form=False),
                agg_kernel_entry("staleness_agg[rows]", apo, dev,
                                 rows_form=True),
-               adam_kernel_entry(apo, dev)]
+               adam_kernel_entry(apo, dev),
+               topk_kernel_entry("block_topk", main_m, 100, n_topk,
+                                 main_run(top), dev),
+               topk_kernel_entry("block_topk[fleet]", FLEET_CAPACITY, FLEET_K,
+                                 sum(fleet["launches_per_call"]),
+                                 f"fleet phase: {FLEET_ROUNDS} select_topk "
+                                 "calls at M = 1e6", dev)]
     for e in kernels:
         emit("kernel", **e)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(smi, flush=True)   # the card's name and power limit, verbatim
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in kernels]}),
-          flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
-        flush=True)
+    for line in report_lines(kernels, kind, torch.cuda.device_count()):
+        print(line, flush=True)
     return 0
 
 

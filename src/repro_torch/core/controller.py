@@ -1,5 +1,7 @@
 """The poll-loop driver (FedLess controller, Algorithm 1), twin of
-``repro.core.controller``; the entry point of this slice of the port.
+``repro.core.controller``. The default engine is the event-driven
+``Scheduler`` (``core/scheduler.py``, ``build_engine``); this loop is kept
+as its equivalence oracle (``FLConfig(engine="legacy")``).
 
 Train_Global_Model loop:
   1. ``Select_Clients`` via the active strategy (Algorithm 3 for Apodotiko).
@@ -11,6 +13,9 @@ Train_Global_Model loop:
      five previous rounds (async, Algorithm 1 line 9).
   4. Aggregate with cardinality x staleness weights (Eq. 2), evaluate, and
      start the next round immediately.
+
+The loop is passive: failed invocations simply never produce results,
+and the recovery layer (timeouts, retries, quarantine) is Scheduler-only.
 
 Usage: ``Controller(cfg, model, data, fleet, device=None).run()``; the
 device defaults to the CUDA card.

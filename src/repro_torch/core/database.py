@@ -81,15 +81,18 @@ class ResultRecord:
 
 class Database:
     """Transactional-enough store: every mutation goes through a method so a
-    snapshot/restore pair gives a consistent view (used for FT tests)."""
+    snapshot/restore pair gives a consistent view (used for FT tests).
+    ``device`` is where the columnar store keeps its top-k score state
+    (None: the card)."""
 
-    def __init__(self, control_plane: str = "object"):
+    def __init__(self, control_plane: str = "object", device=None):
         if control_plane not in ("object", "columnar"):
             raise ValueError(f"unknown control plane {control_plane!r}")
         self.control_plane = control_plane
         self._clients: dict[int, ClientRecord] = {}
         self.fleet: Optional[FleetStore] = (
-            FleetStore() if control_plane == "columnar" else None)
+            FleetStore(device=device) if control_plane == "columnar"
+            else None)
         self.results: list[ResultRecord] = []
         self.blobs: dict[str, Any] = {}          # update pytrees (host numpy)
         self.global_models: dict[int, str] = {}  # round -> blob key
@@ -370,15 +373,17 @@ class Database:
         os.replace(tmp, os.path.join(path, "blobs.npz"))
 
     @classmethod
-    def load(cls, path: str) -> "Database":
+    def load(cls, path: str, device=None) -> "Database":
         with open(os.path.join(path, "db.json")) as f:
             meta = json.load(f)
-        db = cls(control_plane=meta.get("control_plane", "object"))
+        db = cls(control_plane=meta.get("control_plane", "object"),
+                 device=device)
         db.round = meta["round"]
         db.meta = meta["meta"]
         if db.columnar:
             with np.load(os.path.join(path, FLEET_NPZ)) as data:
-                db.fleet = FleetStore.from_state(dict(data))
+                db.fleet = FleetStore.from_state(dict(data),
+                                                  device=device)
         else:
             for k, v in meta["clients"].items():
                 db._clients[int(k)] = ClientRecord(**v)

@@ -34,10 +34,16 @@ Scoring is vectorized (one ``[M, W]`` window pass, bit-identical to the
 Python loop) and the duration ring is updated incrementally on every
 ``ResultLanded`` instead of growing an unbounded per-client list.
 
-**Device score state / top-k selection** (the reference's f32 device
-mirror behind ``select_topk``) is not ported yet: ``select_topk`` raises
-until the top-k slice lands. ``_dev`` stays None, so the dirty-slot
-bookkeeping below is inert.
+**Device score state / top-k selection.** For fleet-scale cohorts the
+store additionally maintains a device-resident score state (f32/bool torch
+tensors on ``device``, the CUDA card unless the runtime or caller names
+another: EMA num/den, booster, eligibility masks) updated by O(dirty)
+scatters, and ``select_topk`` runs one vectorized step over the whole
+``[capacity]`` state: score -> mask busy/uninvoked -> ``masked_topk`` (the
+``block_topk`` CUDA kernel on the card, ``kernels/topk.py``) -> booster
+update. This path is deterministic (no sampling) and f32 — it is the
+*scale* selector behind the ``apodotiko-topk`` strategy, not the bit-exact
+oracle twin.
 """
 from __future__ import annotations
 
@@ -45,10 +51,13 @@ from itertools import repeat
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core.scoring import (HISTORY_WINDOW, calculate_scores, ema_push,
                                 per_round_score, scores_from_terms,
                                 window_accumulate, window_terms)
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import scored_topk
 
 IDLE, RUNNING = 0, 1
 
@@ -86,8 +95,9 @@ class FleetStore:
     }
 
     def __init__(self, capacity: int = 0, history: int = HISTORY_WINDOW,
-                 decay: float = 0.8):
+                 decay: float = 0.8, device=None):
         self.history = int(history)
+        self.device = device          # device score state's device (lazy)
         self._decay = float(decay)    # EMA decay (1 - rho); runtime sets it
         self.capacity = 0
         for name, dt in self.COLUMNS.items():
@@ -535,13 +545,57 @@ class FleetStore:
         self.last_round[slot] = int(last_round)
         self._touch(slot)
 
+    # ------------------------------------------------- device score state
+    def _device(self):
+        if self._dev is None:
+            self._dev = _DeviceScores(self.capacity,
+                                      resolve_device(self.device))
+            self._dev_dirty.update(self._slot.values())
+        return self._dev
+
+    def _flush_device(self) -> None:
+        dev = self._device()
+        if not self._dev_dirty:
+            return
+        idx = np.fromiter((i for i in self._dev_dirty if i < self.capacity),
+                          np.int64)
+        self._dev_dirty.clear()
+        if idx.size == 0:
+            return
+        # the f32 twin columns ARE the device values (no cast of an f64
+        # fold), as in the reference
+        dev.scatter(idx,
+                    self.ema_num32[idx], self.ema_den32[idx],
+                    self.active[idx] & (self.status[idx] == IDLE),
+                    self.active[idx] & (self.n_invocations[idx] > 0))
+
     def select_topk(self, k: int, beta: float,
                     now_round: Optional[int] = None) -> list[int]:
-        """Fleet-scale top-k selection over a device score state (the
-        reference's ``apodotiko-topk`` path and ``block_topk`` kernel)."""
-        raise NotImplementedError(
-            "FleetStore.select_topk and apodotiko-topk come with the next "
-            "slice of the port (Scheduler + build_engine + block_topk)")
+        """Fleet-scale cohort selection: one vectorized step over the
+        device-resident score state. Idle uninvoked clients rank first
+        (score +inf, the Algorithm 3 bootstrap), then the masked top-k of
+        ``booster * ema_num/ema_den``; the booster update (selected -> 1,
+        idle-unselected -> * beta) happens in the same step. Returns at
+        most k client ids (fewer when fewer clients are eligible).
+        ``now_round`` applies the quarantine mask host-side: benched
+        clients are filtered from the returned cohort (their device score
+        state is untouched, so they rank normally once released)."""
+        if not self._slot:
+            return []
+        self._flush_device()
+        dev = self._dev
+        k_eff = int(min(int(k), self.capacity))
+        if k_eff <= 0:
+            return []
+        idx, valid, boost = scored_topk(
+            dev.num, dev.den, dev.booster, dev.eligible, dev.ever,
+            np.float32(beta), k_eff)
+        dev.booster = boost
+        idx = idx.cpu().numpy()
+        valid = valid.cpu().numpy()
+        return [int(self.ids[s]) for s, v in zip(idx, valid)
+                if v and (now_round is None
+                          or self.quarantined_until[s] <= now_round)]
 
     # --------------------------------------------------------- persistence
     def state_dict(self) -> dict:
@@ -555,12 +609,17 @@ class FleetStore:
         out["next_seq"] = np.asarray([self._next_seq], np.int64)
         out["decay"] = np.asarray([self.decay], np.float64)
         out["history"] = np.asarray([self.history], np.int64)
+        if self._dev is not None:
+            # the top-k booster is device-owned state (never mirrored to
+            # the host columns) — without it a resumed apodotiko-topk run
+            # would restart every booster at 1.0
+            out["dev_booster"] = self._dev.booster.cpu().numpy()
         return out
 
     @classmethod
-    def from_state(cls, state: dict) -> "FleetStore":
+    def from_state(cls, state: dict, device=None) -> "FleetStore":
         fs = cls(history=int(state["history"][0]),
-                 decay=float(state["decay"][0]))
+                 decay=float(state["decay"][0]), device=device)
         cap = len(state["ids"])
         fs.capacity = cap
         for name, dt in cls.COLUMNS.items():
@@ -581,5 +640,53 @@ class FleetStore:
         fs._free = [int(i) for i in state["free"]]
         fs._next_seq = int(state["next_seq"][0])
         fs._slot = {int(c): int(s) for s, c in enumerate(fs.ids) if c >= 0}
+        if "dev_booster" in state:
+            dev = fs._device()              # marks every slot dirty
+            dev.booster = torch.as_tensor(
+                np.asarray(state["dev_booster"], np.float32),
+                device=dev.device)
         return fs
+
+
+class _DeviceScores:
+    """Device-resident f32 score state (lazy; see FleetStore docstring).
+
+    ``booster`` is *device-owned*: it evolves inside the top-k step and is
+    never overwritten from the host columns — the f64 host booster belongs
+    to the bit-exact probabilistic path, this one to the top-k path.
+    Everything else mirrors the host columns via dirty scatters."""
+
+    def __init__(self, capacity: int, device: torch.device):
+        self.device = device
+        self.num = torch.zeros(capacity, dtype=torch.float32, device=device)
+        self.den = torch.zeros(capacity, dtype=torch.float32, device=device)
+        self.booster = torch.ones(capacity, dtype=torch.float32, device=device)
+        self.eligible = torch.zeros(capacity, dtype=torch.bool, device=device)
+        self.ever = torch.zeros(capacity, dtype=torch.bool, device=device)
+
+    def grow(self, capacity: int) -> None:
+        pad = capacity - self.num.shape[0]
+        if pad <= 0:
+            return
+        dev = self.device
+        self.num = torch.cat([self.num, torch.zeros(pad, device=dev)])
+        self.den = torch.cat([self.den, torch.zeros(pad, device=dev)])
+        self.booster = torch.cat([self.booster, torch.ones(pad, device=dev)])
+        self.eligible = torch.cat(
+            [self.eligible, torch.zeros(pad, dtype=torch.bool, device=dev)])
+        self.ever = torch.cat(
+            [self.ever, torch.zeros(pad, dtype=torch.bool, device=dev)])
+
+    def scatter(self, idx, num, den, eligible, ever) -> None:
+        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        put = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                            device=self.device)
+        self.num[i] = put(num, torch.float32)
+        self.den[i] = put(den, torch.float32)
+        self.eligible[i] = put(eligible, torch.bool)
+        self.ever[i] = put(ever, torch.bool)
+
+    def reset_booster(self, idx) -> None:
+        self.booster[torch.as_tensor(np.asarray(idx, np.int64),
+                                     device=self.device)] = 1.0
 

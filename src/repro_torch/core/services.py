@@ -3,24 +3,29 @@ of ``repro.core.services``).
 
 :class:`FLRuntime` owns the execution state (global params on the card,
 database, simulated platform, event loop, update store, resident dataset)
-and the three round services the poll loop calls:
+and the three round services both drivers share:
 
-  * **invocation** (``invoke_round``): cohort-vectorized Client_Update on
-    the card, then simulated FaaS invocations whose completions land the
-    trained rows as results;
+  * **invocation** (``invoke_round`` / ``hedge_invocations`` /
+    ``cancel_client`` / ``timeout_invocation``): cohort-vectorized
+    Client_Update on the card, simulated FaaS invocations, completion and
+    failure callbacks, and the in-flight registry with reference-counted
+    update payloads (hedge siblings share one trained row; the row is freed
+    exactly once, by whichever invocation ends last without landing it);
   * **aggregation** (``aggregate_round``): staleness x cardinality weights
     (Eq. 2) over the update store's rows, stale pruning;
   * **evaluation** (``evaluate``).
 
-This slice of the port runs the ``Controller`` poll loop with the device
-update and data planes, on the ``object`` or ``columnar`` control plane.
-Settings that need a later slice raise ``NotImplementedError`` naming it
-(``_check_supported``): the ``Scheduler`` engine, megastep, its reactive
-policies and recovery layer, the blob update plane and host data plane,
-SCAFFOLD, ``apodotiko-topk``, fault and traffic profiles, durability and
-checkpointing, and meshes other than ``1x1``. The reference's fields that
-only tune one of those features (retry backoff, quarantine length, hedge
-fraction, journal sync and snapshot cadence) are not fields here.
+Drivers differ only in *when* they call the services: ``Controller`` keeps
+the poll loop (Algorithm 1 verbatim); ``Scheduler`` dispatches typed
+protocol events to a reactive policy through the ``_emit`` hook, a no-op
+for the poll loop.
+
+This slice of the port runs both engines with the device update and data
+planes, on the ``object`` or ``columnar`` control plane. Settings that need
+a later slice raise ``NotImplementedError`` naming it (``_check_supported``):
+megastep, the blob update plane and host data plane, SCAFFOLD, fault and
+traffic profiles, durability and checkpointing, and meshes other than
+``1x1``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from repro_torch.core.aggregation import weighted_aggregate_rows
 from repro_torch.core.client import CohortTrainer
 from repro_torch.core.data_plane import DatasetStore
 from repro_torch.core.database import ClientRecord, Database, ResultRecord
+from repro_torch.core.protocol import (Event, InvocationFailed,
+                                       InvocationTimedOut, ResultLanded)
 from repro_torch.core.scoring import decay_rate
 from repro_torch.core.strategies.base import (Strategy, StrategyConfig,
                                               build_strategy)
@@ -52,22 +59,25 @@ def _resolve(value: str, default: str) -> str:
     return default if value in (None, "", "auto") else value
 
 
+def resolve_engine(mode: str) -> str:
+    """'scheduler' (= 'auto': the event-driven reactive protocol) |
+    'legacy' (the poll loop, kept as the equivalence oracle). Unlike the
+    reference, no environment variable is read."""
+    mode = _resolve(mode, "scheduler")
+    if mode not in ("scheduler", "legacy"):
+        raise ValueError(f"unknown engine {mode!r} "
+                         "(expected 'scheduler', 'legacy', or 'auto')")
+    return mode
+
+
 def _check_supported(cfg: "FLConfig") -> None:
     """Raise for every setting this slice of the port does not run."""
     later = "comes with a later slice of the port"
-    scheduler = "needs the Scheduler engine, which " + later
-    engine = _resolve(cfg.engine, "legacy")
-    if engine == "scheduler":
-        raise NotImplementedError(f"engine='scheduler' {later}")
-    if engine != "legacy":
-        raise ValueError(f"unknown engine {cfg.engine!r}")
+    resolve_engine(cfg.engine)
     if _resolve(cfg.megastep, "stepwise") != "stepwise":
-        raise NotImplementedError(f"megastep={cfg.megastep!r} {scheduler}")
-    for knob in ("invocation_timeout", "retry_budget", "quarantine_threshold"):
-        if getattr(cfg, knob):
-            raise NotImplementedError(f"recovery ({knob}) {scheduler}")
-    if cfg.quorum_fraction < 1.0:
-        raise NotImplementedError(f"quorum_fraction < 1 {scheduler}")
+        raise NotImplementedError(
+            f"megastep={cfg.megastep!r} comes with the megastep slice of the "
+            "port; only 'stepwise' (= 'auto') runs")
     if _resolve(cfg.update_plane, "device") != "device":
         raise NotImplementedError(f"update_plane={cfg.update_plane!r} {later}")
     if _resolve(cfg.data_plane, "device") != "device":
@@ -95,10 +105,12 @@ class FLConfig:
     Paper defaults (IV-A): 200 clients, 100 per round, E=5 local epochs,
     batch 10 (MNIST), Adam 1e-3, CR=0.3, rho=0.2, staleness cap 5.
 
-    The fields and their meaning are the reference's. In the port an
-    ``"auto"`` value resolves to the default the comment names without
-    reading any ``REPRO_*`` environment variable, and a value this slice
-    does not run raises (``_check_supported``)."""
+    The fields and their meaning are the reference's, minus the tuning
+    knobs of durability (journal sync policy and snapshot cadence), which
+    comes with a later slice. In the port an ``"auto"`` value resolves to
+    the default the comment names without reading any ``REPRO_*``
+    environment variable, and a value this slice does not run raises
+    (``_check_supported``)."""
 
     # -- population & schedule -------------------------------------------------
     n_clients: int = 200           # total registered clients (paper IV-A3: 200)
@@ -120,6 +132,9 @@ class FLConfig:
     max_staleness: int = 5         # staleness cap: results from at most this
     #                                 many previous rounds aggregate (§III-B)
     round_timeout: float = 300.0   # sync-strategy round deadline, sim-seconds
+    hedge_fraction: float = 0.5    # apodotiko-hedge: fraction of outstanding
+    #                                 invocations speculatively re-invoked at
+    #                                 the CR gate (slowest first)
     # -- FaaS platform simulation (§IV-A) --------------------------------------
     keep_warm: float = 600.0       # provider keep-warm window before
     #                                 scale-to-zero, sim-seconds
@@ -131,14 +146,20 @@ class FLConfig:
     #                                 this slice (no extra RNG draws)
     traffic_profile: str = "auto"  # open-loop traffic: "auto"/"off" only in
     #                                 this slice (fixed fleet)
-    # -- recovery layer (Scheduler engine only): only "off" in this slice ------
-    invocation_timeout: float = 0.0  # per-invocation kill timer (0 = off)
-    retry_budget: int = 0          # max retries per round (0 = off)
-    quarantine_threshold: int = 0  # circuit breaker after this many
-    #                                 consecutive failures (0 = off)
+    # -- recovery layer (Scheduler engine only) --------------------------------
+    invocation_timeout: float = 0.0  # per-invocation kill timer, sim-seconds
+    #                                 (distinct from round_timeout; 0 = off)
+    retry_budget: int = 0          # max retries per round (0 = no retries)
+    retry_base_delay: float = 2.0  # backoff: delay = base * backoff^(k-1)
+    retry_backoff: float = 2.0     #   * (1 + jitter * U[0,1)) for the k-th
+    retry_jitter: float = 0.1      #   retry of a client within a round
+    quarantine_threshold: int = 0  # circuit breaker: quarantine a client
+    #                                 after this many consecutive failures
+    #                                 (0 = off)
+    quarantine_rounds: int = 3     # rounds a quarantined client sits out
     quorum_fraction: float = 1.0   # sync rounds aggregate once this cohort
-    #                                 fraction completed (1.0 = full gate,
-    #                                 the only value in this slice)
+    #                                 fraction completed (graceful
+    #                                 degradation; 1.0 = the full gate)
     # -- aggregation (§III-B) --------------------------------------------------
     prox_mu: float = 0.01          # mu, FedProx proximal coefficient
     staleness_fn: str = "eq2"      # "eq2" = 1/sqrt(T - t_i + 1) (Eq. 2,
@@ -146,9 +167,9 @@ class FLConfig:
     update_plane: str = "auto"     # client-update transport: "device"
     #                                 (= "auto"): updates stay rows of one
     #                                 card-resident [capacity, W] buffer
-    engine: str = "auto"           # round driver: "legacy" (= "auto"), the
-    #                                 Controller poll loop; "scheduler" comes
-    #                                 with a later slice
+    engine: str = "auto"           # round driver: "scheduler" (= "auto"),
+    #                                 the event-driven reactive protocol, or
+    #                                 "legacy", the Controller poll loop
     control_plane: str = "auto"    # per-client fleet state: "columnar"
     #                                 (= "auto") struct-of-arrays columns, or
     #                                 "object", the per-client ClientRecord
@@ -157,7 +178,8 @@ class FLConfig:
     #                                 (= "auto"): the dataset stays resident
     #                                 on the card, minibatches gathered there
     megastep: str = "auto"         # fused rounds (Scheduler only): "stepwise"
-    #                                 (= "auto") only in this slice
+    #                                 (= "auto") only; "fused" comes with
+    #                                 the megastep slice
     durability: str = "auto"       # durable runs: "auto"/"off" only in this
     #                                 slice
     mesh: str = "auto"             # device mesh: "1x1" (= "auto") only in
@@ -180,6 +202,7 @@ def strategy_config(cfg: FLConfig) -> StrategyConfig:
         round_timeout=cfg.round_timeout,
         prox_mu=cfg.prox_mu,
         staleness_fn=cfg.staleness_fn,
+        hedge_fraction=cfg.hedge_fraction,
         quorum_fraction=cfg.quorum_fraction,
         seed=cfg.seed)
 
@@ -195,9 +218,39 @@ class RoundLog:
     mean_loss: float
 
 
+@dataclass
+class _Payload:
+    """One trained client update, shared by an invocation and its hedge
+    siblings. Freed exactly once: either ownership passes to the landed
+    ``ResultRecord`` (``landed``) or the last reference releases it."""
+
+    row: int = -1          # UpdateStore row handle
+    refs: int = 1
+    landed: bool = False
+
+
+@dataclass
+class Inflight:
+    """Registry entry for one live invocation (the substrate for
+    Hedge/CancelInvocation and the invocation timeout)."""
+
+    client_id: int
+    round: int
+    steps: float
+    t_invoked: float
+    rec: InvocationRecord
+    payload: _Payload
+    n_samples: int
+    loss: float
+    is_hedge: bool = False
+    done: bool = False
+    event: Any = None      # the loop completion event (cancellable)
+
+
 class FLRuntime:
-    """State + round services of the ``Controller`` poll loop (see module
-    docstring). ``device`` defaults to the CUDA card."""
+    """State + round services shared by the ``Controller`` poll loop and the
+    event-driven ``Scheduler`` (see module docstring). ``device`` defaults
+    to the CUDA card."""
 
     engine_name = "runtime"
 
@@ -227,8 +280,10 @@ class FLRuntime:
             device=self.device)
 
         self.control_plane = _resolve(cfg.control_plane, "columnar")
-        self.db = Database(control_plane=self.control_plane)
+        self.db = Database(control_plane=self.control_plane,
+                           device=self.device)
         if self.db.columnar:
+            # incremental-EMA decay (lambda = 1 - rho)
             self.db.fleet.decay = decay_rate(cfg.adjustment_rate)
         for cid in range(cfg.n_clients):
             self.db.register_client(ClientRecord(
@@ -248,6 +303,15 @@ class FLRuntime:
         self._acc = 0.0             # last evaluated accuracy (carried across
         #                             rounds when eval_every > 1)
         self._completed_this_round: set[int] = set()
+        self.inflight: dict[int, list[Inflight]] = {}
+        self.n_hedges = 0           # speculative re-invocations issued
+        self.n_hedge_wins = 0       # hedges that beat their original
+        self.n_cancelled = 0        # invocations cancelled (race/explicit)
+        # recovery-layer observability
+        self.n_retries = 0          # backoff re-invocations fired
+        self.n_timeouts = 0         # invocations killed by the timeout
+        self.n_quarantined = 0      # circuit-breaker quarantines issued
+        self.retry_latency_s = 0.0  # total failure->retry delay, sim-seconds
 
         # update plane: trained models stay rows of one card-resident buffer
         self.update_plane = "device"
@@ -259,41 +323,183 @@ class FLRuntime:
         self.data_plane = "device"
         self.dataset = DatasetStore(data, device=self.device)
 
+    # -- driver view contract (protocol.DatabaseView reads these) ------------
+    @property
+    def current_round(self) -> int:
+        return self.db.round
+
+    @property
+    def round_start(self) -> float:
+        return getattr(self, "_t0", 0.0)
+
+    # -------------------------------------------------- protocol emit hook
+    def _emit(self, event: Event) -> None:
+        """Protocol dispatch hook: a no-op for the poll loop; the
+        ``Scheduler`` overrides it to hand the event to its policy."""
+
     # -------------------------------------------------- invocation service
-    def invoke_round(self, round_: int, selection: list[int]) -> None:
+    def invoke_round(self, round_: int, selection: list[int],
+                     *, reset_completed: bool = True) -> None:
         """Train the selected cohort against the current global model and
-        start their simulated invocations."""
+        start their simulated invocations. ``reset_completed`` clears the
+        sync gating set — the first invocation of a round does, follow-up
+        reinforcements must not."""
         cfg = self.cfg
-        self._completed_this_round = set()
+        if reset_completed:
+            self._completed_this_round = set()
         n_i = self.data.n[selection]   # raises on an out-of-range selection
         steps = np.ceil(n_i / cfg.batch_size).astype(np.int64) * cfg.local_epochs
         steps = np.maximum(steps, 1)
-        row_ids, _, _ = self.trainer.train_cohort_indexed(
+        row_ids, _, losses = self.trainer.train_cohort_indexed(
             self.params, self.dataset, selection, n_i, steps,
             update_sink=self.store)
         for k, cid in enumerate(selection):
-            rec = self.platform.invoke(cid, round_, self.loop.now,
-                                       float(steps[k]), self.hw[cid],
-                                       cfg.base_step_time)
-            self.db.mark_running(cid, round_)
-            self.loop.schedule(rec.duration, lambda cid=cid, rec=rec,
-                               row=int(row_ids[k]), n=int(n_i[k]):
-                               self._complete(cid, round_, rec, row, n))
+            self._launch(cid, round_, float(steps[k]),
+                         _Payload(row=int(row_ids[k])), int(n_i[k]),
+                         float(losses[k]))
 
-    def _complete(self, cid: int, round_: int, rec: InvocationRecord,
-                  row: int, n_samples: int) -> None:
-        """Completion callback: land the trained row as a result, or record
-        the failure and free the row."""
-        if rec.failed:
-            self.db.mark_failed(cid)
-            self.store.free([row])
+    def _launch(self, cid: int, round_: int, steps: float, payload: _Payload,
+                n_samples: int, loss: float, *, is_hedge: bool = False
+                ) -> Inflight:
+        rec = self.platform.invoke(cid, round_, self.loop.now, steps,
+                                   self.hw[cid], self.cfg.base_step_time)
+        self.db.mark_running(cid, round_)
+        inv = Inflight(client_id=cid, round=round_, steps=steps,
+                       t_invoked=self.loop.now, rec=rec, payload=payload,
+                       n_samples=n_samples, loss=loss, is_hedge=is_hedge)
+        inv.event = self.loop.schedule(rec.duration,
+                                       lambda: self._complete(inv))
+        self.inflight.setdefault(cid, []).append(inv)
+        return inv
+
+    def _complete(self, inv: Inflight) -> None:
+        """Completion callback: land the result (or record the failure),
+        settle the payload, and cancel any losing hedge siblings."""
+        inv.done = True
+        self._drop_inflight(inv)
+        pay = inv.payload
+        siblings = [o for o in self.inflight.get(inv.client_id, ())
+                    if o.round == inv.round and not o.done]
+        if inv.rec.failed:
+            if siblings:
+                # a hedge is still racing: count the failure but keep the
+                # client marked running for the surviving invocation
+                self.db.incr_failures(inv.client_id)
+            else:
+                self.db.mark_failed(inv.client_id)
+            pay.refs -= 1
+            if pay.refs <= 0 and not pay.landed:
+                self._free_payload(pay)
+            self._emit(InvocationFailed(t=self.loop.now, round=inv.round,
+                                        client_id=inv.client_id))
             return
-        self.db.mark_complete(cid, rec.duration)  # includes startup/upload
-        result = ResultRecord(client_id=cid, round=round_,
-                              n_samples=n_samples, train_duration=rec.duration,
+        train_dur = inv.rec.duration  # includes startup/load/upload
+        self.db.mark_complete(inv.client_id, train_dur)
+        result = ResultRecord(client_id=inv.client_id, round=inv.round,
+                              n_samples=inv.n_samples,
+                              train_duration=train_dur,
                               t_available=self.loop.now)
-        self.db.put_update_row(result, row)
-        self._completed_this_round.add(cid)
+        self.db.put_update_row(result, pay.row)
+        pay.landed = True
+        pay.refs -= 1
+        self._completed_this_round.add(inv.client_id)
+        if inv.is_hedge:
+            self.n_hedge_wins += 1
+        for sib in siblings:        # losers of the hedge race
+            self._cancel_inflight(sib)
+        self._emit(ResultLanded(t=self.loop.now, round=inv.round,
+                                result=result))
+
+    def _drop_inflight(self, inv: Inflight) -> None:
+        invs = self.inflight.get(inv.client_id)
+        if invs and inv in invs:
+            invs.remove(inv)
+            if not invs:
+                self.inflight.pop(inv.client_id, None)
+
+    def _cancel_inflight(self, inv: Inflight) -> None:
+        if inv.done:
+            return
+        inv.done = True
+        self.loop.cancel(inv.event)
+        self._drop_inflight(inv)
+        # bill only the elapsed fraction and stop the container clocks —
+        # unless a sibling invocation still runs on the instance (its own
+        # completion then bounds the busy/keep-warm horizon)
+        live = [i.rec.t_completed
+                for i in self.inflight.get(inv.client_id, ()) if not i.done]
+        self.platform.cancel(inv.rec, self.loop.now,
+                             live_until=max(live) if live else None)
+        self.n_cancelled += 1
+        pay = inv.payload
+        pay.refs -= 1
+        if pay.refs <= 0 and not pay.landed:
+            self._free_payload(pay)
+
+    def timeout_invocation(self, inv: Inflight) -> None:
+        """Kill an in-flight invocation that outlived the per-invocation
+        timeout (``FLConfig.invocation_timeout``): the container is
+        cancelled at ``now``, the payload released, the failure counted
+        against the client, and ``InvocationTimedOut`` emitted so the
+        recovery policy can retry or quarantine."""
+        if inv.done:
+            return
+        inv.done = True
+        self.loop.cancel(inv.event)
+        self._drop_inflight(inv)
+        live = [i.rec.t_completed
+                for i in self.inflight.get(inv.client_id, ()) if not i.done]
+        self.platform.cancel(inv.rec, self.loop.now,
+                             live_until=max(live) if live else None)
+        inv.rec.failed = True
+        inv.rec.timed_out = True
+        inv.rec.failed_phase = "timeout"
+        pay = inv.payload
+        pay.refs -= 1
+        if pay.refs <= 0 and not pay.landed:
+            self._free_payload(pay)
+        if live:
+            self.db.incr_failures(inv.client_id)    # a sibling still races
+        else:
+            self.db.mark_failed(inv.client_id)
+        self.n_timeouts += 1
+        self._emit(InvocationTimedOut(t=self.loop.now, round=inv.round,
+                                      client_id=inv.client_id))
+
+    def _free_payload(self, pay: _Payload) -> None:
+        if pay.row >= 0:
+            self.store.free([pay.row])
+
+    def cancel_client(self, cid: int) -> None:
+        """Cancel every live invocation of ``cid`` and return the client
+        to the idle pool (the ``CancelInvocation`` action)."""
+        for inv in list(self.inflight.get(cid, ())):
+            self._cancel_inflight(inv)
+        self.db.release_client(cid)
+
+    def hedge_invocations(self, cids: list[int]) -> list[int]:
+        """Speculatively re-invoke the outstanding invocation of each
+        client on its (still-warm, per the keep-warm window the original
+        opened) container. The hedge reuses the original's trained update
+        — same data, same global model — and races its simulated duration;
+        ``_complete`` settles the race. Returns the clients hedged."""
+        launched = []
+        for cid in cids:
+            if not self.db.has_client(cid) or cid not in self.hw:
+                continue
+            invs = self.inflight.get(cid, ())
+            if any(i.is_hedge and not i.done for i in invs):
+                continue            # already hedged
+            live = [i for i in invs if not i.done and not i.is_hedge]
+            if not live:
+                continue
+            orig = live[0]
+            orig.payload.refs += 1
+            self._launch(cid, orig.round, orig.steps, orig.payload,
+                         orig.n_samples, orig.loss, is_hedge=True)
+            self.n_hedges += 1
+            launched.append(cid)
+        return launched
 
     # ------------------------------------------------- aggregation service
     def aggregate_round(self, round_: int) -> tuple[int, int, float]:
@@ -333,7 +539,12 @@ class FLRuntime:
     # -------------------------------------------------- evaluation service
     @torch.no_grad()
     def evaluate(self) -> float:
-        """Exact accuracy over the eval set, in batches of 256 on the card."""
+        """Exact accuracy over the eval set, in batches of 256 on the card.
+        The count of correct samples is scaled in fp32 as the reference's
+        jitted ``correct.astype(f32) / n`` runs: XLA folds the division by
+        the constant n into a multiply by its fp32 reciprocal. So
+        accuracies (and a ``target_accuracy`` stop) are the reference's to
+        the bit."""
         xs = torch.as_tensor(np.asarray(self.data.eval_x))
         ys = torch.as_tensor(np.asarray(self.data.eval_y)).long()
         n, bs = len(xs), 256
@@ -343,7 +554,8 @@ class FLRuntime:
             yb = ys[i:i + bs].to(self.device)
             pred = torch.argmax(self.model.predict(self.params, xb), dim=-1)
             correct += (pred == yb).sum()
-        return float(correct.item()) / max(n, 1)
+        recip = float(np.float32(1.0) / np.float32(max(n, 1)))
+        return float((correct.to(torch.float32) * recip).item())
 
     # ---------------------------------------------------------------- metrics
     def metrics(self) -> dict:
@@ -366,9 +578,29 @@ class FLRuntime:
             "total_cost_usd": cost,
             "cold_start_ratio": self.platform.cold_start_ratio(),
             "n_invocations": len(inv),
-            "n_failures": sum(1 for r in inv if r.failed),
+            "n_hedges": self.n_hedges,
+            "n_hedge_wins": self.n_hedge_wins,
+            "n_cancelled": self.n_cancelled,
             "fault_profile": self.fault_profile,
+            "n_failures": sum(1 for r in inv if r.failed),
+            "n_timeouts": self.n_timeouts,
+            "n_retries": self.n_retries,
+            "n_quarantined": self.n_quarantined,
+            "retry_latency_s": self.retry_latency_s,
+            "failures_by_phase": self._failures_by_phase(inv),
             "selection_bias": (max(count_arr) - min(count_arr)) if count_arr else 0,
             "invocation_counts": count_arr,
             "history": [(l.t_end, l.round, l.accuracy) for l in self.history],
         }
+
+    @staticmethod
+    def _failures_by_phase(inv) -> dict:
+        """Count failed invocations by attributed phase (Bernoulli
+        failures carry phase "train", timeouts "timeout")."""
+        by: dict[str, int] = {}
+        for r in inv:
+            if not r.failed:
+                continue
+            phase = r.failed_phase or "unattributed"
+            by[phase] = by.get(phase, 0) + 1
+        return by

@@ -15,6 +15,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from repro_torch.core.database import Database, ResultRecord
+from repro_torch.core.scoring import promotion_rate
 from repro_torch.core.selection import select_clients as apodotiko_select
 from repro_torch.core.staleness import eq1_fedlesscan, eq2_apodotiko
 
@@ -213,16 +214,26 @@ class Apodotiko(Strategy):
 
 
 class ApodotikoTopK(Apodotiko):
-    """The reference's Apodotiko with deterministic fleet-scale top-k
-    selection over a device score state (``FleetStore.select_topk`` and the
-    ``block_topk`` kernel). Not ported yet: building it raises."""
+    """Apodotiko's gating/weighting with fleet-scale *deterministic*
+    cohort selection: one masked top-k over the device-resident EMA score
+    state (``FleetStore.select_topk``, the ``block_topk`` CUDA kernel on
+    the card) instead of Algorithm 3's probabilistic host-side sampling.
+    Uninvoked clients rank first (the bootstrap), the booster update runs
+    in the same device step, and no per-client Python executes on the
+    selection path — O(M) device work at a million clients. Requires the
+    columnar control plane."""
 
     name = "apodotiko-topk"
 
-    def __init__(self, cfg):
-        raise NotImplementedError(
-            "apodotiko-topk comes with the next slice of the port "
-            "(Scheduler + build_engine + block_topk)")
+    def select(self, db: Database, round_: int) -> list[int]:
+        if not db.columnar:
+            raise ValueError(
+                "apodotiko-topk selects over the columnar control plane's "
+                "device score state; set control_plane='columnar'")
+        return db.fleet.select_topk(
+            self.cfg.clients_per_round,
+            promotion_rate(self.cfg.adjustment_rate),
+            now_round=round_)
 
 
 STRATEGIES = {
@@ -231,13 +242,5 @@ STRATEGIES = {
 }
 
 
-# the reference's scheduler-only reactive policies (core/strategies/reactive.py)
-REACTIVE_POLICIES = ("apodotiko-hedge", "apodotiko-adaptive")
-
-
 def build_strategy(name: str, cfg: StrategyConfig) -> Strategy:
-    if name in REACTIVE_POLICIES:
-        raise NotImplementedError(
-            f"reactive policy {name!r} needs the Scheduler engine, which "
-            "comes with the next slice of the port")
     return STRATEGIES[name](cfg)

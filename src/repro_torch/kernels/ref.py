@@ -1,7 +1,7 @@
 """Plain torch versions of the ported kernels, the twins of
-``repro.kernels.ref`` (fp32 math, same formulas). A wrapper given a CPU
-tensor computes through these; the tests and ``chip_smoke.py`` hold the
-CUDA kernels against them."""
+``repro.kernels.ref`` (fp32 math, same formulas) and, for top-k, of
+``lax.top_k``. A wrapper given a CPU tensor computes through these; the
+tests and ``chip_smoke.py`` hold the CUDA kernels against them."""
 from __future__ import annotations
 
 from typing import Optional
@@ -17,6 +17,42 @@ def staleness_agg(updates: torch.Tensor, weights: torch.Tensor,
     u = updates if rows is None else updates.index_select(0, rows)
     w = weights.to(torch.float32)
     return (u.to(torch.float32) * w[:, None]).sum(0)
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys whose integer order is ``lax.top_k``'s total order on fp32:
+    -NaN < -inf < ... < -0 < +0 < ... < +inf < +NaN. Equal keys are equal
+    bit patterns. ``csrc/topk.cu`` ranks by the same key."""
+    b = scores.to(torch.float32).contiguous().view(torch.int32)
+    return torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+
+
+def block_topk(scores: torch.Tensor, k: int, block: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-block top-k of ``scores [M]``, M padded with -inf to a multiple of
+    ``block``: ``(vals [G, k] fp32, idx [G, k] int64 global)``. In a block,
+    larger keys first and equal keys in ascending index order (a stable
+    descending sort), so no index repeats and an exhausted block yields its
+    lowest untaken indices."""
+    s = scores.to(torch.float32)
+    pad = (-s.shape[0]) % block
+    if pad:
+        s = torch.cat([s, s.new_full((pad,), float("-inf"))])
+    rows = s.reshape(-1, block)
+    order = torch.sort(order_key(rows), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    base = torch.arange(0, s.shape[0], block, device=s.device)[:, None]
+    return torch.gather(rows, 1, order), order + base
+
+
+def masked_topk(scores: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of ``scores [M]`` with ``lax.top_k`` semantics:
+    ``(vals [k] fp32, idx [k] int64)``, descending, ties to the lowest
+    index (a stable descending sort of the whole vector)."""
+    s = scores.to(torch.float32)
+    idx = torch.sort(order_key(s), descending=True, stable=True).indices[:k]
+    return s[idx], idx
 
 
 def bias_corrections(t: int, b1: float, b2: float) -> tuple[float, float]:

@@ -60,7 +60,7 @@ def _run_both(kw):
 
 @pytest.mark.parametrize("strategy", ["fedavg", "apodotiko"])
 def test_controller_matches_reference(strategy):
-    port, m, ref, m_ref, data = _run_both(
+    port, m, ref, m_ref, _ = _run_both(
         base_cfg_kw(strategy=strategy, rounds=3))
     assert m["rounds"] == m_ref["rounds"] == 3
     assert host_trace(port) == host_trace(ref)
@@ -72,11 +72,10 @@ def test_controller_matches_reference(strategy):
     for name, leaf in port.params.items():
         np.testing.assert_allclose(leaf.numpy(), np.asarray(ref.params[name]),
                                    rtol=RTOL, atol=ATOL, err_msg=name)
-    # compared as counts of correct eval samples: the reference divides its
-    # count in fp32, the port in float64
-    n_eval = len(data.eval_y)
-    assert ([round(l.accuracy * n_eval) for l in port.history]
-            == [round(float(l.accuracy) * n_eval) for l in ref.history])
+    # exactly the reference's fp32 accuracies, as plain floats
+    assert ([l.accuracy for l in port.history]
+            == [float(l.accuracy) for l in ref.history])
+    assert m["final_accuracy"] == float(m_ref["final_accuracy"])
 
 
 def test_controller_matches_reference_with_failed_invocations():
