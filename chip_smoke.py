@@ -9,8 +9,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
   1. card: name and power limit (``nvidia-smi``), torch/CUDA versions, the
      TF32 flags (both set False: convolutions would otherwise run in TF32);
-  2. build: the three kernels compiled from ``src/repro_torch/kernels/csrc``
-     into ``build/kernels/`` (one ``nvcc`` per source, all started together);
+  2. build: the five kernel sources compiled from
+     ``src/repro_torch/kernels/csrc`` into ``build/kernels/`` (one ``nvcc``
+     per source, all started together);
   3. main path: the paper's MNIST setup at published width (MnistCNN,
      582,026 params; 200 clients on the 65/25/10 fleet, 100 per round,
      E=5, B=10, Adam 1e-3, CR=0.3) through ``build_engine(...).run()`` (the
@@ -32,12 +33,33 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      ``apodotiko-hedge`` (hedges firing): identical host trace, params
      within rtol 1e-4 / atol 1e-5; and the ``Controller`` poll loop
      against the ``Scheduler`` on the card: identical host trace;
-  7. kernels: each kernel at the shapes the main path gave it, against its
+  7. compress: the apodotiko run's update (final minus initial MnistCNN
+     params) through three ``compress_update`` calls with the error
+     feedback carried, then ``decompress_update``, on the card and on a CPU
+     copy: int8 codes and scales equal to the bit, the error and the
+     decompressed update within rtol 1e-6 / atol 1e-7, and exactly 3
+     ``quantize_q8`` and 4 ``dequantize_q8`` launches (counts zeroed just
+     before the card calls, read just after);
+  8. attention: causal ``flash_attention`` at qwen3-1.7b's attention width
+     (16 heads of 128; k/v given 16 heads, grouped-query expansion being
+     the caller's). Every check is per block of 128 query rows, at
+     tol * (the block's rms + |value|), tol 1e-2 for bf16 and 2e-4 for
+     fp32: a causal row's values shrink with its prefix, so the limit
+     follows them. At 4,096 tokens, bf16 and fp32, against the plain
+     version; at 32,768 tokens (bf16), whose plain version would need a
+     64 GiB score matrix, the first 4,096 query rows must equal the
+     4,096-token run to the bit and every row must match a plain
+     computation of 1,024 rows at a time;
+  9. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
-     ``block_topk`` exactly: values and indices), and timed (median of
-     CUDA-event times) beside the plain version, one PyTorch library call
-     where one computes the same function, and the bound: the larger of
-     bytes / HBM rate and operations / fp32 rate.
+     ``block_topk`` and ``quantize_q8`` / ``dequantize_q8`` exactly;
+     attention by its phase's check), and timed (median of CUDA-event
+     times) beside the plain version, one PyTorch library call where one
+     computes the same function (``dequantize_q8``: ``torch.mul``, held to
+     the bit; attention: ``scaled_dot_product_attention``; ``quantize_q8``
+     has none), and the bound: the larger of bytes / HBM
+     rate and operations / the peak rate of their type (fp32, or the bf16
+     tensor rate for bf16 attention).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -60,6 +82,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 SEED = 0
@@ -105,19 +128,55 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def device_ms(calls: dict, reps: int = 10) -> dict:
+    """Median device time, by kernel name, of the kernels whose name holds
+    each key of ``calls`` over ``reps`` calls of its function, all in one
+    ``torch.profiler`` session (device activity only): the kernel's own
+    time, without the host work of its wrapper, which a CUDA-event time of
+    one short call includes. None for a name the profiler did not see:
+    this time is informational, the contract's ``ms`` is the event time."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for name in calls:
+        times = [(e.time_range.end - e.time_range.start) / 1e3
+                 for e in events if name in e.name]
+        out[name] = statistics.median(times) if times else None
+    return out
+
+
+def put_device_ms(entry: dict, key: str, ms) -> None:
+    entry[key] = ms
+    if ms is None:
+        entry[f"{key}_note"] = "the profiler saw no such kernel"
+
+
+def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
+          ) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 def kernel_wrappers() -> dict:
     """Every port kernel's wrapper, by name; each counts its launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_adam import fused_adam
+    from repro_torch.kernels.quant8 import dequantize_q8, quantize_q8
     from repro_torch.kernels.staleness_agg import staleness_agg
     from repro_torch.kernels.topk import block_topk
     return {"staleness_agg": staleness_agg, "fused_adam": fused_adam,
-            "block_topk": block_topk}
+            "block_topk": block_topk, "quantize_q8": quantize_q8,
+            "dequantize_q8": dequantize_q8, "flash_attention": flash_attention}
 
 
 def zero_counts() -> None:
@@ -444,14 +503,243 @@ def profile_round(data, dev, unprofiled_wall_s: float) -> None:
          top=[{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top])
 
 
+# ----------------------------------------------------------------- compress
+COMPRESS_ROUNDS = 3
+COMPRESS_RTOL, COMPRESS_ATOL = 1e-6, 1e-7
+
+
+def mnist_update(engine, dev) -> dict:
+    """The run's update: its final global MnistCNN params minus the initial
+    ones (the engine's seeded init, made again)."""
+    from repro_torch.models.paper_models import MnistCNN
+    init = MnistCNN().init(torch.Generator().manual_seed(SEED))
+    return {k: v - init[k].to(dev, torch.float32)
+            for k, v in engine.params.items()}
+
+
+def compress_phase(update: dict, run: str) -> dict:
+    """Three ``compress_update`` calls with the error feedback carried,
+    then ``decompress_update``: on the card (counts zeroed just before, read
+    just after), then on a CPU copy. Codes and scales must be equal to the
+    bit, the error and the decompressed update allclose, the launches
+    exactly one quantize and one dequantize a compress and one dequantize
+    for the decompress. Returns the phase record."""
+    from repro_torch.kernels import ops
+
+    def rounds(upd):
+        err, out = None, []
+        for _ in range(COMPRESS_ROUNDS):
+            (q, s, spec), err = ops.compress_update(upd, err)
+            out.append((q, s, err))
+        return out, ops.decompress_update(q, s, spec), spec
+
+    zero_counts()
+    t0 = time.perf_counter()
+    card, card_back, spec = rounds(update)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = read_counts()
+    cpu, cpu_back, _ = rounds({k: v.cpu() for k, v in update.items()})
+    if read_counts() != launches:
+        raise AssertionError("the CPU copy launched a kernel")
+    n, n_pad = spec.n_params, card[0][0].shape[0]
+    per_round = []
+    for r, ((q, s, err), (q_c, s_c, err_c)) in enumerate(zip(card, cpu)):
+        if not torch.equal(q.cpu(), q_c):
+            raise AssertionError(f"round {r}: int8 codes differ card vs CPU")
+        if not torch.equal(s.cpu().view(torch.int32), s_c.view(torch.int32)):
+            raise AssertionError(f"round {r}: scales differ card vs CPU")
+        torch.testing.assert_close(err.cpu(), err_c, rtol=COMPRESS_RTOL,
+                                   atol=COMPRESS_ATOL)
+        # quantization error within half a step of each block's scale
+        step = s.repeat_interleave(256)[:n]
+        per_round.append({
+            "err_max_abs": float(err.abs().max()),
+            "err_over_half_scale": float((err.abs() / (0.5 * step)).max()),
+            "err_diff_vs_cpu": float((err.cpu() - err_c).abs().max())})
+        if per_round[-1]["err_over_half_scale"] > 1.0 + 1e-5:
+            raise AssertionError(f"round {r}: error above half a scale step")
+    back_diff = 0.0
+    for name, leaf in card_back.items():
+        if tuple(leaf.shape) != tuple(update[name].shape) or \
+                not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"{name}: decompressed leaf malformed")
+        torch.testing.assert_close(leaf.cpu(), cpu_back[name],
+                                   rtol=COMPRESS_RTOL, atol=COMPRESS_ATOL)
+        back_diff = max(back_diff,
+                        float((leaf.cpu() - cpu_back[name]).abs().max()))
+    want = {"quantize_q8": COMPRESS_ROUNDS,
+            "dequantize_q8": COMPRESS_ROUNDS + 1}
+    got = {k: launches[k] for k in want}
+    flat = spec.ravel(update)
+    record = {"update_of": run, "n_params": n, "codes": n_pad,
+              "scales": card[0][1].shape[0], "rounds": COMPRESS_ROUNDS,
+              "launches": got, "card_s": card_s,
+              "codes_and_scales_equal": True, "per_round": per_round,
+              "decompressed_diff_vs_cpu": back_diff,
+              "update_max_abs": float(flat.abs().max()),
+              "rtol": COMPRESS_RTOL, "atol": COMPRESS_ATOL}
+    emit("compress", **record)
+    if got != want or any(launches[k] for k in launches if k not in want):
+        raise AssertionError(f"compress launches {launches}, want {want}")
+    if n_pad % 2048 or n_pad - n >= 2048:
+        raise AssertionError(f"{n} params padded to {n_pad} codes")
+    return record
+
+
+# ---------------------------------------------------------------- attention
+ATTN_HEADS, ATTN_DIM = 16, 128        # qwen3-1.7b: 16 query heads of 128
+ATTN_SHORT, ATTN_LONG = 4096, 32768   # train_4k and prefill_32k lengths
+ATTN_ROWS = 128                       # query rows per block of the check
+ATTN_CHUNK = 1024                     # rows per plain computation, long run
+# Kernel vs plain, one block of ATTN_ROWS query rows at a time:
+# |got - want| <= tol * (rms(want over the block) + |want|). A causal row's
+# output shrinks as 1/sqrt(its prefix), so a fixed atol would be as wide as
+# the values of a long run's later rows; scaled by the block's rms it stays
+# a fraction of what it compares. Both sides sum in fp32, so a bf16 output
+# is off by at most one bf16 ulp, 2^-7 of the value.
+ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
+
+
+def attention_inputs(dev, seq: int, heads: int = ATTN_HEADS,
+                     dim: int = ATTN_DIM) -> tuple:
+    """Seeded q, k, v [1, heads, seq, dim] in fp32 on ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return tuple(torch.randn(1, heads, seq, dim, device=dev, generator=gen)
+                 for _ in range(3))
+
+
+def plain_rows(q, k, v, start: int, rows: int) -> torch.Tensor:
+    """Query rows ``[start, start + rows)`` of causal attention over the
+    keys they see, computed plainly (the formulas of
+    ``ref.flash_attention`` with the mask shifted to those rows)."""
+    from repro_torch.kernels.ref import NEG_INF
+    end = start + rows
+    s = torch.einsum("bhsd,bhtd->bhst", q[:, :, start:end].float(),
+                     k[:, :, :end].float()) * q.shape[-1] ** -0.5
+    pos = torch.arange(start, end, device=q.device)[:, None]
+    s = torch.where(pos >= torch.arange(end, device=q.device)[None], s,
+                    NEG_INF)
+    return torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, -1),
+                        v[:, :, :end].float()).to(q.dtype)
+
+
+def attention_check(name: str, got, want, row0: int = 0) -> dict:
+    """``got`` against ``want`` block by block of ATTN_ROWS rows, at
+    ATTN_TOL scaled by each block's rms (see above); raises where a value
+    is outside. ``tol_ratio`` <= 1 passes."""
+    tol = ATTN_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    max_abs, ratio, worst = 0.0, 0.0, row0
+    for r in range(0, want.shape[2], ATTN_ROWS):
+        w, g = want[:, :, r:r + ATTN_ROWS], got[:, :, r:r + ATTN_ROWS]
+        diff = (g - w).abs()
+        r_ratio = float((diff / (tol * (w.pow(2).mean().sqrt() + w.abs())))
+                        .max())
+        max_abs = max(max_abs, float(diff.max()))
+        if r_ratio > ratio:
+            ratio, worst = r_ratio, row0 + r
+    if ratio > 1.0:
+        raise AssertionError(f"{name}: rows {worst}..{worst + ATTN_ROWS - 1}"
+                             f" off the plain version by {ratio} x the "
+                             "tolerance")
+    return {"max_abs_err": max_abs,
+            "max_rel_err": max_abs / float(want.abs().max()),
+            "want_max_abs": float(want.abs().max()), "tol_ratio": ratio,
+            "worst_rows_from": worst, "rows": want.shape[2], "tol": tol}
+
+
+def long_rows_check(out, q, k, v) -> dict:
+    """Every query row of a causal run against ``plain_rows``, ATTN_CHUNK
+    rows at a time: the plain version of a run whose whole score matrix
+    would not fit."""
+    parts = [attention_check(f"flash_attention long, rows {r}+",
+                             out[:, :, r:r + ATTN_CHUNK],
+                             plain_rows(q, k, v, r, ATTN_CHUNK), row0=r)
+             for r in range(0, q.shape[2], ATTN_CHUNK)]
+    worst = max(parts, key=lambda c: c["tol_ratio"])
+    max_abs = max(c["max_abs_err"] for c in parts)
+    want_max = max(c["want_max_abs"] for c in parts)
+    return {"max_abs_err": max_abs, "max_rel_err": max_abs / want_max,
+            "want_max_abs": want_max, "tol_ratio": worst["tol_ratio"],
+            "worst_rows_from": worst["worst_rows_from"],
+            "rows": sum(c["rows"] for c in parts), "tol": worst["tol"]}
+
+
+def attention_phase(dev) -> tuple[dict, dict]:
+    """Causal ``ops.flash_attention`` at ``[1, 16, 4096, 128]`` in bf16 and
+    fp32 against the plain version, and at ``[1, 16, 32768, 128]`` in bf16:
+    the first 4,096 rows equal the short run to the bit (a causal row sees
+    only its prefix; the inputs are the long ones' prefix), and every row
+    matches a plain computation of ATTN_CHUNK rows at a time. Counts are
+    zeroed before and read after each length. Returns (record, inputs)."""
+    from repro_torch.kernels import ops, ref
+
+    short, long = ATTN_SHORT, ATTN_LONG
+    full32 = attention_inputs(dev, long)
+    long_bf = tuple(t.to(torch.bfloat16) for t in full32)
+    short32 = tuple(t[:, :, :short].contiguous() for t in full32)
+    short_bf = tuple(t[:, :, :short].contiguous() for t in long_bf)
+    del full32
+    zero_counts()
+    out_bf = ops.flash_attention(*short_bf)
+    out_32 = ops.flash_attention(*short32)
+    torch.cuda.synchronize()
+    n_short = read_counts()["flash_attention"]
+    zero_counts()
+    t0 = time.perf_counter()
+    out_long = ops.flash_attention(*long_bf)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    n_long = read_counts()["flash_attention"]
+    for name, out, shape in (("short bf16", out_bf, short_bf[0].shape),
+                             ("short fp32", out_32, short32[0].shape),
+                             ("long bf16", out_long, long_bf[0].shape)):
+        if out.shape != shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"attention {name}: malformed output")
+    t0 = time.perf_counter()
+    long_rows = long_rows_check(out_long, *long_bf)
+    check_s = time.perf_counter() - t0
+    record = {
+        "shape_short": list(short_bf[0].shape),
+        "shape_long": list(long_bf[0].shape), "causal": True,
+        "launches_short": n_short, "launches_long": n_long,
+        "short_bf16": attention_check("flash_attention bf16", out_bf,
+                                      ref.flash_attention(*short_bf)),
+        "short_fp32": attention_check("flash_attention fp32", out_32,
+                                      ref.flash_attention(*short32)),
+        "long_prefix_rows_equal": bool(torch.equal(out_long[:, :, :short],
+                                                   out_bf)),
+        "long_rows": long_rows, "long_check_s": check_s,
+        "long_first_call_s": long_s,
+        "long_plain": (f"ref.flash_attention not run whole: its fp32 score "
+                       f"matrix would take {ATTN_HEADS * long**2 * 4 / 2**30:.0f}"
+                       f" GiB; every row checked against plain_rows, "
+                       f"{ATTN_CHUNK} rows at a time"),
+        "tolerance": ("|got - want| <= tol * (rms of want over each block of "
+                      f"{ATTN_ROWS} rows + |want|)"),
+        "tol": {"bf16": ATTN_TOL[torch.bfloat16],
+                "fp32": ATTN_TOL[torch.float32]}}
+    emit("attention", **record)
+    if not record["long_prefix_rows_equal"]:
+        raise AssertionError("the long run's first rows differ from the "
+                             "short run")
+    if (n_short, n_long) != (2, 1):
+        raise AssertionError(f"flash_attention launched {n_short} and "
+                             f"{n_long} times, want 2 and 1")
+    return record, {"short": short_bf, "long": long_bf}
+
+
 # ------------------------------------------------------------------ kernels
-def check(name: str, got, want) -> dict:
+def check(name: str, got, want, rtol: float = KERNEL_RTOL,
+          atol: float = KERNEL_ATOL) -> dict:
     """Kernel output vs plain output: the max abs error, the max abs error
     over the largest magnitude, and the allclose criterion as a ratio
     (``tol_ratio`` <= 1 passes)."""
+    got, want = got.float(), want.float()
     diff = (got - want).abs()
     max_abs = float(diff.max())
-    tol_ratio = float((diff / (KERNEL_ATOL + KERNEL_RTOL * want.abs())).max())
+    tol_ratio = float((diff / (atol + rtol * want.abs())).max())
     if tol_ratio > 1.0:
         raise AssertionError(f"{name}: kernel vs plain max abs {max_abs}, "
                              f"{tol_ratio} x the tolerance")
@@ -640,6 +928,137 @@ def topk_kernel_entry(name: str, m: int, k: int, launches: int,
     return entry
 
 
+def quant8_kernel_entries(update: dict, launches: dict, run: str) -> list:
+    """``quantize_q8`` and ``dequantize_q8`` at the compress phase's shape:
+    the update raveled and zero-padded to a multiple of 2048, as
+    ``compress_update`` hands it to the kernels. Both are held to their
+    plain versions exactly (codes, scales and values to the bit).
+    ``dequantize_q8``'s library call is one ``torch.mul`` of the codes as
+    [blocks, 256] by the scales as [blocks, 1] (int8 x fp32 promotes to
+    fp32), also held to the bit; no single PyTorch call computes
+    ``quantize_q8``'s block-scaled int8 codes."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant8 import QBLOCK, dequantize_q8, quantize_q8
+
+    flat = ops.RavelSpec(update).ravel(update)
+    x = torch.nn.functional.pad(flat, (0, (-flat.shape[0]) % 2048))
+    n, nb = x.shape[0], x.shape[0] // QBLOCK
+    q, s = quantize_q8(x)
+    got = dequantize_q8(q, s)
+    library = lambda: torch.mul(q.view(-1, QBLOCK), s.view(-1, 1))
+    lib = library()
+    torch.cuda.synchronize()
+    want_q, want_s = ref.quantize_q8(x)
+    want = ref.dequantize_q8(q, s)
+    if not (torch.equal(q, want_q) and torch.equal(s.view(torch.int32),
+                                                   want_s.view(torch.int32))):
+        raise AssertionError("quantize_q8: kernel differs from the plain "
+                             "version")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("dequantize_q8: kernel differs from the plain "
+                             "version")
+    if not (lib.dtype == torch.float32 and torch.equal(
+            lib.reshape(-1).view(torch.int32), got.view(torch.int32))):
+        raise AssertionError("dequantize_q8: torch.mul differs from the "
+                             "kernel")
+    nbytes = n * 4 + n + nb * 4          # fp32 values, int8 codes, scales
+    common = {"route": "cuda", "source": "src/repro_torch/kernels/csrc/quant8.cu",
+              "launches_run": run, "shape": {"N": n, "blocks": nb},
+              "exact": True, "bytes": nbytes}
+    entries = []
+    for name, line, fn, plain, lib_fn, flops, err in (
+            ("quantize_q8", 58, lambda: quantize_q8(x),
+             lambda: ref.quantize_q8(x), None,
+             5 * n,                              # abs, max, div, round, clip
+             (s - want_s).abs().max()),
+            ("dequantize_q8", 89, lambda: dequantize_q8(q, s),
+             lambda: ref.dequantize_q8(q, s), library, n,   # one multiply
+             (got - want).abs().max())):
+        e = {"name": name, "replaces": f"src/repro/kernels/quant8.py:{line}",
+             "launches": launches[name], "max_abs_err": float(err), **common}
+        e["ms"] = time_ms(fn)
+        e["plain_ms"] = time_ms(plain)
+        calls = {f"{name}_kernel": fn}
+        if lib_fn is None:
+            e["library_ms"] = None
+            e["library_note"] = ("no single PyTorch call computes "
+                                 "block-scaled int8 codes")
+        else:
+            e["library_ms"] = time_ms(lib_fn)
+            e["library"] = ("torch.mul(q.view(-1, 256), s.view(-1, 1)), "
+                            "bit-equal to the kernel")
+            calls["elementwise"] = lib_fn
+        dev_ms = device_ms(calls)
+        put_device_ms(e, "device_ms", dev_ms[f"{name}_kernel"])
+        if lib_fn is not None:
+            put_device_ms(e, "library_device_ms", dev_ms["elementwise"])
+        e["bound_ms"], e["bound_by"] = bound(nbytes, flops)
+        entries.append(e)
+    return entries
+
+
+def attention_work(B: int, H: int, S: int, D: int, elt: int
+                   ) -> tuple[int, int]:
+    """Causal attention forward's least work: two products over the lower
+    triangle (4*B*H*D*S(S+1)/2 flops) and q, k, v read and the output
+    written once (4*B*H*S*D elements)."""
+    return 4 * B * H * D * S * (S + 1) // 2, 4 * B * H * S * D * elt
+
+
+def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
+                           checked: dict, reps: int = 20) -> dict:
+    """``flash_attention`` (causal) on ``qkv``, timed beside
+    ``F.scaled_dot_product_attention(is_causal=True)``, the library call
+    for the same function, and beside the plain version; ``checked`` is the
+    attention phase's check of the same output against it. Where the whole
+    plain version does not fit (``S`` past ATTN_SHORT), the plain time is
+    of ``plain_rows`` over every row, ATTN_CHUNK rows at a time. The bound
+    is the function's: causal flops 4*B*H*D*S(S+1)/2 at the bf16 tensor
+    rate (fp32 rate for fp32), bytes q, k, v read and the output written
+    once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = qkv
+    B, H, S, D = q.shape
+    got = flash_attention(q, k, v)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    lib = library()
+    torch.cuda.synchronize()
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:82",
+             "launches": launches, "launches_run": run,
+             "shape": {"B": B, "H": H, "S": S, "D": D,
+                       "dtype": str(q.dtype), "causal": True},
+             "library_max_abs_diff": float((lib.float() - got.float())
+                                           .abs().max()),
+             **checked}
+    if S <= ATTN_SHORT:
+        plain = lambda: ref.flash_attention(q, k, v)
+    else:
+        plain = lambda: [plain_rows(q, k, v, r, ATTN_CHUNK)
+                         for r in range(0, S, ATTN_CHUNK)]
+        entry["plain_note"] = (
+            f"plain_ms is of plain_rows over every row, {ATTN_CHUNK} rows at "
+            f"a time: ref.flash_attention whole would need a "
+            f"{B * H * S * S * 4 / 2**30:.0f} GiB fp32 score matrix")
+    warmup = 1 if reps < 20 else 3
+    entry["ms"] = time_ms(lambda: flash_attention(q, k, v), reps=reps,
+                          warmup=warmup)
+    put_device_ms(entry, "device_ms", device_ms(
+        {"flash_fwd_kernel": lambda: flash_attention(q, k, v)},
+        reps=min(reps, 10))["flash_fwd_kernel"])
+    entry["plain_ms"] = time_ms(plain, reps=min(reps, 5), warmup=1)
+    entry["library_ms"] = time_ms(library, reps=reps, warmup=warmup)
+    flops, nbytes = attention_work(B, H, S, D, q.element_size())
+    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops, rate)
+    entry["flops"], entry["bytes"] = flops, nbytes
+    return entry
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "launches_run", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -691,13 +1110,16 @@ def main() -> int:
                                   fidelity="paper")
     emit("data", seconds=time.perf_counter() - t0, X=list(data.X.shape),
          eval_n=len(data.eval_y))
-    _, apo = run_main_path("apodotiko", 3, data, dev)
+    apo_engine, apo = run_main_path("apodotiko", 3, data, dev)
     _, avg = run_main_path("fedavg", 1, data, dev)
     topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
     main_m = topk_engine.db.fleet.capacity
     fleet = fleet_phase(dev)
     reference_phase(dev)
     profile_round(data, dev, avg["rounds"][0]["wall_s"])
+    update = mnist_update(apo_engine, dev)
+    compress = compress_phase(update, main_run(apo))
+    attention, attn_inputs = attention_phase(dev)
 
     n_topk = top["launches"]["block_topk"]
     kernels = [agg_kernel_entry("staleness_agg", avg, dev, rows_form=False),
@@ -710,6 +1132,21 @@ def main() -> int:
                                  sum(fleet["launches_per_call"]),
                                  f"fleet phase: {FLEET_ROUNDS} select_topk "
                                  "calls at M = 1e6", dev)]
+    kernels += quant8_kernel_entries(
+        update, compress["launches"],
+        f"compress phase: {COMPRESS_ROUNDS} compress_update calls and one "
+        "decompress_update")
+    kernels += [
+        attention_kernel_entry(
+            "flash_attention", attn_inputs["short"],
+            attention["launches_short"],
+            "attention phase: causal [1,16,4096,128] in bf16 and in fp32",
+            attention["short_bf16"]),
+        attention_kernel_entry(
+            "flash_attention[prefill_32k]", attn_inputs["long"],
+            attention["launches_long"],
+            "attention phase: causal [1,16,32768,128] in bf16",
+            attention["long_rows"], reps=5)]
     for e in kernels:
         emit("kernel", **e)
     for line in report_lines(kernels, kind, torch.cuda.device_count()):

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("staleness_agg", "fused_adam", "topk")
+SOURCES = ("staleness_agg", "fused_adam", "topk", "quant8", "flash_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # loaded libraries, one per source
 

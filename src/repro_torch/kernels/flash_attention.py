@@ -1,0 +1,84 @@
+"""Attention forward: wrapper around ``csrc/flash_attention.cu``.
+
+``flash_attention(q, k, v, causal=True, sm_scale=None, block_q=128,
+block_k=128)`` takes q ``[B, H, S, D]`` and k/v ``[B, H, T, D]`` (k/v with
+q's head count: grouped-query expansion is the caller's) and returns
+``[B, H, S, D]`` in q's dtype, with the reference's contract: S a multiple of
+``block_q`` and T of ``block_k`` (``ValueError`` otherwise), ``sm_scale``
+defaulting to ``D ** -0.5``. A CPU tensor takes the plain torch version
+(``ref.flash_attention``); a CUDA tensor launches the kernel or raises. The
+kernel tiles by its own sizes (64 x 64), so the block sizes only set the
+contract. ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build, ref
+
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
+NEG_INF = ref.NEG_INF
+HEAD_DIMS = (64, 128)      # head dims the kernel is built for
+MAX_BH = 65535             # batch * heads: the grid's second dimension
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale=None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """q [B,H,S,D], k/v [B,H,T,D] -> [B,H,S,D]. On CUDA: fp32 or bf16, one
+    dtype and one card for all three, contiguous, D in ``HEAD_DIMS``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"need q [B,H,S,D] and k, v [B,H,T,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    if S % block_q or T % block_k:
+        raise ValueError(f"S={S} must be a multiple of block_q={block_q} and "
+                         f"T={T} of block_k={block_k}")
+    if sm_scale is None:
+        sm_scale = D ** -0.5
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention runs on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes fp32 or bf16 (one dtype), got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash_attention kernel is built for head dims {HEAD_DIMS}, "
+            f"not D={D}")
+    if B * H > MAX_BH:
+        raise NotImplementedError(f"B*H={B * H} exceeds the kernel's grid "
+                                  f"limit of {MAX_BH}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention takes contiguous, 16-byte aligned "
+                         "tensors")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + \
+        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B * H, S, T, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            float(np.float32(sm_scale)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -6,22 +6,29 @@
   - ``aggregate_rows``: the full-buffer sweep over a persistent ``[C, W]``
     row buffer (weights scattered over all C rows, free rows at 0);
   - ``aggregate_rows_gather``: the same sum over only the referenced rows;
+  - ``aggregate_pytree``: the same weighted sum over a list of parameter
+    trees (ravel, stack, reduce, unravel);
   - ``masked_topk`` / ``scored_topk``: the fleet-scale top-k selection step
-    of ``apodotiko-topk`` (``FleetStore.select_topk``).
+    of ``apodotiko-topk`` (``FleetStore.select_topk``);
+  - ``compress_update`` / ``decompress_update``: int8 client-update
+    compression with error feedback (``kernels.quant8``);
+  - ``flash_attention`` (``kernels.flash_attention``).
 
-Both reductions go through ``kernels.staleness_agg`` and the top-k through
+The reductions go through ``kernels.staleness_agg``, the top-k through
 ``kernels.topk.block_topk``: a CUDA tensor launches the kernel, a CPU
 tensor takes its plain version.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.quant8 import QBLOCK, ROWS, dequantize_q8, quantize_q8
 from repro_torch.kernels.staleness_agg import VEC, staleness_agg
 from repro_torch.kernels.topk import BLOCK_TOPK, block_topk, chosen_mask
 
@@ -204,3 +211,47 @@ def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
     boost = torch.where(chosen, 1.0,
                         torch.where(eligible, booster * beta, booster))
     return idx, valid, boost
+
+
+def aggregate_pytree(updates: Sequence[Params], weights, *,
+                     restore_dtype: bool = True) -> Params:
+    """``sum_k weights[k] * updates[k]`` over K parameter trees: ravel ->
+    ``[K, N]`` -> ``staleness_agg`` -> unravel (twin of the reference's
+    ``ops.aggregate_pytree``). K pads to the sublane multiple with
+    zero-weight rows and N to the kernel's vector width with zero columns;
+    ``restore_dtype=False`` keeps fp32 leaves."""
+    spec = RavelSpec(updates[0])
+    stacked = torch.stack([spec.ravel(u) for u in updates], 0)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=stacked.device)
+    K, N = stacked.shape
+    pad_k, pad_n = (-K) % SUBLANE, (-N) % VEC
+    if pad_k or pad_n:
+        stacked = F.pad(stacked, (0, pad_n, 0, pad_k))
+        w = F.pad(w, (0, pad_k))
+    agg = staleness_agg(stacked, w)
+    return spec.unravel(agg[:N], restore_dtype=restore_dtype)
+
+
+def compress_update(update: Params, error_feedback: Optional[torch.Tensor]
+                    = None):
+    """int8-compress a client update with residual error feedback (twin of
+    the reference's ``ops.compress_update``): ravel, add the flat error
+    feedback, zero-pad to a multiple of ``ROWS * QBLOCK`` (so the codes
+    keep the padded length), quantize, dequantize and trim. Returns
+    ``((q, scales, spec), err)`` with ``err = flat - dequantized`` [N]."""
+    spec = RavelSpec(update)
+    flat = spec.ravel(update)
+    if error_feedback is not None:
+        flat = flat + error_feedback
+    N = spec.n_params
+    pad = (-N) % (ROWS * QBLOCK)
+    q, s = quantize_q8(F.pad(flat, (0, pad)) if pad else flat)
+    err = flat - dequantize_q8(q, s)[:N]
+    return (q, s, spec), err
+
+
+def decompress_update(q: torch.Tensor, s: torch.Tensor, meta: RavelSpec
+                      ) -> Params:
+    """The update tree back from ``compress_update``'s codes and scales, in
+    the leaves' own dtypes."""
+    return meta.unravel(dequantize_q8(q, s)[:meta.n_params])

@@ -1,13 +1,16 @@
 """Plain torch versions of the ported kernels, the twins of
-``repro.kernels.ref`` (fp32 math, same formulas) and, for top-k, of
-``lax.top_k``. A wrapper given a CPU tensor computes through these; the
-tests and ``chip_smoke.py`` hold the CUDA kernels against them."""
+``repro.kernels.ref`` (fp32 math, same formulas), for top-k of
+``lax.top_k`` and for the int8 scale of the reference's entry point
+``repro.kernels.ops.quantize_q8``. A wrapper given a CPU tensor computes
+through these; the tests and ``chip_smoke.py`` hold the CUDA kernels
+against them."""
 from __future__ import annotations
 
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def staleness_agg(updates: torch.Tensor, weights: torch.Tensor,
@@ -76,3 +79,57 @@ def fused_adam(p, m, v, g, steps, s: int, *, lr: float, b1: float = 0.9,
     p.copy_(torch.where(active, p_new, p))
     m.copy_(torch.where(active, m_new, m))
     v.copy_(torch.where(active, v_new, v))
+
+
+QBLOCK = 256                          # elements per int8 scale
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+NEG_INF = -2.0 ** 30                  # the attention mask value
+
+
+def quantize_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [N] -> (int8 codes [N], fp32 scales [ceil(N/256)]), per block of
+    256: ``scale = max(maxabs * float32(1/127), 1e-12)`` and ``q =
+    clip(round_half_even(x / scale), -127, 127)``; the tail block is
+    zero-padded. The scale is the reference entry point's
+    (``ops.quantize_q8``), where XLA folds ``/ 127`` into a multiply by the
+    fp32 reciprocal; ``repro.kernels.ref.quantize_q8`` divides, and the
+    two disagree by one ulp in 2-3 % of blocks. ``x / scale`` is a true
+    division, as in both. A block holding a NaN or an inf gets a NaN or inf
+    scale and all-zero codes, as the reference's do."""
+    N = x.shape[0]
+    xb = F.pad(x.to(torch.float32), (0, (-N) % QBLOCK)).reshape(-1, QBLOCK)
+    scale = (xb.abs().amax(dim=1) * INV_127).clamp_min(1e-12)
+    q = torch.round(xb / scale[:, None]).clamp(-127, 127)
+    q = torch.where(torch.isfinite(scale)[:, None], q, 0.0)
+    return q.to(torch.int8).reshape(-1)[:N], scale
+
+
+def dequantize_q8(q: torch.Tensor, scales: torch.Tensor,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 codes [N] and fp32 scales [<= ceil(N/256)] -> ``q * scale``
+    in fp32, cast to ``dtype``; a block past the last scale takes 1.0, as
+    the reference's padding does."""
+    N = q.shape[0]
+    nb = -(-N // QBLOCK)
+    s = F.pad(scales.to(torch.float32), (0, nb - scales.shape[0]), value=1.0)
+    qb = F.pad(q, (0, nb * QBLOCK - N)).reshape(nb, QBLOCK)
+    return (qb.to(torch.float32) * s[:, None]).reshape(-1)[:N].to(dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, sm_scale=None) -> torch.Tensor:
+    """q [B,H,S,D], k/v [B,H,T,D] -> [B,H,S,D] in q's dtype: the whole
+    score matrix in fp32, masked with -2^30 where ``s < t`` (causal), a
+    softmax and the weighted sum of v."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                     k.to(torch.float32)) * sm_scale
+    if causal:
+        S, T = s.shape[-2:]
+        keep = (torch.arange(S, device=s.device)[:, None]
+                >= torch.arange(T, device=s.device)[None, :])
+        s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p,
+                        v.to(torch.float32)).to(q.dtype)

@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -21,6 +22,11 @@ def _load():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _device_ms(calls, **kw):
+    """chip_smoke's ``device_ms`` on the CPU: each call run once, 0 ms."""
+    return {name: (fn(), 0.0)[1] for name, fn in calls.items()}
 
 
 def _entry(name):
@@ -59,6 +65,168 @@ def test_topk_entry_bound_is_the_functions_bytes(monkeypatch):
     assert e["bytes"] == 4 * m + 12 * k
     assert e["bound_by"] == "bytes"
     assert e["bound_ms"] == (4 * m + 12 * k) / cs.HBM_BYTES_PER_S * 1e3
+
+
+def test_every_kernel_wrapper_counts_its_launches():
+    cs = _load()
+    wrappers = cs.kernel_wrappers()
+    assert set(wrappers) == {"staleness_agg", "fused_adam", "block_topk",
+                             "quantize_q8", "dequantize_q8",
+                             "flash_attention"}
+    assert all(isinstance(fn.launches, int) for fn in wrappers.values())
+
+
+def test_quant8_entries_are_exact_with_byte_bounds(monkeypatch):
+    """CPU rehearsal of the quant8 entries: the update padded as
+    ``compress_update`` pads it, plain against plain (exact), no library
+    call and the reason why, the bound in bytes (fp32 in, int8 codes and
+    fp32 scales out), and the compress phase's launch counts."""
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    gen = torch.Generator().manual_seed(0)
+    update = {"w": torch.randn(300, 70, generator=gen),
+              "b": torch.randn(13, generator=gen)}
+    q_e, dq_e = cs.quant8_kernel_entries(
+        update, {"quantize_q8": 3, "dequantize_q8": 4}, "compress phase: x")
+    n = 22_528                            # 21,013 params padded to 11 x 2048
+    assert (q_e["launches"], dq_e["launches"]) == (3, 4)
+    for e in (q_e, dq_e):
+        assert set(cs.KERNEL_KEYS) <= set(e)
+        assert e["shape"] == {"N": n, "blocks": n // 256}
+        assert e["max_abs_err"] == 0.0 and e["exact"]
+        assert e["bytes"] == 4 * n + n + 4 * (n // 256)
+        assert e["bound_by"] == "bytes"
+        assert e["bound_ms"] == e["bytes"] / cs.HBM_BYTES_PER_S * 1e3
+    assert q_e["library_ms"] is None and "no single PyTorch call" in \
+        q_e["library_note"]
+    assert dq_e["library_ms"] == 0.0 and "torch.mul" in dq_e["library"]
+    assert q_e["replaces"] == "src/repro/kernels/quant8.py:58"
+    assert dq_e["replaces"] == "src/repro/kernels/quant8.py:89"
+
+
+def test_attention_bound_counts_causal_flops_at_the_bf16_rate():
+    """4*B*H*D*S(S+1)/2 flops: 6.87e10 at [1,16,4096,128] (0.069 ms at 989
+    TFLOP/s) and 4.40e12 at 32,768 tokens (4.45 ms); the bytes are far
+    below."""
+    cs = _load()
+    flops, nbytes = cs.attention_work(1, 16, 4096, 128, 2)
+    assert flops == 68_736_253_952 and nbytes == 4 * 16 * 4096 * 128 * 2
+    ms, by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
+    assert by == "operations" and abs(ms - 0.0695) < 1e-3
+    flops, nbytes = cs.attention_work(1, 16, 32768, 128, 2)
+    assert abs(flops - 4.40e12) < 0.01e12
+    ms, by = cs.bound(nbytes, flops, cs.BF16_FLOP_PER_S)
+    assert by == "operations" and abs(ms - 4.45) < 0.01
+
+
+def test_attention_entry_and_tail_rows_on_the_cpu(monkeypatch):
+    """CPU rehearsal: ``plain_rows`` over any row range are those rows of
+    the plain causal run; an entry carries the phase's check, and past the
+    whole plain version's size its plain time is of ``plain_rows`` chunk
+    by chunk, with the reason."""
+    cs = _load()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    q, k, v = cs.attention_inputs(torch.device("cpu"), 256, heads=2, dim=64)
+    whole = ref.flash_attention(q, k, v)
+    for start, rows in ((192, 64), (0, 64), (64, 128)):
+        torch.testing.assert_close(cs.plain_rows(q, k, v, start, rows),
+                                   whole[:, :, start:start + rows],
+                                   rtol=1e-5, atol=1e-6)
+    qkv = tuple(t.to(torch.bfloat16) for t in (q, k, v))
+    checked = cs.attention_check("x", ref.flash_attention(*qkv),
+                                 ref.flash_attention(*qkv))
+    assert checked["max_abs_err"] == 0.0 and checked["tol_ratio"] == 0.0
+    full = cs.attention_kernel_entry("flash_attention", qkv, 2, "x", checked)
+    assert full["max_abs_err"] == 0.0 and full["plain_ms"] == 0.0
+    assert full["library_max_abs_diff"] < 3e-2 and "plain_note" not in full
+    monkeypatch.setattr(cs, "ATTN_SHORT", 128)
+    monkeypatch.setattr(cs, "ATTN_CHUNK", 64)
+    long = cs.attention_kernel_entry("flash_attention[prefill_32k]", qkv, 1,
+                                     "x", dict(checked, max_abs_err=1e-3),
+                                     reps=5)
+    assert long["max_abs_err"] == 1e-3 and long["plain_ms"] == 0.0
+    assert "plain_rows" in long["plain_note"]
+    assert set(cs.KERNEL_KEYS) <= set(long)
+
+
+def _planted(kind, q, k, v, want):
+    """``want`` (the plain causal output) with one kind of fault planted."""
+    from repro_torch.kernels import ref
+    S = q.shape[2]
+    if kind == "one_bf16_ulp_everywhere":     # a right answer, 1 ulp off
+        return (want.view(torch.int16) + 1).view(torch.bfloat16)
+    if kind == "late_rows_halved":
+        out = want.clone()
+        out[:, :, S // 2:] /= 2
+        return out
+    if kind == "one_late_row_block_scaled_0.9":
+        out = want.clone()
+        out[:, :, S - 256:S - 128] *= 0.9
+        return out
+    if kind == "diagonal_kv_tile_dropped":   # loop bound one tile short
+        s = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()
+                         ) * q.shape[-1] ** -0.5
+        pos = torch.arange(S)[:, None]
+        s = torch.where(torch.arange(S)[None] < pos // 64 * 64, s,
+                        ref.NEG_INF)
+        out = torch.einsum("bhst,bhtd->bhsd", torch.softmax(s, -1),
+                           v.float()).to(q.dtype)
+        out[:, :, :64] = 0
+        return out
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind, passes", [
+    ("one_bf16_ulp_everywhere", True),
+    ("late_rows_halved", False),
+    ("one_late_row_block_scaled_0.9", False),
+    ("diagonal_kv_tile_dropped", False),
+])
+def test_attention_check_catches_planted_faults(kind, passes):
+    """The attention check, limit scaled by each 128-row block's rms: a
+    bf16 output one ulp off everywhere passes, a halved half, one row block
+    10 % low or a causal loop one kv tile short fails."""
+    cs = _load()
+    from repro_torch.kernels import ref
+    q, k, v = (t.to(torch.bfloat16) for t in
+               cs.attention_inputs(torch.device("cpu"), 1024, heads=2,
+                                   dim=64))
+    want = ref.flash_attention(q, k, v)
+    got = _planted(kind, q, k, v, want)
+    if passes:
+        assert cs.attention_check(kind, got, want)["tol_ratio"] <= 1.0
+    else:
+        with pytest.raises(AssertionError, match="x the tolerance"):
+            cs.attention_check(kind, got, want)
+
+
+@pytest.mark.parametrize("kind, passes", [
+    ("plain", True),
+    ("one_late_row_block_scaled_0.9", False),
+    ("diagonal_kv_tile_dropped", False),
+])
+def test_long_rows_check_covers_every_row(monkeypatch, kind, passes):
+    """The long run's check holds every row, chunk by chunk, against
+    ``plain_rows``; a fault in any chunk fails it."""
+    cs = _load()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(cs, "ATTN_CHUNK", 256)
+    q, k, v = (t.to(torch.bfloat16) for t in
+               cs.attention_inputs(torch.device("cpu"), 1024, heads=2,
+                                   dim=64))
+    want = ref.flash_attention(q, k, v)
+    got = want if kind == "plain" else _planted(kind, q, k, v, want)
+    if passes:
+        c = cs.long_rows_check(got, q, k, v)
+        assert c["rows"] == 1024 and c["tol_ratio"] <= 1.0
+    else:
+        with pytest.raises(AssertionError, match="x the tolerance"):
+            cs.long_rows_check(got, q, k, v)
 
 
 def test_every_stdout_print_is_json():

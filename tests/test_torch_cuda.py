@@ -7,13 +7,18 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: rtol 1e-5 / atol 1e-6, the reference's kernel self-check
-tolerance, unless a case states why it needs more; ``block_topk`` is
-held to exact equality of values and indices."""
+tolerance, unless a case states why it needs more; ``block_topk`` and the
+int8 codes and scales of ``quantize_q8`` are held to exact equality,
+``flash_attention`` block by block of 128 query rows to |got - want| <=
+tol * (the block's rms + |want|), tol 2e-4 for fp32 and 1e-2 for bf16
+(one bf16 ulp is at most 2^-7 of a value): an attention row's values
+shrink with the keys it sees, so the limit follows them."""
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as attn
 from repro_torch.kernels import fused_adam as fa
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quant8
 from repro_torch.kernels import ref
 from repro_torch.kernels import staleness_agg as sa
 from repro_torch.kernels import topk
@@ -92,3 +97,151 @@ def test_block_topk_kernel_equals_plain(card, m, k, block):
     exp_v, exp_i = ref.masked_topk(s, k)
     assert torch.equal(got_i, exp_i)
     assert torch.equal(got_v.view(torch.int32), exp_v.view(torch.int32))
+
+
+def _same_bits(got, want):
+    """Equal to the bit, NaNs where the other has NaNs (payloads aside)."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 5000, 583680])
+def test_quantize_q8_kernel_equals_plain(card, n):
+    gen = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn(n, device=card, generator=gen) * 3.0
+    if n >= 1024:           # a NaN block, an inf block, -0, an all-zero block
+        x[5], x[300], x[600] = float("nan"), float("inf"), -0.0
+        x[768:1024] = 0.0
+    before = quant8.quantize_q8.launches
+    q, s = quant8.quantize_q8(x)
+    torch.cuda.synchronize()
+    assert quant8.quantize_q8.launches == before + 1
+    want_q, want_s = ref.quantize_q8(x)
+    assert torch.equal(q, want_q)
+    _same_bits(s, want_s)
+    if n >= 1024:
+        assert bool((q[:512] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, n_scales", [(583680, 2280), (5000, 20),
+                                         (5000, 24)])
+def test_dequantize_q8_kernel_equals_plain(card, dtype, n, n_scales):
+    gen = torch.Generator(device=card).manual_seed(n + n_scales)
+    q = torch.randint(-127, 128, (n,), device=card, generator=gen,
+                      dtype=torch.int8)
+    s = torch.rand(n_scales, device=card, generator=gen) * 0.1
+    before = quant8.dequantize_q8.launches
+    got = quant8.dequantize_q8(q, s, dtype=dtype)
+    torch.cuda.synchronize()
+    assert quant8.dequantize_q8.launches == before + 1
+    want = ref.dequantize_q8(q, s, dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_compress_update_card_equals_cpu(card):
+    gen = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(300, 70, generator=gen) * 0.01,
+            "b": torch.randn(13, generator=gen)}
+    on_card = {k: v.to(card) for k, v in tree.items()}
+    err_card = err_cpu = None
+    before = (quant8.quantize_q8.launches, quant8.dequantize_q8.launches)
+    for _ in range(3):
+        (q, s, spec), err_card = ops.compress_update(on_card, err_card)
+        (q_cpu, s_cpu, _), err_cpu = ops.compress_update(tree, err_cpu)
+        assert torch.equal(q.cpu(), q_cpu)
+        _same_bits(s.cpu(), s_cpu)
+        torch.testing.assert_close(err_card.cpu(), err_cpu, rtol=1e-6,
+                                   atol=1e-7)
+    back = ops.decompress_update(q, s, spec)
+    torch.cuda.synchronize()
+    assert (quant8.quantize_q8.launches - before[0],
+            quant8.dequantize_q8.launches - before[1]) == (3, 4)
+    for name, leaf in ops.decompress_update(q_cpu, s_cpu, spec).items():
+        torch.testing.assert_close(back[name].cpu(), leaf, rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_aggregate_pytree_card_matches_cpu(card):
+    gen = torch.Generator().manual_seed(1)
+    trees = [{"a": torch.randn(37, 5, generator=gen),
+              "b": torch.randn(11, generator=gen)} for _ in range(3)]
+    w = [0.2, 0.5, 0.3]
+    before = sa.staleness_agg.launches
+    got = ops.aggregate_pytree([{k: v.to(card) for k, v in t.items()}
+                                for t in trees], w)
+    torch.cuda.synchronize()
+    assert sa.staleness_agg.launches == before + 1
+    for name, leaf in ops.aggregate_pytree(trees, w).items():
+        torch.testing.assert_close(got[name].cpu(), leaf, rtol=RTOL,
+                                   atol=ATOL)
+
+
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+
+
+def assert_attention_close(got, want, rows=128):
+    """Block by block of ``rows`` query rows, at ATTN_TOL scaled by the
+    block's rms (see the module docstring)."""
+    tol = ATTN_TOL[want.dtype]
+    got, want = got.float(), want.float()
+    for r in range(0, want.shape[2], rows):
+        w, g = want[:, :, r:r + rows], got[:, :, r:r + rows]
+        limit = tol * (w.pow(2).mean().sqrt() + w.abs())
+        bad = (g - w).abs() > limit
+        assert not bool(bad.any()), (
+            f"rows {r}..: {int(bad.sum())} values off, max abs "
+            f"{float((g - w).abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, h, s, t, d, dtype, causal, block", [
+    (1, 2, 128, 128, 64, torch.float32, True, 128),
+    (1, 2, 256, 128, 64, torch.float32, False, 128),
+    (1, 2, 128, 256, 128, torch.float32, True, 128),
+    (2, 3, 192, 320, 128, torch.bfloat16, True, 64),
+    (1, 2, 256, 256, 128, torch.bfloat16, False, 128),
+    (1, 1, 96, 96, 64, torch.float32, True, 32),    # ragged for 64-tiles
+    (1, 16, 1024, 1024, 128, torch.bfloat16, True, 128),
+])
+def test_flash_attention_kernel_matches_plain(card, b, h, s, t, d, dtype,
+                                              causal, block):
+    gen = torch.Generator(device=card).manual_seed(s * t + d)
+    q, k, v = (torch.randn(b, h, n, d, device=card, generator=gen).to(dtype)
+               for n in (s, t, t))
+    before = attn.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=block,
+                              block_k=block)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == (b, h, s, d)
+    assert_attention_close(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_attention_prefix_rows_equal_the_prefix_run(card):
+    gen = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn(1, 4, 512, 128, device=card, generator=gen
+                           ).to(torch.bfloat16) for _ in range(3))
+    full = ops.flash_attention(q, k, v)
+    prefix = ops.flash_attention(*(t[:, :, :256].contiguous()
+                                   for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(full[:, :, :256], prefix)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_what_it_does_not_take(card):
+    t = torch.zeros(1, 2, 128, 96, device=card)
+    with pytest.raises(NotImplementedError, match="64, 128"):
+        ops.flash_attention(t, t, t)
+    h = torch.zeros(1, 2, 128, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(h, h, h)

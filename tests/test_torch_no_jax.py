@@ -36,6 +36,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.staleness_agg" in mods
     assert "repro_torch.core.scheduler" in mods
     assert "repro_torch.kernels.topk" in mods
+    assert "repro_torch.kernels.quant8" in mods
+    assert "repro_torch.kernels.flash_attention" in mods
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

@@ -86,6 +86,32 @@ def test_aggregate_rows_pads_a_ragged_width():
     np.testing.assert_allclose(got, w @ buf[idx], rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("k", [1, 3, 9])
+def test_aggregate_pytree_matches_reference(k):
+    """K trees (K pads to 8 with zero-weight rows, N = 196 to the vector
+    width); restore_dtype brings a bf16 leaf back as bf16."""
+    rng = np.random.default_rng(k)
+    trees = [{"a": rng.normal(size=(37, 5)).astype(np.float32),
+              "b": rng.normal(size=11).astype(np.float32)} for _ in range(k)]
+    w = rng.random(k).astype(np.float32)
+    w /= w.sum()
+    got = ops.aggregate_pytree(
+        [params_from_numpy(t, "cpu") for t in trees], w)
+    want = jops.aggregate_pytree([jax.tree.map(jnp.asarray, t) for t in trees],
+                                 w, interpret=True)
+    for name in ("a", "b"):
+        assert got[name].shape == want[name].shape
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want[name]),
+                                   rtol=RTOL, atol=ATOL)
+    half = [{"a": params_from_numpy(t, "cpu")["a"].to(torch.bfloat16),
+             "b": params_from_numpy(t, "cpu")["b"]} for t in trees]
+    kept = ops.aggregate_pytree(half, w, restore_dtype=False)
+    back = ops.aggregate_pytree(half, w)
+    assert kept["a"].dtype == torch.float32
+    assert back["a"].dtype == torch.bfloat16
+    torch.testing.assert_close(back["a"], kept["a"].to(torch.bfloat16))
+
+
 def _spec_and_store_rows(rng, c):
     tree = {"a": np.zeros(1000, np.float32), "b": np.zeros((4, 6), np.float32)}
     spec, jspec = ops.RavelSpec(tree), jops.RavelSpec(tree)

@@ -1,0 +1,185 @@
+"""The port's int8 update compression against the reference's.
+
+The plain ``quantize_q8`` (what a CPU tensor takes) is held to the
+reference's entry point ``repro.kernels.ops.quantize_q8`` with the Pallas
+kernel in interpret mode: codes and scales equal to the bit. Against the
+oracle ``repro.kernels.ref.quantize_q8`` the codes are equal and the scales
+within rtol 1e-6: the oracle divides by 127 where the entry point multiplies
+by the fp32 reciprocal, one ulp apart in a few percent of blocks.
+``compress_update`` / ``decompress_update`` follow the reference's to the
+bit over three rounds of error feedback. The CUDA kernels run only on a
+card: ``test_torch_cuda.py`` and ``chip_smoke.py`` hold them against the
+plain versions."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models.paper_models import MnistCNN as JaxMnistCNN
+from repro_torch.kernels import ops, quant8, ref
+from repro_torch.models.convert import params_from_numpy
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _quantize_both(x: np.ndarray):
+    q, s = quant8.quantize_q8(torch.as_tensor(x))
+    jq, js = jops.quantize_q8(jnp.asarray(x), interpret=True)
+    return q.numpy(), s.numpy(), np.asarray(jq), np.asarray(js)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 2048, 2049, 5000, 582026])
+def test_quantize_plain_equals_the_reference_entry_point(n):
+    rng = np.random.default_rng(n)
+    x = (rng.standard_normal(n) * 3.0).astype(np.float32)
+    q, s, jq, js = _quantize_both(x)
+    assert q.dtype == np.int8 and q.shape == (n,)
+    assert s.shape == (-(-n // 256),)
+    np.testing.assert_array_equal(q, jq)
+    np.testing.assert_array_equal(_bits(s), _bits(js))
+    # the oracle takes whole blocks: zero-pad, then trim
+    pad = jnp.pad(jnp.asarray(x), (0, (-n) % 256))
+    rq, rs = jref.quantize_q8(pad)
+    np.testing.assert_array_equal(q, np.asarray(rq)[:n])
+    np.testing.assert_allclose(s, np.asarray(rs), rtol=1e-6, atol=0)
+
+
+def test_the_reference_disagrees_with_itself_on_the_scale():
+    """``ops.quantize_q8`` scales by ``maxabs * float32(1/127)``, the oracle
+    by ``maxabs / 127``: some blocks differ by one ulp, none by more, and the
+    codes agree. The port follows the entry point."""
+    x = (np.random.default_rng(0).standard_normal(256 * 2048) * 3.0
+         ).astype(np.float32)
+    _, s, _, js = _quantize_both(x)
+    _, rs = jref.quantize_q8(jnp.asarray(x))
+    ulps = np.abs(_bits(js) - _bits(rs))
+    assert ulps.max() == 1 and 0 < (ulps == 1).sum() < len(ulps) // 10
+    np.testing.assert_array_equal(_bits(s), _bits(js))
+
+
+def test_quantize_nonfinite_blocks_and_negative_zero():
+    """A block holding a NaN gets a NaN scale, one holding an inf an inf
+    scale; every code of either block is 0. -0 quantizes to 0, and an
+    all-zero block takes the 1e-12 floor."""
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal(8 * 256) * 2.0).astype(np.float32)
+    x[5] = np.nan
+    x[256 + 7] = np.inf
+    x[512 + 9] = -np.inf
+    x[768:1024] = 0.0
+    x[768 + 3] = -0.0
+    x[1024 + 11] = -0.0
+    q, s, jq, js = _quantize_both(x)
+    np.testing.assert_array_equal(q, jq)
+    assert np.isnan(s[0]) and np.isnan(js[0])
+    assert s[1] == js[1] == np.inf and s[2] == js[2] == np.inf
+    assert (q[:768] == 0).all()
+    np.testing.assert_array_equal(_bits(s[3:]), _bits(js[3:]))
+    assert s[3] == np.float32(1e-12) and q[1024 + 11] == 0
+
+
+@pytest.mark.parametrize("dtype, jdtype", [(torch.float32, jnp.float32),
+                                           (torch.bfloat16, jnp.bfloat16)])
+@pytest.mark.parametrize("n, n_scales", [(5000, 20), (5000, 24), (2048, 8),
+                                         (300, 1)])
+def test_dequantize_plain_equals_the_reference(dtype, jdtype, n, n_scales):
+    """fp32 or bf16 out, to the bit; scales short of the block count take
+    1.0, longer ones up to the padded count are ignored, as the
+    reference pads and trims."""
+    rng = np.random.default_rng(n + n_scales)
+    q = rng.integers(-127, 128, n).astype(np.int8)
+    s = (rng.random(n_scales) * 0.1).astype(np.float32)
+    got = quant8.dequantize_q8(torch.as_tensor(q), torch.as_tensor(s),
+                               dtype=dtype)
+    want = jops.dequantize_q8(jnp.asarray(q), jnp.asarray(s), dtype=jdtype,
+                              interpret=True)
+    assert got.dtype == dtype and got.shape == (n,)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
+def test_quant8_rejects_malformed_input():
+    with pytest.raises(ValueError):
+        quant8.quantize_q8(torch.zeros(4, 256))
+    with pytest.raises(ValueError):     # more scales than padded blocks
+        quant8.dequantize_q8(torch.zeros(300, dtype=torch.int8),
+                             torch.ones(9))
+
+
+def test_quant8_wrappers_take_no_plain_fallback_off_the_cpu(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached for a non-CPU tensor")
+
+    monkeypatch.setattr(ref, "quantize_q8", forbidden)
+    monkeypatch.setattr(ref, "dequantize_q8", forbidden)
+    before = (quant8.quantize_q8.launches, quant8.dequantize_q8.launches)
+    with pytest.raises((RuntimeError, TypeError, ValueError)):
+        quant8.quantize_q8(torch.zeros(512, device="meta"))
+    with pytest.raises((RuntimeError, TypeError, ValueError)):
+        quant8.dequantize_q8(torch.zeros(512, dtype=torch.int8, device="meta"),
+                             torch.ones(2, device="meta"))
+    assert (quant8.quantize_q8.launches,
+            quant8.dequantize_q8.launches) == before
+
+
+# ----------------------------------------------------------------- compress
+@pytest.fixture(scope="module")
+def mnist_update():
+    """An MnistCNN-shaped update (582,026 params): the difference of two
+    reference initialisations, as numpy."""
+    p0, p1 = (jax.tree.map(np.asarray,
+                           JaxMnistCNN().init(jax.random.PRNGKey(i))[0])
+              for i in (0, 1))
+    return {k: (p1[k] - p0[k]).astype(np.float32) for k in p0}
+
+
+def test_compress_update_matches_the_reference_over_three_rounds(mnist_update):
+    upd = params_from_numpy(mnist_update, "cpu")
+    jupd = jax.tree.map(jnp.asarray, mnist_update)
+    err = jerr = None
+    for _ in range(3):
+        (q, s, spec), err = ops.compress_update(upd, err)
+        (jq, js, jspec), jerr = jops.compress_update(jupd, jerr,
+                                                     interpret=True)
+        assert q.shape == (583_680,) and s.shape == (2_280,)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(_bits(s), _bits(js))
+        np.testing.assert_array_equal(_bits(err), _bits(jerr))
+    assert spec.n_params == 582_026
+    back = ops.decompress_update(q, s, spec)
+    jback = jops.decompress_update(jq, js, jspec, interpret=True)
+    for name, leaf in jback.items():
+        assert back[name].shape == leaf.shape
+        np.testing.assert_array_equal(_bits(back[name]), _bits(leaf))
+    # error feedback is exact: what was sent plus what is carried is the
+    # update plus the carried error of the round before
+    flat = spec.ravel(upd)
+    (q2, s2, _), err2 = ops.compress_update(upd, err)
+    sent = ops.dequantize_q8(q2, s2)[:spec.n_params]
+    torch.testing.assert_close(sent + err2, flat + err, rtol=0, atol=1e-6)
+
+
+def test_compress_update_restores_leaf_dtypes():
+    rng = np.random.default_rng(3)
+    tree = {"w": rng.standard_normal((300, 7)).astype(np.float32),
+            "b": rng.standard_normal(13).astype(np.float32)}
+    upd = params_from_numpy(tree, "cpu")
+    upd["b"] = upd["b"].to(torch.bfloat16)
+    jupd = {"w": jnp.asarray(tree["w"]),
+            "b": jnp.asarray(tree["b"]).astype(jnp.bfloat16)}
+    (q, s, spec), err = ops.compress_update(upd)
+    (jq, js, jspec), jerr = jops.compress_update(jupd, interpret=True)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(_bits(err), _bits(jerr))
+    back = ops.decompress_update(q, s, spec)
+    jback = jops.decompress_update(jq, js, jspec, interpret=True)
+    assert back["b"].dtype == torch.bfloat16 and back["w"].shape == (300, 7)
+    for name in tree:
+        np.testing.assert_array_equal(back[name].float().numpy(),
+                                      np.asarray(jback[name], np.float32))
