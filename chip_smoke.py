@@ -11,7 +11,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      TF32 flags (both set False: convolutions would otherwise run in TF32);
   2. build: the five kernel sources compiled from
      ``src/repro_torch/kernels/csrc`` into ``build/kernels/`` (one ``nvcc``
-     per source, all started together);
+     per source, all started together), with ptxas's register, spill and
+     wgmma-serialisation lines;
   3. main path: the paper's MNIST setup at published width (MnistCNN,
      582,026 params; 200 clients on the 65/25/10 fleet, 100 per round,
      E=5, B=10, Adam 1e-3, CR=0.3) through ``build_engine(...).run()`` (the
@@ -59,7 +60,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      the bit; attention: ``scaled_dot_product_attention``; ``quantize_q8``
      has none), and the bound: the larger of bytes / HBM
      rate and operations / the peak rate of their type (fp32, or the bf16
-     tensor rate for bf16 attention).
+     tensor rate for bf16 attention). Attention has an entry per route at
+     4,096 tokens (bf16: the wgmma/TMA kernel; fp32: the CUDA-core kernel)
+     and the bf16 one at 32,768, each with its achieved TFLOP/s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -672,7 +675,8 @@ def attention_phase(dev) -> tuple[dict, dict]:
     the first 4,096 rows equal the short run to the bit (a causal row sees
     only its prefix; the inputs are the long ones' prefix), and every row
     matches a plain computation of ATTN_CHUNK rows at a time. Counts are
-    zeroed before and read after each length. Returns (record, inputs)."""
+    zeroed before and read after each length (and read between the two
+    short calls, for each route's count). Returns (record, inputs)."""
     from repro_torch.kernels import ops, ref
 
     short, long = ATTN_SHORT, ATTN_LONG
@@ -683,6 +687,7 @@ def attention_phase(dev) -> tuple[dict, dict]:
     del full32
     zero_counts()
     out_bf = ops.flash_attention(*short_bf)
+    n_short_bf16 = read_counts()["flash_attention"]
     out_32 = ops.flash_attention(*short32)
     torch.cuda.synchronize()
     n_short = read_counts()["flash_attention"]
@@ -704,6 +709,8 @@ def attention_phase(dev) -> tuple[dict, dict]:
         "shape_short": list(short_bf[0].shape),
         "shape_long": list(long_bf[0].shape), "causal": True,
         "launches_short": n_short, "launches_long": n_long,
+        "launches_short_bf16": n_short_bf16,
+        "launches_short_fp32": n_short - n_short_bf16,
         "short_bf16": attention_check("flash_attention bf16", out_bf,
                                       ref.flash_attention(*short_bf)),
         "short_fp32": attention_check("flash_attention fp32", out_32,
@@ -727,7 +734,7 @@ def attention_phase(dev) -> tuple[dict, dict]:
     if (n_short, n_long) != (2, 1):
         raise AssertionError(f"flash_attention launched {n_short} and "
                              f"{n_long} times, want 2 and 1")
-    return record, {"short": short_bf, "long": long_bf}
+    return record, {"short": short_bf, "short_fp32": short32, "long": long_bf}
 
 
 # ------------------------------------------------------------------ kernels
@@ -1015,7 +1022,9 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
     of ``plain_rows`` over every row, ATTN_CHUNK rows at a time. The bound
     is the function's: causal flops 4*B*H*D*S(S+1)/2 at the bf16 tensor
     rate (fp32 rate for fp32), bytes q, k, v read and the output written
-    once."""
+    once. ``design`` names the kernel the input type takes (bf16: wgmma fed
+    by a TMA ring; fp32: CUDA cores); ``tflops`` and ``device_tflops`` are
+    the achieved rates, the flops over ``ms`` and over ``device_ms``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1026,7 +1035,9 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
         q, k, v, is_causal=True)
     lib = library()
     torch.cuda.synchronize()
+    bf16 = q.dtype == torch.bfloat16
     entry = {"name": name, "route": "cuda",
+             "design": "cuda-wgmma-tma" if bf16 else "cuda-cores",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:82",
              "launches": launches, "launches_run": run,
@@ -1053,9 +1064,12 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
     entry["plain_ms"] = time_ms(plain, reps=min(reps, 5), warmup=1)
     entry["library_ms"] = time_ms(library, reps=reps, warmup=warmup)
     flops, nbytes = attention_work(B, H, S, D, q.element_size())
-    rate = BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else FP32_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops, rate)
     entry["flops"], entry["bytes"] = flops, nbytes
+    entry["tflops"] = flops / entry["ms"] / 1e9 if entry["ms"] else None
+    entry["device_tflops"] = (flops / entry["device_ms"] / 1e9
+                              if entry["device_ms"] else None)
     return entry
 
 
@@ -1101,7 +1115,8 @@ def main() -> int:
     logs = _build.build()
     emit("build", seconds=time.perf_counter() - t0, built=sorted(logs),
          build_dir=str(_build.BUILD_DIR),
-         ptxas={k: [l.strip() for l in v.splitlines() if "registers" in l]
+         ptxas={k: [l.strip() for l in v.splitlines()
+                    if any(w in l for w in ("registers", "spill", "C75"))]
                 for k, v in logs.items()})
 
     from repro_torch.data.synthetic import make_federated_dataset
@@ -1139,9 +1154,14 @@ def main() -> int:
     kernels += [
         attention_kernel_entry(
             "flash_attention", attn_inputs["short"],
-            attention["launches_short"],
-            "attention phase: causal [1,16,4096,128] in bf16 and in fp32",
+            attention["launches_short_bf16"],
+            "attention phase: causal [1,16,4096,128] in bf16",
             attention["short_bf16"]),
+        attention_kernel_entry(
+            "flash_attention[fp32]", attn_inputs["short_fp32"],
+            attention["launches_short_fp32"],
+            "attention phase: causal [1,16,4096,128] in fp32",
+            attention["short_fp32"]),
         attention_kernel_entry(
             "flash_attention[prefill_32k]", attn_inputs["long"],
             attention["launches_long"],

@@ -2,9 +2,12 @@
 
 Each source under ``csrc/`` compiles with ``nvcc`` into a shared library of
 its own with a plain C interface. No PyTorch header is included, so a build
-takes seconds. A library's file name carries a hash of its source and of
-the flags, so an edited source rebuilds and a stale library is never
-loaded. Libraries go to ``build/kernels/`` at the root of the checkout.
+takes seconds. A library's file name carries a hash of its source, of the
+headers it includes from ``csrc/`` and of the flags, so an edited source or
+header rebuilds and a stale library is never loaded. Libraries go to
+``build/kernels/`` at the root of the checkout. ``function`` sets a C
+function's argument and result types once, when its library loads, so a
+wrapper's call does no ctypes set-up.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("staleness_agg", "fused_adam", "topk", "quant8", "flash_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}   # loaded libraries, one per source
+_FUNCS: dict[tuple[str, str], object] = {}   # configured C functions
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def _nvcc() -> str:
@@ -35,11 +41,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def _sources(path: Path, seen: list) -> list:
+    """``path`` and every file it includes with quotes, depth first."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in _sources(CSRC / f"{name}.cu", []):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict[str, str]:
@@ -81,3 +97,16 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, restype, argtypes):
+    """C function ``symbol`` of ``csrc/<name>.cu``, its ``restype`` and
+    ``argtypes`` set once, when first asked for; later calls return the same
+    configured object."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = restype
+        fn.argtypes = list(argtypes)
+        _FUNCS[(name, symbol)] = fn
+    return fn

@@ -6,9 +6,11 @@ q's head count: grouped-query expansion is the caller's) and returns
 ``[B, H, S, D]`` in q's dtype, with the reference's contract: S a multiple of
 ``block_q`` and T of ``block_k`` (``ValueError`` otherwise), ``sm_scale``
 defaulting to ``D ** -0.5``. A CPU tensor takes the plain torch version
-(``ref.flash_attention``); a CUDA tensor launches the kernel or raises. The
-kernel tiles by its own sizes (64 x 64), so the block sizes only set the
-contract. ``flash_attention.launches`` counts kernel launches.
+(``ref.flash_attention``); a CUDA tensor launches the kernel or raises:
+bf16 the Hopper kernel (wgmma fed by TMA, 128 x 128 tiles), fp32 the
+CUDA-core kernel (64 x 64 tiles). The kernels tile by their own sizes, so
+the block sizes only set the contract. ``flash_attention.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ DEFAULT_BLOCK_K = 128
 NEG_INF = ref.NEG_INF
 HEAD_DIMS = (64, 128)      # head dims the kernel is built for
 MAX_BH = 65535             # batch * heads: the grid's second dimension
+# flash_attention_fwd(q, k, v, o, BH, S, T, D, bf16, causal, sm_scale, stream)
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_float, ctypes.c_void_p]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,10 +72,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + \
-        [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("flash_attention", "flash_attention_fwd",
+                         ctypes.c_int, ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B * H, S, T, D, int(q.dtype == torch.bfloat16), int(bool(causal)),
             float(np.float32(sm_scale)),

@@ -45,11 +45,11 @@ def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     if Kp > MAX_LANES:
         raise ValueError(f"at most {MAX_LANES} lanes, got {Kp}")
     bc1, bc2 = ref.bias_corrections(s + 1, b1, b2)
-    lib = _build.load("fused_adam")
-    fn = lib.fused_adam_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int32, ctypes.c_int64,
-                   ctypes.c_int64] + [ctypes.c_float] * 8 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    fn = _build.function(
+        "fused_adam", "fused_adam_f32", ctypes.c_int,
+        [ctypes.c_void_p] * 5 + [ctypes.c_int32, ctypes.c_int64,
+                                 ctypes.c_int64]
+        + [ctypes.c_float] * 8 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(p.device).cuda_stream
     rc = fn(p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
             steps.data_ptr(), int(s), Kp, W, lr, b1, 1.0 - b1, b2, 1.0 - b2,

@@ -49,10 +49,9 @@ def quantize_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     s = torch.empty(_n_blocks(N), dtype=torch.float32, device=x.device)
     if N == 0:
         return q, s
-    fn = _build.load("quant8").quantize_q8_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("quant8", "quantize_q8_f32", ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
     rc = fn(x.data_ptr(), N, q.data_ptr(), s.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -84,11 +83,9 @@ def dequantize_q8(q: torch.Tensor, scales: torch.Tensor, *,
     out = torch.empty(N, dtype=dtype, device=q.device)
     if N == 0:
         return out
-    fn = _build.load("quant8").dequantize_q8
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("quant8", "dequantize_q8", ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     rc = fn(q.data_ptr(), scales.data_ptr(), N, min(ns, _n_blocks(N)),
             out.data_ptr(), int(dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream)

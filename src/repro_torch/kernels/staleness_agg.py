@@ -52,10 +52,9 @@ def staleness_agg(updates: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"row width {N} must be a multiple of {VEC} and the "
                          "buffer 16-byte aligned")
     out = torch.empty(N, dtype=torch.float32, device=updates.device)
-    lib = _build.load("staleness_agg")
-    fn = lib.staleness_agg_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("staleness_agg", "staleness_agg_f32", ctypes.c_int,
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+                         + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(updates.device).cuda_stream
     rc = fn(updates.data_ptr(), weights.data_ptr(),
             rows.data_ptr() if rows is not None else None, out.data_ptr(),

@@ -40,11 +40,9 @@ def block_topk(scores: torch.Tensor, k: int, block: int = BLOCK_TOPK
     G = -(-M // block)
     vals = torch.empty((G, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((G, k), dtype=torch.int64, device=scores.device)
-    lib = _build.load("topk")
-    fn = lib.block_topk_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _build.function("topk", "block_topk_f32", ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     stream = torch.cuda.current_stream(scores.device).cuda_stream
     rc = fn(scores.data_ptr(), M, block, k, vals.data_ptr(), idx.data_ptr(),
             stream)

@@ -141,9 +141,11 @@ def test_attention_entry_and_tail_rows_on_the_cpu(monkeypatch):
     checked = cs.attention_check("x", ref.flash_attention(*qkv),
                                  ref.flash_attention(*qkv))
     assert checked["max_abs_err"] == 0.0 and checked["tol_ratio"] == 0.0
-    full = cs.attention_kernel_entry("flash_attention", qkv, 2, "x", checked)
+    full = cs.attention_kernel_entry("flash_attention", qkv, 1, "x", checked)
     assert full["max_abs_err"] == 0.0 and full["plain_ms"] == 0.0
     assert full["library_max_abs_diff"] < 3e-2 and "plain_note" not in full
+    assert (full["route"], full["design"]) == ("cuda", "cuda-wgmma-tma")
+    assert full["launches"] == 1
     monkeypatch.setattr(cs, "ATTN_SHORT", 128)
     monkeypatch.setattr(cs, "ATTN_CHUNK", 64)
     long = cs.attention_kernel_entry("flash_attention[prefill_32k]", qkv, 1,
@@ -152,6 +154,32 @@ def test_attention_entry_and_tail_rows_on_the_cpu(monkeypatch):
     assert long["max_abs_err"] == 1e-3 and long["plain_ms"] == 0.0
     assert "plain_rows" in long["plain_note"]
     assert set(cs.KERNEL_KEYS) <= set(long)
+
+
+def test_attention_fp32_entry_has_its_own_bound_and_rate(monkeypatch):
+    """The fp32 route's entry: the CUDA-core design, the bound at the 67
+    TFLOP/s fp32 rate, and the achieved TFLOP/s as the causal flops over
+    the measured time (CPU rehearsal: every time stubbed to 2 ms)."""
+    cs = _load()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 2.0)[1])
+    monkeypatch.setattr(cs, "device_ms",
+                        lambda calls, **kw: {n: (f(), 2.0)[1]
+                                             for n, f in calls.items()})
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    qkv = cs.attention_inputs(torch.device("cpu"), 256, heads=2, dim=64)
+    checked = cs.attention_check("x", ref.flash_attention(*qkv),
+                                 ref.flash_attention(*qkv))
+    e = cs.attention_kernel_entry("flash_attention[fp32]", qkv, 1,
+                                  "attention phase: x", checked)
+    assert (e["route"], e["design"]) == ("cuda", "cuda-cores")
+    assert set(cs.KERNEL_KEYS) <= set(e)
+    flops, nbytes = cs.attention_work(1, 2, 256, 64, 4)
+    assert (e["flops"], e["bytes"]) == (flops, nbytes)
+    assert e["bound_ms"] == max(flops / cs.FP32_FLOP_PER_S,
+                                nbytes / cs.HBM_BYTES_PER_S) * 1e3
+    assert e["tflops"] == e["device_tflops"] == flops / 2.0 / 1e9
+    assert e["shape"]["dtype"] == "torch.float32"
 
 
 def _planted(kind, q, k, v, want):

@@ -209,6 +209,10 @@ def assert_attention_close(got, want, rows=128):
     (1, 2, 256, 256, 128, torch.bfloat16, False, 128),
     (1, 1, 96, 96, 64, torch.float32, True, 32),    # ragged for 64-tiles
     (1, 16, 1024, 1024, 128, torch.bfloat16, True, 128),
+    (1, 2, 256, 256, 64, torch.bfloat16, True, 128),
+    (1, 2, 256, 384, 64, torch.bfloat16, False, 128),
+    (2, 3, 320, 192, 128, torch.bfloat16, False, 64),   # ragged, S != T
+    (1, 1, 128, 128, 128, torch.bfloat16, True, 128),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, h, s, t, d, dtype,
                                               causal, block):
@@ -223,6 +227,26 @@ def test_flash_attention_kernel_matches_plain(card, b, h, s, t, d, dtype,
     want = ref.flash_attention(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == (b, h, s, d)
     assert_attention_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, causal", [(128, True), (64, False)])
+def test_flash_attention_ragged_tile_never_reads_the_next_head(card, d,
+                                                               causal):
+    """S = T = 192: the bf16 kernel's last 128-row tile runs 64 rows past
+    each head. Head 1 is all NaN; head 0 must come out finite and right
+    (its tile past the end reads zeros, not head 1's rows)."""
+    gen = torch.Generator(device=card).manual_seed(d)
+    q, k, v = (torch.randn(1, 2, 192, d, device=card, generator=gen
+                           ).to(torch.bfloat16) for _ in range(3))
+    for t in (q, k, v):
+        t[:, 1] = float("nan")
+    got = ops.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    head0 = got[:, :1]
+    assert bool(torch.isfinite(head0).all())
+    want = ref.flash_attention(*(t[:, :1] for t in (q, k, v)), causal=causal)
+    assert_attention_close(head0, want)
 
 
 @pytest.mark.cuda

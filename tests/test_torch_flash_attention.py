@@ -116,3 +116,99 @@ def test_attention_wrapper_takes_no_plain_fallback_off_the_cpu(monkeypatch):
                         NotImplementedError)):
         fa.flash_attention(t, t, t)
     assert fa.flash_attention.launches == before
+
+
+def _kernel_tile_order(q, k, v, causal=True, block=128, p_rounding="split"):
+    """The bf16 CUDA kernel's arithmetic, plainly: 128-query x 128-key
+    tiles, fp32 scores (q k^T) * sm_scale, the -2^30 causal mask, an online
+    softmax with fp32 m, l and accumulator; l sums the fp32 p. p v takes p
+    as the kernel's register operands do: ``"split"`` (the kernel) as
+    bf16 p_hi plus bf16(p - p_hi), two products; ``"bf16"`` as one bf16
+    p."""
+    B, H, S, D = q.shape
+    T = k.shape[2]
+    scale = D ** -0.5
+    out = torch.empty(B, H, S, D, dtype=torch.float32)
+    for q0 in range(0, S, block):
+        qt = q[:, :, q0:q0 + block].float()
+        rows = torch.arange(q0, q0 + qt.shape[2])[:, None]
+        m = torch.full(qt.shape[:3], ref.NEG_INF)
+        l = torch.zeros(qt.shape[:3])
+        acc = torch.zeros(*qt.shape[:3], D)
+        last = T if not causal else min(T, q0 + qt.shape[2])
+        for k0 in range(0, last, block):
+            s = torch.einsum("bhsd,bhtd->bhst", qt,
+                             k[:, :, k0:k0 + block].float()) * scale
+            if causal:
+                keys = torch.arange(k0, k0 + s.shape[3])[None]
+                s = torch.where(keys <= rows, s, ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            hi = p.to(torch.bfloat16).float()
+            vt = v[:, :, k0:k0 + block].float()
+            pv = torch.einsum("bhst,bhtd->bhsd", hi, vt)
+            if p_rounding == "split":
+                lo = (p - hi).to(torch.bfloat16).float()
+                pv = pv + torch.einsum("bhst,bhtd->bhsd", lo, vt)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        out[:, :, q0:q0 + block] = acc / l.clamp_min(1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_split_p_stays_within_the_per_block_check():
+    """The bf16 kernel's tile order and p rounding (hi + lo), emulated at
+    [1, 2, 4096, 128], stay within chip_smoke's per-block check (tol 1e-2 x
+    (the 128-row block's rms + |value|)) of the plain version, which the
+    card run is held to."""
+    cs = _chip_smoke()
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
+               for a in _inputs(3, 1, 2, 4096, 4096, 128))
+    got = _kernel_tile_order(q, k, v)
+    want = ref.flash_attention(q, k, v)
+    checked = cs.attention_check("split p emulation", got, want)
+    assert checked["tol_ratio"] <= 1.0 and checked["max_abs_err"] > 0.0
+
+
+def test_p_rounded_once_to_bf16_can_exceed_the_check():
+    """Why the kernel splits p: rounded once to bf16 (the reference keeps
+    p fp32), p's error in a few-key row whose v terms cancel exceeds the
+    per-block check on these inputs (rows 0..127), where the split stays
+    well inside it."""
+    cs = _chip_smoke()
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 16, 512, 128, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    want = ref.flash_attention(q, k, v)
+    with pytest.raises(AssertionError, match="x the tolerance"):
+        cs.attention_check("bf16 p", _kernel_tile_order(q, k, v,
+                                                        p_rounding="bf16"),
+                           want)
+    split = cs.attention_check("split p", _kernel_tile_order(q, k, v), want)
+    assert split["tol_ratio"] < 0.6
+
+
+def test_kernel_tile_order_emulation_matches_the_reference():
+    """The emulation itself, at a ragged S != T in both masks, against the
+    reference's oracle at its bf16 tolerance."""
+    for s, t, causal in ((384, 256, True), (256, 384, False)):
+        arrays = _inputs(s + t, 1, 2, s, t, 64)
+        got = _kernel_tile_order(*(torch.as_tensor(a).to(torch.bfloat16)
+                                   for a in arrays), causal=causal)
+        oracle = jref.flash_attention(*(jnp.asarray(a).astype(jnp.bfloat16)
+                                        for a in arrays), causal=causal)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(oracle, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
