@@ -19,13 +19,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      event-driven ``Scheduler``), with ``apodotiko`` (3 rounds), ``fedavg``
      (1 round) and ``apodotiko-topk`` (3 rounds). Every kernel count is
      set to 0 just before each run and read just after; a kernel of the
-     run's path that it never launched fails the script (``block_topk``:
-     at least once per round, and each ``select_topk`` timed). The result
+     run's path that it never launched fails the script (the top-k kernel,
+     counted as ``block_topk``: at least once per round, and each
+     ``select_topk`` timed). The result
      must be finite, of the model's shapes, with a consistent update store;
   4. fleet: the control plane at a million clients: ``select_topk(100,
      1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
      on a CPU copy of the same state; selections and the device booster
-     must be identical. Median ms per call and launches per call;
+     must be identical, and each call on the card one launch of the fused
+     top-k kernel. Median ms per call, launches per call, and the
+     dirty-slot flush (the host's share of a call) over 20 repetitions,
+     whole and split into host packing, host-to-device copies and index
+     writes;
   5. profile: one more fedavg round under ``torch.profiler`` (device busy
      time, idle share, kernel time by name; informational, no limit);
   6. reference: small ProxyCNN runs on the card against the same runs on
@@ -53,7 +58,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      computation of 1,024 rows at a time;
   9. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
-     ``block_topk`` and ``quantize_q8`` / ``dequantize_q8`` exactly;
+     the top-k entries and ``quantize_q8`` / ``dequantize_q8`` exactly;
      attention by its phase's check), and timed (median of CUDA-event
      times) beside the plain version, one PyTorch library call where one
      computes the same function (``dequantize_q8``: ``torch.mul``, held to
@@ -62,7 +67,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      rate and operations / the peak rate of their type (fp32, or the bf16
      tensor rate for bf16 attention). Attention has an entry per route at
      4,096 tokens (bf16: the wgmma/TMA kernel; fp32: the CUDA-core kernel)
-     and the bf16 one at 32,768, each with its achieved TFLOP/s.
+     and the bf16 one at 32,768, each with its achieved TFLOP/s. Top-k
+     has four: ``block_topk`` (the one-launch ``masked_topk`` on seeded
+     scores at M = 256) and ``block_topk[fleet]`` (at 2^20), each beside
+     ``torch.topk``; ``scored_topk`` (the fused selection step at the
+     ``apodotiko-topk`` run's own state, M = 256, k = 100, beta 1.2: the
+     main path's call) and ``scored_topk[fleet]`` (at the fleet phase's
+     state), each beside the stepwise torch composition.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -243,9 +254,9 @@ def run_main_path(strategy: str, rounds: int, data, dev):
             "agg_route": aggregation.last_path()})
         clock[0] = now
 
-    # each selection's wall time on the card (the dirty flush, the score
-    # and masks, the top-k launches, the booster update and the copies of
-    # the cohort to the host), queued work drained before it starts
+    # each selection's wall time on the card (the dirty flush, the fused
+    # selection launch and the copy of the cohort to the host), queued
+    # work drained before it starts
     select_ms = []
     select_topk = ctl.db.fleet.select_topk
 
@@ -322,6 +333,7 @@ def straggler_fleet(n: int) -> list:
 
 # -------------------------------------------------------------------- fleet
 FLEET_M, FLEET_CAPACITY, FLEET_K, FLEET_ROUNDS = 1_000_000, 1 << 20, 100, 5
+FLEET_BETA, FLUSH_REPS = 1.2, 20
 
 
 def fleet_store(where):
@@ -341,11 +353,45 @@ def fleet_store(where):
     return db
 
 
-def fleet_phase(dev) -> dict:
+def flush_split(fs, reps: int = FLUSH_REPS) -> dict:
+    """The dirty-slot flush that ``select_topk`` runs before its launch,
+    on ``fs``'s pending dirty slots (the last round's cohort), repeated
+    ``reps`` times on the same slots: whole, and in its three parts, host
+    packing (iterating the dirty set, gathering the columns), the
+    host-to-device copies and the index writes on the card. Each is the
+    median of wall times with the card drained before and after (host
+    clock). The writes put back the values already there."""
+    dirty = set(fs._dev_dirty)
+    dev = fs._device()
+    times = {"total": [], "host": [], "h2d": [], "write": []}
+
+    def timed(part, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[part].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    for _ in range(reps):
+        fs._dev_dirty.update(dirty)
+        timed("total", fs._flush_device)
+        fs._dev_dirty.update(dirty)
+        cols = timed("host", fs._dirty_columns)
+        tensors = timed("h2d", lambda: dev.upload(*cols))
+        timed("write", lambda: dev.write(*tensors))
+    return {"slots": len(dirty), "reps": reps,
+            "first_total_ms": times["total"][0],
+            **{f"{part}_ms": statistics.median(t)
+               for part, t in times.items()}}
+
+
+def fleet_phase(dev) -> tuple[dict, object]:
     """Five rounds of ``select_topk`` at M = 1e6 on the card and on a CPU
     copy of the same state: each round selects, marks the cohort running,
     then completes it with seeded durations. Selections and the device
-    booster must be identical. Returns the phase record."""
+    booster must be identical, and each call on the card one launch.
+    Returns the phase record and the card store's device score state."""
     from repro_torch.kernels.topk import block_topk
 
     t0 = time.perf_counter()
@@ -358,12 +404,12 @@ def fleet_phase(dev) -> dict:
         before = block_topk.launches
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        sel = card_db.fleet.select_topk(FLEET_K, 1.2)
+        sel = card_db.fleet.select_topk(FLEET_K, FLEET_BETA)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
         launches.append(block_topk.launches - before)
         before = block_topk.launches
-        sel_cpu = cpu_db.fleet.select_topk(FLEET_K, 1.2)
+        sel_cpu = cpu_db.fleet.select_topk(FLEET_K, FLEET_BETA)
         if block_topk.launches != before:
             raise AssertionError("the CPU store launched the kernel")
         if sel != sel_cpu or len(sel) != FLEET_K:
@@ -380,11 +426,13 @@ def fleet_phase(dev) -> dict:
               "rounds": FLEET_ROUNDS, "setup_s": setup_s,
               "select_topk_ms": ms,
               "select_topk_median_ms": statistics.median(ms),
-              "launches_per_call": launches}
+              "launches_per_call": launches,
+              "flush": flush_split(card_db.fleet)}
     emit("fleet", **record)
-    if min(launches) <= 0:
-        raise AssertionError("select_topk on the card launched no kernel")
-    return record
+    if launches != [1] * FLEET_ROUNDS:
+        raise AssertionError(f"select_topk on the card launched {launches} "
+                             "kernels per call, not one")
+    return record, card_db.fleet._dev
 
 
 def reference_phase(dev) -> None:
@@ -887,24 +935,23 @@ def max_abs_finite(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def topk_kernel_entry(name: str, m: int, k: int, launches: int,
                       launches_run: str, dev) -> dict:
-    """``block_topk`` through the selection's top-k (``ops.masked_topk``:
-    one launch per pass until one block remains) at ``[m]``, against the
-    plain version (a stable descending sort) exactly: values to the bit and
+    """The selection's top-k (``ops.masked_topk``, one launch) and the
+    per-block candidates (``block_topk``) at ``[m]``, against their plain
+    versions (stable descending sorts) exactly: values to the bit and
     indices. ``torch.topk`` computes the same values and is the library
     yardstick; how many of its indices differ is recorded (its tie order
     is not ``lax.top_k``'s). ``launches`` were counted in the run that
-    ``launches_run`` names. The bound is the function's, not this
-    kernel's k-round extraction: read the scores once and write the top k,
-    with about one comparison per score."""
+    ``launches_run`` names. The bound is the function's: read the scores
+    once and write the top k, with about one comparison per score."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.topk import BLOCK_TOPK, block_topk
 
     s = topk_scores(m, dev)
-    before = block_topk.launches
     cand_v, cand_i = block_topk(s, k)
+    before = block_topk.launches
     vals, idx = ops.masked_topk(s, k)
     torch.cuda.synchronize()
-    passes = block_topk.launches - before - 1
+    calls = block_topk.launches - before      # 1 on the card, 0 on the CPU
     want_cv, want_ci = ref.block_topk(s, k, BLOCK_TOPK)
     want_v, want_i = ref.masked_topk(s, k)
     if not (torch.equal(cand_i, want_ci) and torch.equal(idx, want_i)):
@@ -913,6 +960,9 @@ def topk_kernel_entry(name: str, m: int, k: int, launches: int,
             and torch.equal(vals.view(torch.int32),
                             want_v.view(torch.int32))):
         raise AssertionError(f"{name}: values differ from the plain version")
+    if calls != (1 if s.is_cuda else 0):
+        raise AssertionError(f"{name}: masked_topk took {calls} launches, "
+                             "not one")
     lib_v, lib_i = torch.topk(s, k)
     if not torch.equal(lib_v, vals):
         raise AssertionError(f"{name}: torch.topk values differ")
@@ -921,18 +971,99 @@ def topk_kernel_entry(name: str, m: int, k: int, launches: int,
              "source": "src/repro_torch/kernels/csrc/topk.cu",
              "replaces": "src/repro/kernels/topk.py:61",
              "launches": launches, "launches_run": launches_run,
-             "shape": {"M": m, "k": k, "block": BLOCK_TOPK,
-                       "passes": passes,
+             "shape": {"M": m, "k": k, "passes": max(calls - 1, 0),
                        "finite": int(torch.isfinite(s).sum())},
              "max_abs_err": max_abs_finite(vals, want_v), "exact": True,
-             "library_idx_differ": int((lib_i != idx).sum())}
+             "library_idx_differ": int((lib_i != idx).sum()),
+             "timed": "ops.masked_topk on seeded scores shaped like the "
+                      "selection's; the paths select through "
+                      "ops.scored_topk (the scored_topk entries)"}
     entry["ms"] = time_ms(lambda: ops.masked_topk(s, k))
-    entry["first_pass_ms"] = time_ms(lambda: block_topk(s, k))
+    put_device_ms(entry, "device_ms", device_ms(
+        {"topk_select_kernel": lambda: ops.masked_topk(s, k)}
+    )["topk_select_kernel"])
+    entry["candidates_ms"] = time_ms(lambda: block_topk(s, k))
     entry["plain_ms"] = time_ms(lambda: ref.masked_topk(s, k))
     entry["library_ms"] = time_ms(lambda: torch.topk(s, k))
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, m)
     entry["bytes"] = nbytes
     return entry
+
+
+def composed_scored_topk(num, den, booster, eligible, ever, beta, k):
+    """The selection step as separate torch passes with ``torch.topk`` for
+    the top-k: the yardstick of the fused kernel (no one PyTorch call
+    computes the step; ``torch.topk``'s tie order is not ``lax.top_k``'s)."""
+    score = booster * (num / torch.clamp_min(den, 1e-12))
+    score = torch.where(ever, score, float("inf"))
+    score = torch.where(eligible, score, float("-inf"))
+    vals, idx = torch.topk(score, k)
+    valid = vals > float("-inf")
+    chosen = torch.zeros_like(eligible)
+    chosen[idx] = valid
+    boost = torch.where(chosen, 1.0,
+                        torch.where(eligible, booster * beta, booster))
+    return idx, valid, boost
+
+
+def scored_topk_entry(name: str, state, k: int, beta: float, launches: int,
+                      launches_run: str) -> dict:
+    """The fused selection step (``ops.scored_topk``: score, masks, top-k
+    and booster update in one launch) on ``state``, a ``FleetStore``'s
+    device score state, at ``k`` and ``beta`` as its path calls it, held
+    to the plain composition ``ref.scored_topk`` on the same tensors
+    exactly: idx, valid and the new booster to the bit. The bound is the
+    step's bytes: num, den, booster (fp32) and eligible, ever (bool) read
+    once, the new booster written once, 18 B a slot, and the k picks and
+    flags."""
+    from repro_torch.kernels import ops, ref
+
+    args = (state.num, state.den, state.booster, state.eligible, state.ever,
+            beta, k)
+    m = state.booster.shape[0]
+    got = ops.scored_topk(*args)
+    torch.cuda.synchronize()
+    want = ref.scored_topk(*args)
+    for what, a, b in zip(("idx", "valid", "booster"), got, want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: {what} differs from the "
+                                 "plain version")
+    nbytes = 18 * m + k * (8 + 1)
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/topk.cu",
+             "replaces": "src/repro/kernels/topk.py:61",
+             "replaces_also": "src/repro/kernels/ops.py:308 scored_topk",
+             "launches": launches, "launches_run": launches_run,
+             "shape": {"M": m, "k": k, "beta": beta,
+                       "eligible": int(state.eligible.sum()),
+                       "valid": int(got[1].sum())},
+             "max_abs_err": max_abs_finite(got[2], want[2]), "exact": True,
+             "library_ms": None,
+             "library_note": "no single PyTorch call computes the step; "
+                             "composed_ms is the stepwise torch composition "
+                             "with torch.topk"}
+    entry["ms"] = time_ms(lambda: ops.scored_topk(*args))
+    put_device_ms(entry, "device_ms", device_ms(
+        {"topk_select_kernel": lambda: ops.scored_topk(*args)}
+    )["topk_select_kernel"])
+    entry["plain_ms"] = time_ms(lambda: ref.scored_topk(*args))
+    entry["composed_ms"] = time_ms(lambda: composed_scored_topk(*args))
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, m)
+    entry["bytes"] = nbytes
+    return entry
+
+
+def main_path_selection(engine) -> tuple:
+    """The main path's selection state after its run: the store's device
+    score state with the pending dirty slots flushed, as the next
+    ``select_topk`` would see it, and the k and beta it is called with."""
+    from repro_torch.core.scoring import promotion_rate
+
+    engine.db.fleet._flush_device()
+    return (engine.db.fleet._dev, engine.cfg.clients_per_round,
+            promotion_rate(engine.cfg.adjustment_rate))
 
 
 def quant8_kernel_entries(update: dict, launches: dict, run: str) -> list:
@@ -1078,11 +1209,17 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "library_ms")
 
 
+# kept in the kernel list where an entry has them: the kernel's own time
+# (profiler) and, for the fused selection step, its torch composition's
+EXTRA_KEYS = ("device_ms", "composed_ms")
+
+
 def report_lines(kernels: list, kind: str, count: int) -> list:
     """The last two lines of the output: the kernel list, then the result
     line. Every line the script prints on stdout is one JSON object."""
-    return [json.dumps({"kernels": [{k: e[k] for k in KERNEL_KEYS}
-                                    for e in kernels]}),
+    return [json.dumps({"kernels": [
+                {k: e[k] for k in KERNEL_KEYS + EXTRA_KEYS if k in e}
+                for e in kernels]}),
             json.dumps({"ok": True, "device": {
                 "platform": "gpu", "kind": kind, "count": count}})]
 
@@ -1129,7 +1266,8 @@ def main() -> int:
     _, avg = run_main_path("fedavg", 1, data, dev)
     topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
     main_m = topk_engine.db.fleet.capacity
-    fleet = fleet_phase(dev)
+    main_selection = main_path_selection(topk_engine)
+    fleet, fleet_state = fleet_phase(dev)
     reference_phase(dev)
     profile_round(data, dev, avg["rounds"][0]["wall_s"])
     update = mnist_update(apo_engine, dev)
@@ -1137,16 +1275,21 @@ def main() -> int:
     attention, attn_inputs = attention_phase(dev)
 
     n_topk = top["launches"]["block_topk"]
+    fleet_run = f"fleet phase: {FLEET_ROUNDS} select_topk calls at M = 1e6"
     kernels = [agg_kernel_entry("staleness_agg", avg, dev, rows_form=False),
                agg_kernel_entry("staleness_agg[rows]", apo, dev,
                                 rows_form=True),
                adam_kernel_entry(apo, dev),
                topk_kernel_entry("block_topk", main_m, 100, n_topk,
                                  main_run(top), dev),
+               scored_topk_entry("scored_topk", *main_selection, n_topk,
+                                 main_run(top)),
                topk_kernel_entry("block_topk[fleet]", FLEET_CAPACITY, FLEET_K,
-                                 sum(fleet["launches_per_call"]),
-                                 f"fleet phase: {FLEET_ROUNDS} select_topk "
-                                 "calls at M = 1e6", dev)]
+                                 sum(fleet["launches_per_call"]), fleet_run,
+                                 dev),
+               scored_topk_entry("scored_topk[fleet]", fleet_state, FLEET_K,
+                                 FLEET_BETA, sum(fleet["launches_per_call"]),
+                                 fleet_run)]
     kernels += quant8_kernel_entries(
         update, compress["launches"],
         f"compress phase: {COMPRESS_ROUNDS} compress_update calls and one "

@@ -39,11 +39,11 @@ store additionally maintains a device-resident score state (f32/bool torch
 tensors on ``device``, the CUDA card unless the runtime or caller names
 another: EMA num/den, booster, eligibility masks) updated by O(dirty)
 scatters, and ``select_topk`` runs one vectorized step over the whole
-``[capacity]`` state: score -> mask busy/uninvoked -> ``masked_topk`` (the
-``block_topk`` CUDA kernel on the card, ``kernels/topk.py``) -> booster
-update. This path is deterministic (no sampling) and f32 — it is the
-*scale* selector behind the ``apodotiko-topk`` strategy, not the bit-exact
-oracle twin.
+``[capacity]`` state: score -> mask busy/uninvoked -> masked top-k ->
+booster update (``kernels.ops.scored_topk``: one launch of the top-k CUDA
+kernel on the card, ``kernels/topk.py``). This path is deterministic (no
+sampling) and f32 — it is the *scale* selector behind the
+``apodotiko-topk`` strategy, not the bit-exact oracle twin.
 """
 from __future__ import annotations
 
@@ -553,21 +553,28 @@ class FleetStore:
             self._dev_dirty.update(self._slot.values())
         return self._dev
 
-    def _flush_device(self) -> None:
-        dev = self._device()
-        if not self._dev_dirty:
-            return
+    def _dirty_columns(self) -> Optional[tuple]:
+        """The dirty slots (below capacity) and their device values as host
+        arrays ``(idx, num, den, eligible, ever)``, or None when there are
+        none; clears the dirty set."""
         idx = np.fromiter((i for i in self._dev_dirty if i < self.capacity),
                           np.int64)
         self._dev_dirty.clear()
         if idx.size == 0:
-            return
+            return None
         # the f32 twin columns ARE the device values (no cast of an f64
         # fold), as in the reference
-        dev.scatter(idx,
-                    self.ema_num32[idx], self.ema_den32[idx],
-                    self.active[idx] & (self.status[idx] == IDLE),
-                    self.active[idx] & (self.n_invocations[idx] > 0))
+        return (idx, self.ema_num32[idx], self.ema_den32[idx],
+                self.active[idx] & (self.status[idx] == IDLE),
+                self.active[idx] & (self.n_invocations[idx] > 0))
+
+    def _flush_device(self) -> None:
+        dev = self._device()
+        if not self._dev_dirty:
+            return
+        cols = self._dirty_columns()
+        if cols is not None:
+            dev.write(*dev.upload(*cols))
 
     def select_topk(self, k: int, beta: float,
                     now_round: Optional[int] = None) -> list[int]:
@@ -591,11 +598,11 @@ class FleetStore:
             dev.num, dev.den, dev.booster, dev.eligible, dev.ever,
             np.float32(beta), k_eff)
         dev.booster = boost
-        idx = idx.cpu().numpy()
-        valid = valid.cpu().numpy()
-        return [int(self.ids[s]) for s, v in zip(idx, valid)
-                if v and (now_round is None
-                          or self.quarantined_until[s] <= now_round)]
+        # one copy to the host: the picks, with -1 where not valid
+        picks = torch.where(valid, idx, -1).cpu().numpy()
+        return [int(self.ids[s]) for s in picks
+                if s >= 0 and (now_round is None
+                               or self.quarantined_until[s] <= now_round)]
 
     # --------------------------------------------------------- persistence
     def state_dict(self) -> dict:
@@ -677,14 +684,20 @@ class _DeviceScores:
         self.ever = torch.cat(
             [self.ever, torch.zeros(pad, dtype=torch.bool, device=dev)])
 
-    def scatter(self, idx, num, den, eligible, ever) -> None:
-        i = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        put = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
-                                            device=self.device)
-        self.num[i] = put(num, torch.float32)
-        self.den[i] = put(den, torch.float32)
-        self.eligible[i] = put(eligible, torch.bool)
-        self.ever[i] = put(ever, torch.bool)
+    def upload(self, idx, num, den, eligible, ever) -> tuple:
+        """Host columns of the dirty slots as tensors on the device."""
+        return tuple(torch.as_tensor(np.asarray(a), dtype=dt,
+                                     device=self.device)
+                     for a, dt in ((idx, torch.int64), (num, torch.float32),
+                                   (den, torch.float32),
+                                   (eligible, torch.bool), (ever, torch.bool)))
+
+    def write(self, i, num, den, eligible, ever) -> None:
+        """Write uploaded values at slots ``i``."""
+        self.num[i] = num
+        self.den[i] = den
+        self.eligible[i] = eligible
+        self.ever[i] = ever
 
     def reset_booster(self, idx) -> None:
         self.booster[torch.as_tensor(np.asarray(idx, np.int64),

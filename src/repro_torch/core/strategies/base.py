@@ -216,8 +216,8 @@ class Apodotiko(Strategy):
 class ApodotikoTopK(Apodotiko):
     """Apodotiko's gating/weighting with fleet-scale *deterministic*
     cohort selection: one masked top-k over the device-resident EMA score
-    state (``FleetStore.select_topk``, the ``block_topk`` CUDA kernel on
-    the card) instead of Algorithm 3's probabilistic host-side sampling.
+    state (``FleetStore.select_topk``, one launch of the top-k CUDA kernel
+    on the card) instead of Algorithm 3's probabilistic host-side sampling.
     Uninvoked clients rank first (the bootstrap), the booster update runs
     in the same device step, and no per-client Python executes on the
     selection path — O(M) device work at a million clients. Requires the

@@ -15,8 +15,8 @@
   - ``flash_attention`` (``kernels.flash_attention``).
 
 The reductions go through ``kernels.staleness_agg``, the top-k through
-``kernels.topk.block_topk``: a CUDA tensor launches the kernel, a CPU
-tensor takes its plain version.
+``kernels.topk`` (one launch per call): a CUDA tensor launches the kernel,
+a CPU tensor takes its plain version.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.quant8 import QBLOCK, ROWS, dequantize_q8, quantize_q8
 from repro_torch.kernels.staleness_agg import VEC, staleness_agg
-from repro_torch.kernels.topk import BLOCK_TOPK, block_topk, chosen_mask
+from repro_torch.kernels.topk import masked_topk, scored_topk  # noqa: F401
 
 Params = Any   # a dict (possibly nested) of tensors
 BLOCK_N = 1024   # update-store row width alignment (the reference's block)
@@ -156,61 +156,6 @@ def aggregate_rows_gather(buffer: torch.Tensor, row_idx, weights
     return staleness_agg(_vec_pad(buffer), torch.as_tensor(w, device=dev),
                          rows=torch.as_tensor(idx, device=dev)
                          )[:buffer.shape[1]]
-
-
-def masked_topk(scores: torch.Tensor, k: int, *, block: int = BLOCK_TOPK
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k of ``scores [M]`` -> ``(vals [k] fp32, idx [k] int64)`` with
-    ``lax.top_k`` semantics (descending, ties to the lowest index, no index
-    twice); masked entries are -inf scores, which the caller filters by
-    value. ``block_topk`` takes each block's candidates, then runs again on
-    the candidates until one block remains (at M = 2^20, k = 100: 1024 ->
-    100 -> 10 -> 1 blocks). Candidates are block-major and, within a
-    block, equal scores come in ascending index order, so a position in the
-    candidate vector orders equal scores as their global index does and
-    every pass is exact. Where 2k > block a pass would not shrink the
-    candidates, so they are reduced by a stable descending sort instead,
-    as the reference reduces them with ``lax.top_k``. A k the kernel does
-    not take (k > block) is the plain version (a stable descending sort of
-    the whole vector) on a CPU tensor and raises on any other."""
-    M = scores.shape[0]
-    if not 1 <= k <= M:
-        raise ValueError(f"need 1 <= k <= M, got k={k}, M={M}")
-    if k > block:
-        if scores.device.type != "cpu":
-            raise NotImplementedError(
-                f"block_topk takes k <= {block}; k={k} has no kernel yet")
-        return ref.masked_topk(scores, k)
-    vals, idx = block_topk(scores, k, block)
-    if 2 * k > block and vals.shape[0] > 1:
-        vals, pos = ref.masked_topk(vals.reshape(-1), k)
-        return vals, idx.reshape(-1)[pos]
-    while vals.shape[0] > 1:
-        vals, pos = block_topk(vals.reshape(-1), k, block)
-        idx = idx.reshape(-1)[pos]
-    return vals[0], idx[0]
-
-
-def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
-                eligible: torch.Tensor, ever: torch.Tensor, beta, k: int
-                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The Algorithm-3 top-k selection step (twin of the reference's
-    ``ops.scored_topk``): CEF score ``booster * num / max(den, 1e-12)``,
-    +inf for never-invoked clients (the bootstrap), -inf for ineligible
-    ones, ``masked_topk``, then the booster update (selected -> 1,
-    eligible-unselected -> * beta, the rest unchanged). All fp32 on the
-    tensors' device. Returns ``(idx [k], valid [k], new_booster [M])``."""
-    beta = torch.tensor(float(np.float32(beta)), dtype=torch.float32,
-                        device=booster.device)
-    score = booster * (num / torch.clamp_min(den, 1e-12))
-    score = torch.where(ever, score, float("inf"))
-    score = torch.where(eligible, score, float("-inf"))
-    vals, idx = masked_topk(score, k)
-    valid = vals > float("-inf")
-    chosen = chosen_mask(idx, valid, score.shape[0])
-    boost = torch.where(chosen, 1.0,
-                        torch.where(eligible, booster * beta, booster))
-    return idx, valid, boost
 
 
 def aggregate_pytree(updates: Sequence[Params], weights, *,

@@ -58,6 +58,39 @@ def masked_topk(scores: torch.Tensor, k: int
     return s[idx], idx
 
 
+def chosen_mask(idx: torch.Tensor, valid: torch.Tensor, n: int
+                ) -> torch.Tensor:
+    """Scatter a top-k result back to an ``[n]`` bool membership mask
+    (invalid slots, the -inf scores that filled the k, stay False)."""
+    mask = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    mask[idx] = valid
+    return mask
+
+
+def fp32(x) -> float:
+    """``x`` rounded to fp32, as a Python float (exact in fp32)."""
+    return float(np.float32(x))
+
+
+def scored_topk(num, den, booster, eligible, ever, beta, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Algorithm-3 top-k selection step, composed as the reference's
+    ``ops.scored_topk``: score ``booster * (num / clamp_min(den, 1e-12))``
+    (NaN kept), +inf where never invoked, then -inf where ineligible;
+    ``masked_topk``; ``valid = vals > -inf``; new booster 1 where chosen,
+    ``booster * beta`` where eligible, else ``booster``. All fp32. Returns
+    ``(idx [k], valid [k], new_booster [M])``."""
+    score = booster * (num / torch.clamp_min(den, 1e-12))
+    score = torch.where(ever, score, float("inf"))
+    score = torch.where(eligible, score, float("-inf"))
+    vals, idx = masked_topk(score, k)
+    valid = vals > float("-inf")
+    chosen = chosen_mask(idx, valid, score.shape[0])
+    boost = torch.where(chosen, 1.0,
+                        torch.where(eligible, booster * fp32(beta), booster))
+    return idx, valid, boost
+
+
 def bias_corrections(t: int, b1: float, b2: float) -> tuple[float, float]:
     """``(1/(1-b1^t), 1/(1-b2^t))`` computed in fp32, as the reference's
     kernel wrapper does (``repro/kernels/fused_adam.py``)."""

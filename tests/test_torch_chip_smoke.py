@@ -10,6 +10,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,22 +50,138 @@ def test_report_lines_are_the_kernel_list_then_the_result_line():
                                              "count": 1}}
 
 
+def test_report_lines_keep_device_and_composed_times():
+    """An entry's ``device_ms`` and ``composed_ms`` reach the kernel list
+    where it has them; no other extra key does."""
+    cs = _load()
+    e = dict(_entry("scored_topk"), device_ms=0.01, composed_ms=0.4,
+             bytes=18, shape={"M": 1})
+    kernels = json.loads(cs.report_lines([e, _entry("b")], "x", 1)[0])
+    first, second = kernels["kernels"]
+    assert set(first) == set(cs.KERNEL_KEYS) | {"device_ms", "composed_ms"}
+    assert (first["device_ms"], first["composed_ms"]) == (0.01, 0.4)
+    assert set(second) == set(cs.KERNEL_KEYS)
+
+
 def test_topk_entry_bound_is_the_functions_bytes(monkeypatch):
     """The top-k bound is the function's (read the scores once, write the
-    top k; about one comparison per score), not the k-round extraction's
-    k*M comparisons, and the launch count is the one passed in with the run
-    that counted it. CPU rehearsal: the timers and syncs are stubbed."""
+    top k; about one comparison per score), not a k-round extraction's
+    k*M comparisons; the selection is one launch (no reduce passes), and
+    the launch count is the one passed in with the run that counted it.
+    CPU rehearsal: the timers and syncs are stubbed."""
     cs = _load()
     monkeypatch.setattr(cs, "time_ms", lambda fn: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     m, k = 1 << 14, 100
     e = cs.topk_kernel_entry("block_topk[x]", m, k, 20, "fleet phase: x",
                              torch.device("cpu"))
     assert e["exact"] and e["max_abs_err"] == 0.0
     assert (e["launches"], e["launches_run"]) == (20, "fleet phase: x")
+    assert e["shape"]["passes"] == 0
+    assert e["device_ms"] == 0.0 and e["library_ms"] == 0.0
     assert e["bytes"] == 4 * m + 12 * k
     assert e["bound_by"] == "bytes"
     assert e["bound_ms"] == (4 * m + 12 * k) / cs.HBM_BYTES_PER_S * 1e3
+
+
+def test_scored_topk_entry_is_exact_with_the_steps_bytes(monkeypatch):
+    """CPU rehearsal of ``scored_topk[fleet]``: the fused step on a fleet
+    store's device state, held to the plain composition to the bit (idx,
+    valid, booster), the bound at 18 B a slot (num, den, booster, eligible,
+    ever read, the new booster written) plus the k picks and flags, no
+    library call and a composed time beside it."""
+    from repro_torch.core.fleet_store import FleetStore
+
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    rng = np.random.default_rng(0)
+    fs = FleetStore(capacity=4096, device="cpu")
+    fs.add_batch(list(range(3000)), rng.integers(20, 200, 3000), 10, 5)
+    fs.bulk_history(rng.gamma(2.0, 5.0, size=(2000, 4)))
+    for cid in range(0, 3000, 7):
+        fs.mark_running(cid, 0)
+    fs._flush_device()
+    e = cs.scored_topk_entry("scored_topk[fleet]", fs._dev, cs.FLEET_K,
+                             cs.FLEET_BETA, 5, "fleet phase: x")
+    m = fs.capacity
+    assert set(cs.KERNEL_KEYS) <= set(e)
+    assert e["name"] == "scored_topk[fleet]" and e["exact"]
+    assert e["max_abs_err"] == 0.0
+    assert (e["launches"], e["launches_run"]) == (5, "fleet phase: x")
+    assert e["shape"]["M"] == m and e["shape"]["valid"] == cs.FLEET_K
+    assert e["bytes"] == 18 * m + cs.FLEET_K * 9
+    assert e["bound_by"] == "bytes"
+    assert e["bound_ms"] == e["bytes"] / cs.HBM_BYTES_PER_S * 1e3
+    assert e["library_ms"] is None and e["composed_ms"] == 0.0
+    assert e["device_ms"] == 0.0
+
+
+def _small_store(capacity=256, n=200, seed=0):
+    from repro_torch.core.fleet_store import FleetStore
+
+    rng = np.random.default_rng(seed)
+    fs = FleetStore(capacity=capacity, device="cpu")
+    fs.add_batch(list(range(n)), rng.integers(20, 200, n), 10, 5)
+    fs.bulk_history(rng.gamma(2.0, 5.0, size=(n // 2, 4)))
+    return fs
+
+
+def test_scored_topk_main_path_entry_takes_the_runs_state(monkeypatch):
+    """The ``scored_topk`` entry is the main path's own call: the
+    ``apodotiko-topk`` engine's store state with its dirty slots flushed,
+    at the run's k (clients per round) and beta (1 + adjustment rate),
+    held to the plain composition to the bit. CPU rehearsal on a store of
+    the main path's size, with an engine that carries only what is read."""
+    from types import SimpleNamespace
+
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fs = _small_store()
+    fs._flush_device()
+    for cid in range(0, 200, 3):
+        fs.mark_running(cid, 0)
+    engine = SimpleNamespace(
+        db=SimpleNamespace(fleet=fs),
+        cfg=SimpleNamespace(clients_per_round=100, adjustment_rate=0.2))
+    state, k, beta = cs.main_path_selection(engine)
+    assert not fs._dev_dirty and state is fs._dev
+    assert (k, beta) == (100, 1.2)
+    e = cs.scored_topk_entry("scored_topk", state, k, beta, 3,
+                             "main path: apodotiko-topk, 3 rounds")
+    assert set(cs.KERNEL_KEYS) <= set(e)
+    assert e["name"] == "scored_topk" and e["exact"]
+    assert e["shape"]["M"] == 256 and e["shape"]["k"] == 100
+    assert e["shape"]["eligible"] == 200 - len(range(0, 200, 3))
+    assert e["bytes"] == 18 * 256 + 100 * 9
+    assert e["launches"] == 3
+
+
+def test_flush_split_times_the_parts_of_one_flush(monkeypatch):
+    """``flush_split`` repeats the flush of the same dirty slots, whole
+    and in its three parts (host packing, copies, index writes), and
+    leaves the device state as one flush does. CPU rehearsal."""
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    fs, once = _small_store(), _small_store()
+    for f in (fs, once):
+        f._flush_device()
+        for cid in range(0, 200, 4):
+            f.mark_running(cid, 0)
+            f.mark_complete(cid, 1.0 + cid % 9)
+    r = cs.flush_split(fs, reps=3)
+    once._flush_device()
+    assert r["slots"] == 50 and r["reps"] == 3
+    assert {"total_ms", "host_ms", "h2d_ms", "write_ms",
+            "first_total_ms"} <= set(r)
+    assert all(r[f"{p}_ms"] >= 0.0 for p in ("total", "host", "h2d", "write"))
+    assert not fs._dev_dirty
+    for col in ("num", "den", "booster", "eligible", "ever"):
+        assert torch.equal(getattr(fs._dev, col), getattr(once._dev, col))
 
 
 def test_every_kernel_wrapper_counts_its_launches():

@@ -7,8 +7,9 @@ that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: rtol 1e-5 / atol 1e-6, the reference's kernel self-check
-tolerance, unless a case states why it needs more; ``block_topk`` and the
-int8 codes and scales of ``quantize_q8`` are held to exact equality,
+tolerance, unless a case states why it needs more; the top-k kernels
+(values, indices, valid flags and the new booster) and the int8 codes
+and scales of ``quantize_q8`` are held to exact equality,
 ``flash_attention`` block by block of 128 query rows to |got - want| <=
 tol * (the block's rms + |want|), tol 2e-4 for fp32 and 1e-2 for bf16
 (one bf16 ulp is at most 2^-7 of a value): an attention row's values
@@ -92,11 +93,188 @@ def test_block_topk_kernel_equals_plain(card, m, k, block):
     want_v, want_i = ref.block_topk(s, k, block)
     assert torch.equal(idx, want_i)
     assert torch.equal(vals.view(torch.int32), want_v.view(torch.int32))
-    # the whole selection: kernel passes until one block remains
-    got_v, got_i = ops.masked_topk(s, k, block=block)
+    # the whole selection: one launch
+    got_v, got_i = ops.masked_topk(s, k)
     exp_v, exp_i = ref.masked_topk(s, k)
     assert torch.equal(got_i, exp_i)
     assert torch.equal(got_v.view(torch.int32), exp_v.view(torch.int32))
+
+
+TOPK_M = [1, 256, 3000, (1 << 20) + 7]
+TOPK_K = [1, 100, 600, 1024]
+TOPK_CASES = [(m, k) for m in TOPK_M for k in TOPK_K if k <= m]
+TOPK_KINDS = ["all_neg_inf", "all_equal", "few_finite", "special", "fleet"]
+
+
+def _topk_scores(kind, m, k, card):
+    """Scores of one kind: all -inf; all equal; fewer finite than k (k // 2
+    finite, 0 for k = 1); NaN, -NaN, +-inf, +-0 planted among normals; the
+    fleet mix (about half -inf, a few +inf, planted ties)."""
+    gen = torch.Generator(device=card).manual_seed(m + k)
+    if kind == "all_neg_inf":
+        return torch.full((m,), float("-inf"), device=card)
+    if kind == "all_equal":
+        return torch.full((m,), 0.5, device=card)
+    if kind == "few_finite":
+        s = torch.full((m,), float("-inf"), device=card)
+        s[torch.randperm(m, device=card, generator=gen)[:k // 2]] = 1.0
+        return s
+    s = torch.randn(m, device=card, generator=gen)
+    if kind == "special":
+        pick = torch.randperm(m, device=card, generator=gen)
+        n = max(m // 12, 1)
+        nan = torch.tensor(float("nan"), device=card)
+        for j, v in enumerate((nan, -nan, float("inf"), float("-inf"), 0.0,
+                               -0.0)):
+            s[pick[j * n:(j + 1) * n]] = v
+        return s
+    s = s.abs() * 50.0
+    s[torch.rand(m, device=card, generator=gen) < 0.5] = float("-inf")
+    s[torch.randperm(m, device=card, generator=gen)[:8]] = float("inf")
+    s[torch.randperm(m, device=card, generator=gen)[:64]] = 2.5
+    return s
+
+
+def _score_state(kind, m, k, card):
+    """(num, den, booster, eligible, ever) of one kind, the same kinds as
+    ``_topk_scores``: every slot ineligible; every score equal; fewer
+    eligible than k; NaN num, NaN den, den = 0, num -0 and +-inf planted;
+    the fleet mix (60 % eligible, 90 % ever invoked)."""
+    gen = torch.Generator(device=card).manual_seed(3 * m + k)
+    num = torch.rand(m, device=card, generator=gen) * 5
+    den = torch.rand(m, device=card, generator=gen)
+    booster = 1.0 + torch.rand(m, device=card, generator=gen)
+    eligible = torch.rand(m, device=card, generator=gen) < 0.6
+    ever = torch.rand(m, device=card, generator=gen) < 0.9
+    if kind == "all_neg_inf":
+        eligible[:] = False
+    elif kind == "all_equal":
+        num[:], den[:], booster[:] = 1.0, 1.0, 1.0
+        eligible[:], ever[:] = True, True
+    elif kind == "few_finite":
+        eligible[:] = False
+        eligible[torch.randperm(m, device=card, generator=gen)[:k // 2]] = \
+            True
+    elif kind == "special":
+        pick = torch.randperm(m, device=card, generator=gen)
+        n = max(m // 12, 1)
+        num[pick[:n]] = float("nan")
+        den[pick[n:2 * n]] = float("nan")
+        den[pick[2 * n:3 * n]] = 0.0
+        num[pick[3 * n:4 * n]] = -0.0
+        num[pick[4 * n:5 * n]] = float("inf")
+        num[pick[5 * n:6 * n]] = float("-inf")
+    return num, den, booster, eligible, ever
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+@pytest.mark.parametrize("m, k", TOPK_CASES)
+def test_masked_topk_is_one_launch_equal_to_plain(card, m, k, kind):
+    s = _topk_scores(kind, m, k, card)
+    before = topk.block_topk.launches
+    vals, idx = ops.masked_topk(s, k)
+    torch.cuda.synchronize()
+    assert topk.block_topk.launches == before + 1
+    want_v, want_i = ref.masked_topk(s, k)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(_bits(vals), _bits(want_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", TOPK_KINDS)
+@pytest.mark.parametrize("m, k", TOPK_CASES)
+def test_scored_topk_is_one_launch_equal_to_plain(card, m, k, kind):
+    state = _score_state(kind, m, k, card)
+    before = topk.block_topk.launches
+    idx, valid, boost = ops.scored_topk(*state, 1.2, k)
+    torch.cuda.synchronize()
+    assert topk.block_topk.launches == before + 1
+    want_i, want_v, want_b = ref.scored_topk(*state, 1.2, k)
+    assert torch.equal(idx, want_i)
+    assert torch.equal(valid, want_v)
+    assert torch.equal(_bits(boost), _bits(want_b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k", [(256, 100), ((1 << 20) + 7, 100),
+                                  (3000, 1024)])
+def test_topk_ticket_resets_between_calls_and_graph_replays(card, m, k):
+    """Two calls back to back, and a CUDA graph of each call replayed
+    twice, give the eager results: the merge's ticket is back at 0 after
+    every launch (the graph holds the kernel alone: the capture stream's
+    ticket is made by an eager call before the capture)."""
+    s = _topk_scores("fleet", m, k, card)
+    state = _score_state("fleet", m, k, card)
+    want = ops.masked_topk(s, k) + ops.scored_topk(*state, 1.2, k)
+    again = ops.masked_topk(s, k) + ops.scored_topk(*state, 1.2, k)
+    for a, b in zip(again, want):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.masked_topk(s, k), ops.scored_topk(*state, 1.2, k)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = topk.block_topk.launches
+    with torch.cuda.graph(graph, stream=side):
+        got = ops.masked_topk(s, k) + ops.scored_topk(*state, 1.2, k)
+    assert topk.block_topk.launches == before + 2
+    for _ in range(2):
+        for t in got:
+            t.fill_(0)
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_topk_first_call_on_a_stream_under_capture(card):
+    """The merge's ticket is made by an eager call: a multi-tile call that
+    would make it inside a CUDA-graph capture (its memory from the graph's
+    pool, its zero-fill captured) raises instead. A one-tile call needs no
+    ticket: captured on a fresh stream, its replay gives the eager
+    result."""
+    m, k = (1 << 20) + 7, 100
+    s = _topk_scores("fleet", m, k, card)
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="before capturing"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            ops.masked_topk(s, k)
+    small = _topk_scores("fleet", 256, k, card)
+    want = ops.masked_topk(small, k)
+    fresh = torch.cuda.Stream()
+    fresh.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=fresh):
+        got = ops.masked_topk(small, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_topk_raises_on_what_it_does_not_take(card):
+    s = torch.randn(3000, device=card)
+    state = _score_state("fleet", 3000, 1, card)
+    with pytest.raises(NotImplementedError):
+        ops.masked_topk(s, 1025)
+    with pytest.raises(NotImplementedError):
+        ops.scored_topk(*state, 1.2, 1025)
+    with pytest.raises(TypeError):
+        ops.masked_topk(s.double(), 10)
+    with pytest.raises(ValueError):
+        ops.masked_topk(s[::2], 10)
+    with pytest.raises(TypeError):
+        ops.scored_topk(state[0], state[1], state[2], state[3].float(),
+                        state[4], 1.2, 10)
 
 
 def _same_bits(got, want):

@@ -18,7 +18,8 @@ from repro.kernels import ops as jops
 from repro.kernels.topk import block_topk as jax_block_topk
 from repro_torch.core.fleet_store import FleetStore
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.topk import BLOCK_TOPK, block_topk, chosen_mask
+from repro_torch.kernels.ref import chosen_mask
+from repro_torch.kernels.topk import BLOCK_TOPK, block_topk
 
 import torch
 
@@ -63,7 +64,7 @@ def test_masked_topk_matches_reference_xla_and_pallas(name):
     # with the xla route only
     finite = np.isfinite(np.asarray(v_x))
     for v, i in (ref.masked_topk(torch.as_tensor(s), k),
-                 ops.masked_topk(torch.as_tensor(s), k, block=block)):
+                 ops.masked_topk(torch.as_tensor(s), k)):
         assert i.dtype == torch.int64 and v.dtype == torch.float32
         np.testing.assert_array_equal(i.numpy(), np.asarray(i_x))
         _bits_equal(v.numpy(), v_x)
@@ -130,24 +131,24 @@ def test_nan_signed_zero_and_infinities_follow_lax_top_k():
 
 
 def test_k_outside_the_kernel_takes_the_stable_sort():
-    """k > block is a stable descending sort on the CPU (lax.top_k's answer
-    too) and raises on any other device; a multi-block k whose passes would
-    not shrink the candidates (2k > block) keeps the kernel's first pass
-    and sorts only its candidates, which is exact as well."""
+    """k > 1024 is a stable descending sort on the CPU (lax.top_k's answer
+    too) and raises on any other device; every k on a CPU tensor is the
+    plain version, a stable sort of the whole vector, which is exact (the
+    card's one launch is pinned in ``tests/test_torch_cuda.py``)."""
     rng = np.random.default_rng(5)
     s = np.round(rng.normal(size=3000), 1).astype(np.float32)   # many ties
-    for k, block in ((1500, 1024), (600, 1024), (1024, 1024), (40, 64)):
+    for k in (1500, 600, 1024, 40):
         v_x, i_x = jax.lax.top_k(jnp.asarray(s), k)
-        v, i = ops.masked_topk(torch.as_tensor(s), k, block=block)
+        v, i = ops.masked_topk(torch.as_tensor(s), k)
         np.testing.assert_array_equal(i.numpy(), np.asarray(i_x))
         _bits_equal(v.numpy(), v_x)
     calls = []
-    real = ops.block_topk
+    real = ref.masked_topk
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ops, "block_topk",
+        mp.setattr(ref, "masked_topk",
                    lambda *a: calls.append(a[1:]) or real(*a))
         ops.masked_topk(torch.as_tensor(s), 600)
-    assert calls == [(600, 1024)]         # one kernel pass, then the sort
+    assert calls == [(600,)]              # the plain version, once
     with pytest.raises(NotImplementedError):
         ops.masked_topk(torch.empty(3000, device="meta"), 1500)
     with pytest.raises(ValueError):
@@ -183,6 +184,29 @@ def test_scored_topk_matches_reference(m, k):
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
     _bits_equal(b.numpy(), jb)
+
+
+SCORED_CASES = [(m, k) for m in (1, 40, 256, 5000)
+                for k in (1, 30, 100, 1024) if k <= m]
+
+
+@pytest.mark.parametrize("m, k", SCORED_CASES)
+def test_plain_and_cpu_route_scored_topk_equal_the_reference(m, k):
+    """``ref.scored_topk`` (the plain composition) and the CPU route of
+    ``ops.scored_topk`` equal the reference's step to the bit: idx, valid
+    and the new booster, with NaN num, NaN den and den = 0 planted."""
+    num, den, booster, eligible, ever = _score_state(m, 7 * m + k)
+    beta = np.float32(1.2)
+    ji, jv, jb = jops.scored_topk(*map(jnp.asarray, (num, den, booster,
+                                                     eligible, ever)),
+                                  beta, k)
+    args = tuple(map(torch.as_tensor, (num, den, booster, eligible, ever)))
+    for i, v, b in (ref.scored_topk(*args, beta, k),
+                    ops.scored_topk(*args, beta, k)):
+        assert i.dtype == torch.int64 and v.dtype == torch.bool
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+        _bits_equal(b.numpy(), jb)
 
 
 def _fleet_pair(n, seed):
