@@ -49,13 +49,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   8. attention: causal ``flash_attention`` at qwen3-1.7b's attention width
      (16 heads of 128; k/v given 16 heads, grouped-query expansion being
      the caller's). Every check is per block of 128 query rows, at
-     tol * (the block's rms + |value|), tol 1e-2 for bf16 and 2e-4 for
-     fp32: a causal row's values shrink with its prefix, so the limit
-     follows them. At 4,096 tokens, bf16 and fp32, against the plain
-     version; at 32,768 tokens (bf16), whose plain version would need a
-     64 GiB score matrix, the first 4,096 query rows must equal the
-     4,096-token run to the bit and every row must match a plain
-     computation of 1,024 rows at a time;
+     tol * (the block's rms + |value|), tol 1e-2 for bf16 and fp16 and
+     2e-4 for fp32: a causal row's values shrink with its prefix, so the
+     limit follows them. At 4,096 tokens, bf16, fp32 and fp16, against
+     the plain version; at 1,024 tokens and head dim 96 (run padded to
+     128), bf16 and fp32, against the plain version; at 32,768 tokens
+     (bf16), whose plain version would need a 64 GiB score matrix, the
+     first 4,096 query rows must equal the 4,096-token run to the bit and
+     every row must match a plain computation of 1,024 rows at a time;
+     each call one launch;
   9. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and ``quantize_q8`` / ``dequantize_q8`` exactly;
@@ -64,10 +66,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      computes the same function (``dequantize_q8``: ``torch.mul``, held to
      the bit; attention: ``scaled_dot_product_attention``; ``quantize_q8``
      has none), and the bound: the larger of bytes / HBM
-     rate and operations / the peak rate of their type (fp32, or the bf16
-     tensor rate for bf16 attention). Attention has an entry per route at
-     4,096 tokens (bf16: the wgmma/TMA kernel; fp32: the CUDA-core kernel)
-     and the bf16 one at 32,768, each with its achieved TFLOP/s. Top-k
+     rate and operations / the peak rate of their type (fp32; the 16-bit
+     tensor rate for bf16 and fp16 attention; for fp32 attention, three
+     TF32 products a product at the TF32 tensor rate, with the fp32 FMA
+     time beside it). Attention has an entry per input type at 4,096
+     tokens (bf16 and fp16: the wgmma/TMA kernel; fp32: the kernel of three
+     TF32 mma.sync products) and the bf16 one at 32,768, each with its
+     achieved TFLOP/s. Top-k
      has four: ``block_topk`` (the one-launch ``masked_topk`` on seeded
      scores at M = 256) and ``block_topk[fleet]`` (at 2^20), each beside
      ``torch.topk``; ``scored_topk`` (the fused selection step at the
@@ -96,7 +101,9 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, dense bf16 tensor cores
+BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, dense bf16 (and fp16) tensor cores
+TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
+TF32_PRODUCTS = 3             # TF32 products per fp32 product (hi/lo split)
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 SEED = 0
@@ -643,13 +650,15 @@ ATTN_HEADS, ATTN_DIM = 16, 128        # qwen3-1.7b: 16 query heads of 128
 ATTN_SHORT, ATTN_LONG = 4096, 32768   # train_4k and prefill_32k lengths
 ATTN_ROWS = 128                       # query rows per block of the check
 ATTN_CHUNK = 1024                     # rows per plain computation, long run
+ATTN_PAD_SEQ, ATTN_PAD_DIM = 1024, 96  # a head dim the kernels run padded
 # Kernel vs plain, one block of ATTN_ROWS query rows at a time:
 # |got - want| <= tol * (rms(want over the block) + |want|). A causal row's
 # output shrinks as 1/sqrt(its prefix), so a fixed atol would be as wide as
 # the values of a long run's later rows; scaled by the block's rms it stays
 # a fraction of what it compares. Both sides sum in fp32, so a bf16 output
-# is off by at most one bf16 ulp, 2^-7 of the value.
-ATTN_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-4}
+# is off by at most one bf16 ulp, 2^-7 of the value (fp16: 2^-10, held to
+# the same 1e-2).
+ATTN_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 2e-4}
 
 
 def attention_inputs(dev, seq: int, heads: int = ATTN_HEADS,
@@ -718,53 +727,71 @@ def long_rows_check(out, q, k, v) -> dict:
 
 
 def attention_phase(dev) -> tuple[dict, dict]:
-    """Causal ``ops.flash_attention`` at ``[1, 16, 4096, 128]`` in bf16 and
-    fp32 against the plain version, and at ``[1, 16, 32768, 128]`` in bf16:
-    the first 4,096 rows equal the short run to the bit (a causal row sees
-    only its prefix; the inputs are the long ones' prefix), and every row
-    matches a plain computation of ATTN_CHUNK rows at a time. Counts are
-    zeroed before and read after each length (and read between the two
-    short calls, for each route's count). Returns (record, inputs)."""
+    """Causal ``ops.flash_attention`` at ``[1, 16, 4096, 128]`` in bf16,
+    fp32 and fp16 against the plain version; at ``[1, 16, 1024, 96]`` in
+    bf16 and fp32 (a head dim the kernels run padded to 128); and at
+    ``[1, 16, 32768, 128]`` in bf16: the first 4,096 rows equal the short
+    run to the bit (a causal row sees only its prefix; the inputs are the
+    long ones' prefix), and every row matches a plain computation of
+    ATTN_CHUNK rows at a time. Counts are zeroed before the first call and
+    before the long one, and read around every call: each is one launch.
+    Returns (record, inputs)."""
     from repro_torch.kernels import ops, ref
 
     short, long = ATTN_SHORT, ATTN_LONG
     full32 = attention_inputs(dev, long)
     long_bf = tuple(t.to(torch.bfloat16) for t in full32)
-    short32 = tuple(t[:, :, :short].contiguous() for t in full32)
-    short_bf = tuple(t[:, :, :short].contiguous() for t in long_bf)
+    short_in = {"bf16": tuple(t[:, :, :short].contiguous() for t in long_bf),
+                "fp32": tuple(t[:, :, :short].contiguous() for t in full32),
+                "fp16": tuple(t[:, :, :short].to(torch.float16)
+                              for t in full32)}
     del full32
+    padded_in = {name: tuple(t.to(dtype) for t in attention_inputs(
+                     dev, ATTN_PAD_SEQ, dim=ATTN_PAD_DIM))
+                 for name, dtype in (("bf16", torch.bfloat16),
+                                     ("fp32", torch.float32))}
+    runs = {**short_in, **{f"d{ATTN_PAD_DIM}_{n}": qkv
+                           for n, qkv in padded_in.items()}}
     zero_counts()
-    out_bf = ops.flash_attention(*short_bf)
-    n_short_bf16 = read_counts()["flash_attention"]
-    out_32 = ops.flash_attention(*short32)
-    torch.cuda.synchronize()
+    outs, launches = {}, {}
+    for name, qkv in runs.items():
+        before = read_counts()["flash_attention"]
+        outs[name] = ops.flash_attention(*qkv)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()["flash_attention"] - before
     n_short = read_counts()["flash_attention"]
     zero_counts()
     t0 = time.perf_counter()
-    out_long = ops.flash_attention(*long_bf)
+    outs["long"] = ops.flash_attention(*long_bf)
     torch.cuda.synchronize()
     long_s = time.perf_counter() - t0
     n_long = read_counts()["flash_attention"]
-    for name, out, shape in (("short bf16", out_bf, short_bf[0].shape),
-                             ("short fp32", out_32, short32[0].shape),
-                             ("long bf16", out_long, long_bf[0].shape)):
-        if out.shape != shape or not bool(torch.isfinite(out).all()):
+    runs["long"] = long_bf
+    for name, out in outs.items():
+        if out.shape != runs[name][0].shape \
+                or not bool(torch.isfinite(out).all()):
             raise AssertionError(f"attention {name}: malformed output")
+    out_long = outs.pop("long")
     t0 = time.perf_counter()
     long_rows = long_rows_check(out_long, *long_bf)
     check_s = time.perf_counter() - t0
     record = {
-        "shape_short": list(short_bf[0].shape),
+        "shape_short": list(short_in["bf16"][0].shape),
         "shape_long": list(long_bf[0].shape), "causal": True,
         "launches_short": n_short, "launches_long": n_long,
-        "launches_short_bf16": n_short_bf16,
-        "launches_short_fp32": n_short - n_short_bf16,
-        "short_bf16": attention_check("flash_attention bf16", out_bf,
-                                      ref.flash_attention(*short_bf)),
-        "short_fp32": attention_check("flash_attention fp32", out_32,
-                                      ref.flash_attention(*short32)),
+        **{f"launches_short_{n}": launches[n] for n in short_in},
+        **{f"short_{n}": attention_check(f"flash_attention {n}", outs[n],
+                                         ref.flash_attention(*qkv))
+           for n, qkv in short_in.items()},
+        "shape_padded": list(padded_in["bf16"][0].shape),
+        "padded": {n: dict(attention_check(
+                       f"flash_attention d{ATTN_PAD_DIM} {n}",
+                       outs[f"d{ATTN_PAD_DIM}_{n}"],
+                       ref.flash_attention(*qkv)),
+                       launches=launches[f"d{ATTN_PAD_DIM}_{n}"])
+                   for n, qkv in padded_in.items()},
         "long_prefix_rows_equal": bool(torch.equal(out_long[:, :, :short],
-                                                   out_bf)),
+                                                   outs["bf16"])),
         "long_rows": long_rows, "long_check_s": check_s,
         "long_first_call_s": long_s,
         "long_plain": (f"ref.flash_attention not run whole: its fp32 score "
@@ -774,15 +801,17 @@ def attention_phase(dev) -> tuple[dict, dict]:
         "tolerance": ("|got - want| <= tol * (rms of want over each block of "
                       f"{ATTN_ROWS} rows + |want|)"),
         "tol": {"bf16": ATTN_TOL[torch.bfloat16],
+                "fp16": ATTN_TOL[torch.float16],
                 "fp32": ATTN_TOL[torch.float32]}}
     emit("attention", **record)
     if not record["long_prefix_rows_equal"]:
         raise AssertionError("the long run's first rows differ from the "
                              "short run")
-    if (n_short, n_long) != (2, 1):
-        raise AssertionError(f"flash_attention launched {n_short} and "
-                             f"{n_long} times, want 2 and 1")
-    return record, {"short": short_bf, "short_fp32": short32, "long": long_bf}
+    if set(launches.values()) != {1} or (n_short, n_long) != (len(outs), 1):
+        raise AssertionError(f"flash_attention launched {launches} and "
+                             f"{n_long} times, want 1 a call")
+    return record, {**{f"short_{n}": qkv for n, qkv in short_in.items()},
+                    "long": long_bf}
 
 
 # ------------------------------------------------------------------ kernels
@@ -1151,11 +1180,15 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
     attention phase's check of the same output against it. Where the whole
     plain version does not fit (``S`` past ATTN_SHORT), the plain time is
     of ``plain_rows`` over every row, ATTN_CHUNK rows at a time. The bound
-    is the function's: causal flops 4*B*H*D*S(S+1)/2 at the bf16 tensor
-    rate (fp32 rate for fp32), bytes q, k, v read and the output written
-    once. ``design`` names the kernel the input type takes (bf16: wgmma fed
-    by a TMA ring; fp32: CUDA cores); ``tflops`` and ``device_tflops`` are
-    the achieved rates, the flops over ``ms`` and over ``device_ms``."""
+    is the function's: causal flops 4*B*H*D*S(S+1)/2 at the 16-bit tensor
+    rate for bf16 and fp16; for fp32, which the kernel computes as three
+    TF32 products a product, three times those flops at the TF32 tensor
+    rate (``fp32_fma_bound_ms`` keeps the flops at the 67 TFLOP/s of fp32
+    FMA, the bound before this design); bytes q, k, v read and the output
+    written once. ``design`` names the kernel the input type takes (bf16
+    and fp16: wgmma fed by a TMA ring; fp32: three TF32 mma.sync products);
+    ``tflops`` and ``device_tflops`` are the achieved rates, the function's
+    flops over ``ms`` and over ``device_ms``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
@@ -1166,9 +1199,9 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
         q, k, v, is_causal=True)
     lib = library()
     torch.cuda.synchronize()
-    bf16 = q.dtype == torch.bfloat16
+    fp32 = q.dtype == torch.float32
     entry = {"name": name, "route": "cuda",
-             "design": "cuda-wgmma-tma" if bf16 else "cuda-cores",
+             "design": "cuda-mma-3xtf32" if fp32 else "cuda-wgmma-tma",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:82",
              "launches": launches, "launches_run": run,
@@ -1195,8 +1228,13 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
     entry["plain_ms"] = time_ms(plain, reps=min(reps, 5), warmup=1)
     entry["library_ms"] = time_ms(library, reps=reps, warmup=warmup)
     flops, nbytes = attention_work(B, H, S, D, q.element_size())
-    rate = BF16_FLOP_PER_S if bf16 else FP32_FLOP_PER_S
-    entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops, rate)
+    if fp32:
+        entry["bound_ms"], entry["bound_by"] = bound(
+            nbytes, TF32_PRODUCTS * flops, TF32_FLOP_PER_S)
+        entry["fp32_fma_bound_ms"] = bound(nbytes, flops)[0]
+    else:
+        entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops,
+                                                     BF16_FLOP_PER_S)
     entry["flops"], entry["bytes"] = flops, nbytes
     entry["tflops"] = flops / entry["ms"] / 1e9 if entry["ms"] else None
     entry["device_tflops"] = (flops / entry["device_ms"] / 1e9
@@ -1210,8 +1248,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 
 # kept in the kernel list where an entry has them: the kernel's own time
-# (profiler) and, for the fused selection step, its torch composition's
-EXTRA_KEYS = ("device_ms", "composed_ms")
+# (profiler), for the fused selection step its torch composition's, and
+# for fp32 attention the bound at the fp32 FMA rate
+EXTRA_KEYS = ("device_ms", "composed_ms", "fp32_fma_bound_ms")
 
 
 def report_lines(kernels: list, kind: str, count: int) -> list:
@@ -1296,15 +1335,11 @@ def main() -> int:
         "decompress_update")
     kernels += [
         attention_kernel_entry(
-            "flash_attention", attn_inputs["short"],
-            attention["launches_short_bf16"],
-            "attention phase: causal [1,16,4096,128] in bf16",
-            attention["short_bf16"]),
-        attention_kernel_entry(
-            "flash_attention[fp32]", attn_inputs["short_fp32"],
-            attention["launches_short_fp32"],
-            "attention phase: causal [1,16,4096,128] in fp32",
-            attention["short_fp32"]),
+            "flash_attention" + ("" if n == "bf16" else f"[{n}]"),
+            attn_inputs[f"short_{n}"], attention[f"launches_short_{n}"],
+            f"attention phase: causal [1,16,4096,128] in {n}",
+            attention[f"short_{n}"])
+        for n in ("bf16", "fp32", "fp16")] + [
         attention_kernel_entry(
             "flash_attention[prefill_32k]", attn_inputs["long"],
             attention["launches_long"],

@@ -1,7 +1,8 @@
 // Attention forward, causal or full, with an online softmax: out = softmax(
-// q k^T * sm_scale, masked) v for q [BH, S, D], k/v [BH, T, D], fp32 or bf16,
-// D = 64 or 128. Each input type has one kernel: bf16 goes to a Hopper
-// kernel (wgmma fed by TMA), fp32 to a kernel on the CUDA cores.
+// q k^T * sm_scale, masked) v for q [BH, S, D], k/v [BH, T, D], fp32, bf16
+// or fp16, D = 64 or 128 (the wrapper pads any other D <= 128 with zero
+// columns). bf16 and fp16 go to one Hopper kernel (wgmma fed by TMA), fp32
+// to a kernel of three TF32 tensor-core products for each product.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention (the Pallas
 //   _fa_kernel, flash_attention.py:28, launched at :82). Same arithmetic:
@@ -16,283 +17,393 @@
 //   depends only on its own tile's loop, so the first rows of a longer
 //   causal run equal, to the bit, the run on their prefix.
 //
+// Grid (both kernels): one CTA per (batch*head, tile of 128 queries), on
+//   one dimension, batch*head fastest and query tiles last first: the first
+//   wave holds every head's longest causal rows, and B*H is bounded only by
+//   the 2^31 - 1 blocks of gridDim.x.
+//
 // Bound on the H100: operations. The causal forward does 4*B*H*D*S(S+1)/2
 //   flops (two products over the lower triangle) and moves 4*B*H*S*D values:
-//   at [1, 16, 4096, 128] bf16, 6.87e10 flops (0.069 ms at the 989 TFLOP/s
-//   dense bf16 tensor rate) against 67 MB (0.020 ms); in fp32, 1.03 ms at
-//   the 67 TFLOP/s of fp32 FMA.
+//   at [1, 16, 4096, 128] in 16 bits, 6.87e10 flops (0.069 ms at the 989
+//   TFLOP/s dense bf16/fp16 tensor rate) against 67 MB (0.020 ms). fp32
+//   products as three TF32 products are 2.06e11 TF32 flops, 0.416 ms at 495
+//   TFLOP/s (the 67 TFLOP/s of fp32 FMA would take 1.03 ms).
 //
-// bf16 design (flash_fwd_kernel_wgmma): one CTA of three warpgroups per
-//   (batch*head, tile of 128 queries), query tiles walked last first so the
-//   longest causal rows start first. Warpgroup 0 is the producer: it gives
-//   up registers (setmaxnreg.dec) and one thread issues every TMA load: the
-//   q tile once, then K and V tiles of 128 keys into a two-stage ring, each
-//   stage with a full barrier per tile (expect-tx bytes) and an empty one
-//   (one arrival per consumer). The tensor maps are 3-D over [BH, rows, D],
-//   so a ragged last tile reads zeros, never the next head. Tiles lie in
-//   64-column panels with the 128-byte swizzle (a D = 128 row is two TMA
-//   boxes); at D = 128 shared memory holds q 32 KB + 2 x (K 32 KB + V 32 KB),
-//   one CTA an SM. Warpgroups 1 and 2 (setmaxnreg.inc) own 64 query rows
-//   each, one wgmma M tile: S = Q K^T by wgmma m64n128k16 with Q and K both
-//   K-major from shared memory; the online softmax runs in registers in the
-//   accumulator's layout (a row's max and sum over the four lanes that share
-//   it), with the masks applied only on the diagonal tile and the ragged
-//   last tile; sm_scale scales the fp32 scores (bf16 x bf16 products are
-//   exact in fp32, so this differs from the reference's pre-scaled q only by
-//   fp32 rounding). P goes straight into the register A fragments of
-//   O += P V, whose V stays in shared memory as an MN-major (transposed) B
-//   operand. The reference keeps p in fp32; p rounded to bf16 once exceeds
-//   the per-block check on some inputs (few-key rows whose v terms cancel),
-//   so p is split into bf16 p_hi and p_lo = bf16(p - p_hi), two wgmmas into
-//   the same accumulator (tests/test_torch_flash_attention.py emulates both
-//   roundings). The epilogue divides by max(l, 1e-30) and stores bf16 pairs
-//   from registers.
+// 16-bit design (flash_fwd_kernel_wgmma<T, D>, T bf16 or fp16): one CTA of
+//   three warpgroups per (batch*head, tile of 128 queries). Warpgroup 0 is
+//   the producer: it gives up registers (setmaxnreg.dec) and one thread
+//   issues every TMA load: the q tile once, then K and V tiles of 128 keys
+//   into a two-stage ring, each stage with a full barrier per tile
+//   (expect-tx bytes) and an empty one (one arrival per consumer). The
+//   tensor maps are 3-D over [BH, rows, D], so a ragged last tile reads
+//   zeros, never the next head. Tiles lie in 64-column panels with the
+//   128-byte swizzle (a D = 128 row is two TMA boxes); at D = 128 shared
+//   memory holds q 32 KB + 2 x (K 32 KB + V 32 KB), one CTA an SM.
+//   Warpgroups 1 and 2 (setmaxnreg.inc) own 64 query rows each, one wgmma M
+//   tile: S = Q K^T by wgmma m64n128k16 with Q and K both K-major from
+//   shared memory; the online softmax runs in registers in the
+//   accumulator's layout (a row's max and sum over the four lanes that
+//   share it), with the masks applied only on the diagonal tile and the
+//   ragged last tile; sm_scale scales the fp32 scores (16-bit x 16-bit
+//   products are exact in fp32, so this differs from the reference's
+//   pre-scaled q only by fp32 rounding). P goes straight into the register
+//   A fragments of O += P V, whose V stays in shared memory as an MN-major
+//   (transposed) B operand. The reference keeps p in fp32; p rounded once
+//   to bf16 exceeds the per-block check on some inputs (few-key rows whose
+//   v terms cancel), so p is split into p_hi and p_lo = T(p - p_hi) of the
+//   input's type, two wgmmas into the same accumulator
+//   (tests/test_torch_flash_attention.py emulates both roundings). The
+//   epilogue divides by max(l, 1e-30) and stores 16-bit pairs from
+//   registers. bf16 and fp16 differ only in the wgmma type, the tensor
+//   map's element type and the conversions.
 //
-// fp32 design (flash_fwd_kernel<float, D>, no tensor cores: TF32 would not
-//   meet the fp32 check): one CTA of 256 threads per (batch*head, tile of 64
-//   queries), query tiles last first. The q tile (pre-scaled) stays in
-//   shared memory; each kv tile of 64 keys is staged into one shared buffer,
-//   first K for the scores, then V for the product. Thread (ty, tx) owns
-//   query rows ty + 16a and keys tx + 16b (a, b < 4) of the score tile,
-//   reading q and k rows as float4 along D (rows padded by four floats, so
-//   the 16 distinct k rows of a warp spread over all banks), and the same
-//   query rows times columns 64c + 4tx.. of the output. Row max and row sum
-//   reduce over the 16 lanes of a row with shuffles, so m, l, alpha and the
-//   accumulator stay in the thread's registers; p stays fp32 and goes
-//   through shared memory (row stride 80: the two rows of a warp land on
-//   disjoint banks). D = 128 takes 88 KB of shared memory, two CTAs an SM.
+// fp32 design (flash_fwd_kernel_tf32<D>): TF32 keeps 10 of fp32's 23
+//   mantissa bits, and one TF32 product misses the fp32 check
+//   (tests/test_torch_flash_attention.py emulates it). Three do not: with
+//   hi = x with its low 13 bits cleared and lo = (x - hi) likewise,
+//   a b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi (what is dropped, a_lo b_lo and
+//   lo's own low bits, is ~2^-21 of the product), for S = Q K^T and for
+//   O += P V. The kernel clears the bits itself, so every operand is exact
+//   in TF32 whatever the tensor core does with low bits.
+//   Why mma.sync.m16n8k8 and not wgmma: TF32 wgmma reads B only K-major
+//   from shared memory. For P V that is V^T, so every V tile would be
+//   transposed into shared memory as hi and lo beside K's lo and q's hi and
+//   lo: at D = 128 one 64-key stage is 160 KB (K, K_lo, V, V^T hi, V^T lo),
+//   which leaves one consumer warpgroup and one stage. mma.sync loads its
+//   fragments from the fp32 tiles as they land, splits them in registers,
+//   and needs no transposed copy: a thread's P fragment is its own score
+//   accumulator with the keys of each 8-key step permuted (k slot t <- key
+//   2t, slot t + 4 <- key 2t + 1), and V's fragment rows are permuted the
+//   same way (b0 <- V row 2t, b1 <- V row 2t + 1). What it costs: mma.sync
+//   runs below wgmma's rate, so the 165 TFLOP/s fp32-equivalent of three
+//   TF32 wgmmas is out of reach (PERF.md holds the measured rate).
+//   Tiling: one CTA of eight warps per 128 queries, each warp 16 query rows
+//   (one m16 tile). q, scaled by sm_scale in fp32 as the reference does,
+//   stays in shared memory and is split per fragment; K and V tiles of 64
+//   keys come through a two-stage cp.async ring, zero-filled past T (a
+//   ragged tile reads zeros, never the next head's rows). Rows are D + 4
+//   floats apart, so every fragment load (q and k: row g, column t; v: row
+//   2t, column g) hits 32 distinct banks. Shared memory is (128 + 2 x 2 x
+//   64) x (D + 4) x 4 bytes: 202,752 at D = 128 (one CTA an SM), 104,448 at
+//   D = 64 (two). A warp's scores (eight n8 tiles, 32 registers) and output
+//   (D / 8 n8 tiles, 64 registers at D = 128) stay in registers; the online
+//   softmax runs in the accumulator's layout as in the 16-bit kernel, exp
+//   as exp2 of s log2(e) - m log2(e) (one fma; its rounding is ~1e-6 of p,
+//   far inside the check). Per
+//   kv tile a warp issues 3 x 2 x 8 x D / 8 mma.sync (768 at D = 128). A
+//   warp skips a causal tile whose keys all lie after its rows: there p is
+//   0 and alpha 1 exactly, so skipping changes no bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;                     // queries per CTA
-constexpr int kBK = 64;                     // keys per kv tile
-constexpr int kThreads = 256;
-constexpr int kLdP = kBK + 16;              // p tile row stride, floats
 constexpr float kNegInf = -1073741824.0f;   // -2^30, the reference's NEG_INF
+constexpr int kBQ = 128;                    // queries per CTA (both kernels)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
+  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+}
+
+// The CTA's (batch*head, first query): batch*head fastest, query tiles
+// last first.
+__device__ __forceinline__ void cta_tile(int BH, int nq, int& bh, int& q0) {
+  bh = static_cast<int>(blockIdx.x % static_cast<unsigned>(BH));
+  q0 = (nq - 1 - static_cast<int>(blockIdx.x / static_cast<unsigned>(BH)))
+       * kBQ;
+}
+
+// Number of kv tiles of `bk` keys that queries q0 .. q0 + kBQ - 1 see.
+__device__ __forceinline__ int kv_tiles(int q0, int S, int T_len, int bk,
+                                        int causal) {
+  int nkb = (T_len + bk - 1) / bk;
+  if (causal) {
+    const int last_q = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
+    nkb = nkb < last_q / bk + 1 ? nkb : last_q / bk + 1;
+  }
+  return nkb;
+}
+
+// ------------------------------------------- fp32: three TF32 products
+constexpr int kTfBK = 64;                   // keys per kv tile
+constexpr int kTfThreads = 256;             // eight warps of 16 query rows
+constexpr int kTfStages = 2;                // K/V ring depth
 
 template <int D>
-struct Tile {
-  static constexpr int kLd = D + 4;         // q and kv row stride, floats
-  static constexpr int kQ = kBQ * kLd;
-  static constexpr int kKV = kBK * kLd;
-  static constexpr int kP = kBQ * kLdP;
-  static constexpr size_t kBytes = sizeof(float) * (kQ + kKV + kP);
+struct TfTile {
+  static constexpr int kLd = D + 4;         // row stride, floats
+  static constexpr int kQ = kBQ * kLd;      // floats
+  static constexpr int kKV = kTfBK * kLd;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kQ + 2 * kTfStages * kKV);
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// x as TF32 hi + lo: hi is x with its low 13 mantissa bits cleared, lo is
+// what hi leaves out with its own low 13 bits cleared.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xFFFFE000u;
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+// A[16 x 8] B[8 x 8] as three TF32 products into d: lo terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           float b0, float b1) {
+  uint32_t b0_hi, b0_lo, b1_hi, b1_lo;
+  split_tf32(b0, b0_hi, b0_lo);
+  split_tf32(b1, b1_hi, b1_lo);
+  hopper::mma_m16n8k8_tf32(d, a_lo, b0_hi, b1_hi);
+  hopper::mma_m16n8k8_tf32(d, a_hi, b0_lo, b1_lo);
+  hopper::mma_m16n8k8_tf32(d, a_hi, b0_hi, b1_hi);
 }
 
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
-}
-
-// Rows row0.. of a [rows, D] matrix into a [R, D + 4] fp32 tile, times
-// `scale`; rows at or past `rows` are zeros.
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int64_t row0, int64_t rows,
-                                          float scale) {
-  constexpr int kChunks = R * D / 4;
-  for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+// Rows k0 .. k0 + kTfBK - 1 of a [T_len, D] matrix into a [kTfBK, D + 4]
+// tile, asynchronously; rows at or past T_len are zeros.
+template <int D>
+__device__ __forceinline__ void load_kv_tile(float* dst,
+                                             const float* __restrict__ src,
+                                             int k0, int T_len) {
+  constexpr int kChunks = kTfBK * D / 4;
+  for (int c = threadIdx.x; c < kChunks; c += kTfThreads) {
     const int r = c / (D / 4);
     const int col = (c % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
-      v = load4(src + (row0 + r) * D + col);
-      v.x *= scale; v.y *= scale; v.z *= scale; v.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * Tile<D>::kLd + col) = v;
+    const bool valid = k0 + r < T_len;
+    const float* from = valid ? src + static_cast<int64_t>(k0 + r) * D + col
+                              : src;
+    hopper::cp_async16(dst + r * TfTile<D>::kLd + col, from, valid);
   }
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xFFFFFFFFu, x, off);
-  return x;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int64_t S,
-                 int64_t T_len, float sm_scale, int causal) {
-  constexpr int kLd = Tile<D>::kLd;
-  constexpr int kC = D / 64;                // float4 output columns a thread
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1)
+flash_fwd_kernel_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int BH, int nq, int S, int T_len, float sm_scale,
+                      int causal) {
+  using L = TfTile<D>;
+  constexpr int kLd = L::kLd;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* kvs = qs + Tile<D>::kQ;
-  float* ps = kvs + Tile<D>::kKV;
+  float* ks = qs + L::kQ;                   // [stage][kTfBK][kLd]
+  float* vs = ks + kTfStages * L::kKV;
 
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const int64_t q0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int64_t bh = blockIdx.y;
-  const T* kb_ptr = k + bh * T_len * D;
-  const T* vb_ptr = v + bh * T_len * D;
+  int bh, q0;
+  cta_tile(BH, nq, bh, q0);
+  const int nkb = kv_tiles(q0, S, T_len, kTfBK, causal);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = q0 + 16 * warp;          // the warp's first query
+  const float* kb = k + static_cast<int64_t>(bh) * T_len * D;
+  const float* vb = v + static_cast<int64_t>(bh) * T_len * D;
 
-  load_tile<T, D, kBQ>(qs, q + bh * S * D, q0, S, sm_scale);
-
-  float m[4], l[4], acc[4][4 * kC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNegInf;
-    l[a] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 4 * kC; ++c) acc[a][c] = 0.f;
+  if (nkb > 0) {
+    load_kv_tile<D>(ks, kb, 0, T_len);
+    load_kv_tile<D>(vs, vb, 0, T_len);
+  }
+  hopper::cp_async_commit();
+  {   // q, scaled in fp32; rows past S are zeros
+    const float* qb = q + static_cast<int64_t>(bh) * S * D;
+    for (int c = threadIdx.x; c < kBQ * D / 4; c += kTfThreads) {
+      const int r = c / (D / 4);
+      const int col = (c % (D / 4)) * 4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < S) {
+        x = *reinterpret_cast<const float4*>(
+            qb + static_cast<int64_t>(q0 + r) * D + col);
+        x.x *= sm_scale; x.y *= sm_scale; x.z *= sm_scale; x.w *= sm_scale;
+      }
+      *reinterpret_cast<float4*>(qs + r * kLd + col) = x;
+    }
   }
 
-  int64_t nkb = (T_len + kBK - 1) / kBK;
-  if (causal) {
-    const int64_t last_q = (q0 + kBQ < S ? q0 + kBQ : S) - 1;
-    nkb = nkb < last_q / kBK + 1 ? nkb : last_q / kBK + 1;
-  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sums
+  const float* qw = qs + 16 * warp * kLd;
 
-  for (int64_t kt = 0; kt < nkb; ++kt) {
-    const int64_t k0 = kt * kBK;
-    __syncthreads();                        // the last tile's p v is done
-    load_tile<T, D, kBK>(kvs, kb_ptr, k0, T_len, 1.0f);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kk[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qa[a] = *reinterpret_cast<const float4*>(qs + (ty + 16 * a) * kLd + d);
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        kk[b] = *reinterpret_cast<const float4*>(kvs + (tx + 16 * b) * kLd + d);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          s[a][b] = fmaf(qa[a].x, kk[b].x, s[a][b]);
-          s[a][b] = fmaf(qa[a].y, kk[b].y, s[a][b]);
-          s[a][b] = fmaf(qa[a].z, kk[b].z, s[a][b]);
-          s[a][b] = fmaf(qa[a].w, kk[b].w, s[a][b]);
-        }
+  for (int j = 0; j < nkb; ++j) {
+    const int st = j % kTfStages;
+    if (j + 1 < nkb) {
+      const int nxt = (j + 1) % kTfStages;
+      load_kv_tile<D>(ks + nxt * L::kKV, kb, (j + 1) * kTfBK, T_len);
+      load_kv_tile<D>(vs + nxt * L::kKV, vb, (j + 1) * kTfBK, T_len);
     }
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<1>();             // tile j has landed
+    __syncthreads();                        // ... for every thread (and q)
+    const int k0 = j * kTfBK;
+    if (!causal || k0 <= row0 + 15) {       // else p = 0, alpha = 1 exactly
+      const float* kt = ks + st * L::kKV;
+      const float* vt = vs + st * L::kKV;
 
+      // S = Q K^T: a row's scores s[n][e], n8 tile n; rows g (e < 2) and
+      // g + 8, keys 8n + 2t + e % 2
+      float s[kTfBK / 8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int64_t qpos = q0 + ty + 16 * a;
-      float mx = -INFINITY;
+      for (int n = 0; n < kTfBK / 8; ++n)
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int64_t kpos = k0 + tx + 16 * b;
-        if (kpos >= T_len) s[a][b] = -INFINITY;          // no key: p = 0
-        else if (causal && kpos > qpos) s[a][b] = kNegInf;
-        mx = fmaxf(mx, s[a][b]);
-      }
-      const float m_new = fmaxf(m[a], row_max16(mx));
-      const float alpha = expf(m[a] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        s[a][b] = expf(s[a][b] - m_new);
-        rs += s[a][b];
-      }
-      l[a] = l[a] * alpha + row_sum16(rs);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < 4 * kC; ++c) acc[a][c] *= alpha;
-    }
-
-    __syncthreads();                        // every score read k
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        ps[(ty + 16 * a) * kLdP + tx + 16 * b] = s[a][b];
-    load_tile<T, D, kBK>(kvs, vb_ptr, k0, T_len, 1.0f);
-    __syncthreads();
-
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 pa[4];
+      for (int kk = 0; kk < D / 8; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(qw[g * kLd + 8 * kk + t], a_hi[0], a_lo[0]);
+        split_tf32(qw[(g + 8) * kLd + 8 * kk + t], a_hi[1], a_lo[1]);
+        split_tf32(qw[g * kLd + 8 * kk + t + 4], a_hi[2], a_lo[2]);
+        split_tf32(qw[(g + 8) * kLd + 8 * kk + t + 4], a_hi[3], a_lo[3]);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        pa[a] = *reinterpret_cast<const float4*>(ps + (ty + 16 * a) * kLdP + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              kvs + (j + jj) * kLd + c * 64 + tx * 4);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float p = comp(pa[a], jj);
-            acc[a][4 * c + 0] = fmaf(p, vv.x, acc[a][4 * c + 0]);
-            acc[a][4 * c + 1] = fmaf(p, vv.y, acc[a][4 * c + 1]);
-            acc[a][4 * c + 2] = fmaf(p, vv.z, acc[a][4 * c + 2]);
-            acc[a][4 * c + 3] = fmaf(p, vv.w, acc[a][4 * c + 3]);
-          }
+        for (int n = 0; n < kTfBK / 8; ++n) {
+          const float* kr = kt + (8 * n + g) * kLd + 8 * kk + t;
+          mma_3xtf32(s[n], a_hi, a_lo, kr[0], kr[4]);
         }
       }
+
+      const int qa = row0 + g;
+      if (k0 + kTfBK > T_len || (causal && k0 + kTfBK - 1 > row0)) {
+#pragma unroll
+        for (int n = 0; n < kTfBK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            const int qpos = qa + 8 * (e >> 1);
+            if (kpos >= T_len) s[n][e] = -INFINITY;       // no key: p = 0
+            else if (causal && kpos > qpos) s[n][e] = kNegInf;
+          }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < kTfBK / 8; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        const float mb = m_new * kLog2e;
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < kTfBK / 8; ++n) {
+          s[n][2 * r] = exp2f(fmaf(s[n][2 * r], kLog2e, -mb));
+          s[n][2 * r + 1] = exp2f(fmaf(s[n][2 * r + 1], kLog2e, -mb));
+          rs += s[n][2 * r] + s[n][2 * r + 1];
+        }
+        l[r] = l[r] * alpha[r] + rs;
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= alpha[0];
+        acc[n][1] *= alpha[0];
+        acc[n][2] *= alpha[1];
+        acc[n][3] *= alpha[1];
+      }
+
+      // O += P V over the tile's eight 8-key steps. A step's A fragment is
+      // the scores of n8 tile kb with its keys permuted (slot t <- key 2t,
+      // slot t + 4 <- key 2t + 1); V's rows are read in the same order.
+#pragma unroll
+      for (int kb8 = 0; kb8 < kTfBK / 8; ++kb8) {
+        uint32_t a_hi[4], a_lo[4];
+        split_tf32(s[kb8][0], a_hi[0], a_lo[0]);
+        split_tf32(s[kb8][2], a_hi[1], a_lo[1]);
+        split_tf32(s[kb8][1], a_hi[2], a_lo[2]);
+        split_tf32(s[kb8][3], a_hi[3], a_lo[3]);
+        const float* vr = vt + (8 * kb8 + 2 * t) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          mma_3xtf32(acc[n], a_hi, a_lo, vr[8 * n], vr[kLd + 8 * n]);
+      }
     }
+    __syncthreads();                        // stage st is free to refill
   }
 
-  T* ob = o + bh * S * D;
+  float* ob = o + static_cast<int64_t>(bh) * S * D;
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int64_t row = q0 + ty + 16 * a;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float sum = quad_sum(l[r]);
+    const float den = sum < 1e-30f ? 1e-30f : sum;
     if (row >= S) continue;
-    const float den = l[a] < 1e-30f ? 1e-30f : l[a];
+    float* orow = ob + static_cast<int64_t>(row) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < kC; ++c)
-      store4(ob + row * D + c * 64 + tx * 4,
-             make_float4(acc[a][4 * c + 0] / den, acc[a][4 * c + 1] / den,
-                         acc[a][4 * c + 2] / den, acc[a][4 * c + 3] / den));
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t BH,
-           int64_t S, int64_t T_len, int causal, float sm_scale,
-           cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o, int BH,
+                int nq, int S, int T_len, int causal, float sm_scale,
+                cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel_tf32<D>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Tile<D>::kBytes));
+      static_cast<int>(TfTile<D>::kBytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
-                  static_cast<unsigned>(BH));
-  kernel<<<grid, kThreads, Tile<D>::kBytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, T_len, sm_scale,
-      causal);
+  kernel<<<static_cast<unsigned>(BH) * static_cast<unsigned>(nq), kTfThreads,
+           TfTile<D>::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), BH, nq, S, T_len,
+      sm_scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------ bf16: wgmma + TMA
-constexpr int kWgBQ = 128;                  // queries per CTA (two consumers)
+// ----------------------------------------------- bf16 / fp16: wgmma + TMA
 constexpr int kWgBK = 128;                  // keys per kv tile
 constexpr int kWgThreads = 384;             // producer + two consumers
 constexpr int kStages = 2;                  // K/V ring depth
-constexpr float kLog2e = 1.4426950408889634f;
+
+// What differs between the two 16-bit types: the wgmma form, the tensor
+// map's element type, and the conversions from fp32 pairs.
+template <typename T>
+struct Half16;
+
+template <>
+struct Half16<__nv_bfloat16> {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+  }
+};
+
+template <>
+struct Half16<__half> {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float a, float b) {
+    const __half2 h = __floats2half2_rn(a, b);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ float2 unpack(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+};
 
 template <int D>
 struct WgTile {
@@ -308,45 +419,37 @@ struct WgTile {
   static constexpr size_t kBytes = kBar + 8 * kNumBars + 1024;
 };
 
-// p0, p1 (adjacent k) as a bf16 pair `hi` and the bf16 pair of what hi
-// leaves out, `lo`: hi + lo carries about 16 bits of each p.
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
+// p0, p1 (adjacent k) as a 16-bit pair `hi` and the 16-bit pair of what hi
+// leaves out, `lo`: hi + lo carries about twice the type's bits of each p.
+template <typename T>
+__device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi,
                                            uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - hf.x, p1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xFFFFFFFFu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xFFFFFFFFu, x, 1);
-  return x + __shfl_xor_sync(0xFFFFFFFFu, x, 2);
+  hi = Half16<T>::pack(p0, p1);
+  const float2 hf = Half16<T>::unpack(hi);
+  lo = Half16<T>::pack(p0 - hf.x, p1 - hf.y);
 }
 
 // O[64 x D] += P[64 x 16] V[16 x D] for one k16 step; V MN-major.
+template <bool kF16>
 __device__ __forceinline__ void pv_step(float (&o)[64], const uint32_t (&a)[4],
                                         uint64_t desc_v) {
-  hopper::wgmma_m64n128k16_rs(o, a, desc_v);
+  hopper::wgmma_m64n128k16_rs<kF16>(o, a, desc_v);
 }
 
+template <bool kF16>
 __device__ __forceinline__ void pv_step(float (&o)[32], const uint32_t (&a)[4],
                                         uint64_t desc_v) {
-  hopper::wgmma_m64n64k16_rs(o, a, desc_v);
+  hopper::wgmma_m64n64k16_rs<kF16>(o, a, desc_v);
 }
 
 // One consumer warpgroup: query rows q0 + 64c .. +63 of head bh.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void consume(
     uint8_t* smem, uint64_t* q_full, uint64_t* k_full, uint64_t* v_full,
     uint64_t* empty, int c, int q0, int nkb, int bh, int S, int T_len,
-    float sm_scale, int causal, __nv_bfloat16* __restrict__ o) {
+    float sm_scale, int causal, T* __restrict__ o) {
   using L = WgTile<D>;
+  constexpr bool kF16 = Half16<T>::kF16;
   const int t = threadIdx.x & 127;
   const int lane = t & 31;
   const int row_a = q0 + 64 * c + 16 * (t >> 5) + (lane >> 2);   // and +8
@@ -376,9 +479,9 @@ __device__ __forceinline__ void consume(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * L::kPanelBytes + (kk % 4) * 32;
-      hopper::wgmma_m64n128k16_ss(s, hopper::desc_sw128(q_base + off, 16, 1024),
-                                  hopper::desc_sw128(k_base + off, 16, 1024),
-                                  kk > 0);
+      hopper::wgmma_m64n128k16_ss<kF16>(
+          s, hopper::desc_sw128(q_base + off, 16, 1024),
+          hopper::desc_sw128(k_base + off, 16, 1024), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -428,15 +531,16 @@ __device__ __forceinline__ void consume(
       acc[4 * i + 3] *= alpha[1];
     }
 
-    // P straight into the A fragments of O += P V, split into a bf16 high
-    // and low part: O += P_hi V + P_lo V keeps p to about fp32's accuracy
+    // P straight into the A fragments of O += P V, split into a 16-bit
+    // high and low part: O += P_hi V + P_lo V keeps p to about fp32's
+    // accuracy
     uint32_t p_hi[kWgBK / 16][4], p_lo[kWgBK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kWgBK / 16; ++kk)
 #pragma unroll
       for (int f = 0; f < 4; ++f)
-        split_bf16(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1], p_hi[kk][f],
-                   p_lo[kk][f]);
+        split_pair<T>(s[8 * kk + 2 * f], s[8 * kk + 2 * f + 1], p_hi[kk][f],
+                      p_lo[kk][f]);
     hopper::mbar_wait(&v_full[st], ph);
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
@@ -444,8 +548,8 @@ __device__ __forceinline__ void consume(
     for (int kk = 0; kk < kWgBK / 16; ++kk) {
       const uint64_t desc_v = hopper::desc_sw128(v_base + kk * 2048,
                                                  L::kPanelBytes, 1024);
-      pv_step(acc, p_hi[kk], desc_v);
-      pv_step(acc, p_lo[kk], desc_v);
+      pv_step<kF16>(acc, p_hi[kk], desc_v);
+      pv_step<kF16>(acc, p_lo[kk], desc_v);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -453,27 +557,27 @@ __device__ __forceinline__ void consume(
     if (t == 0) hopper::mbar_arrive(&empty[st]);   // K and V read: free
   }
 
-  __nv_bfloat16* ob = o + static_cast<int64_t>(bh) * S * D;
+  T* ob = o + static_cast<int64_t>(bh) * S * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     const float sum = quad_sum(l[r]);
     const float den = sum < 1e-30f ? 1e-30f : sum;
     if (row >= S) continue;
-    __nv_bfloat16* orow = ob + static_cast<int64_t>(row) * D + col0;
+    T* orow = ob + static_cast<int64_t>(row) * D + col0;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) = __floats2bfloat162_rn(
+      *reinterpret_cast<uint32_t*>(orow + 8 * i) = Half16<T>::pack(
           acc[4 * i + 2 * r] / den, acc[4 * i + 2 * r + 1] / den);
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int S, int T_len,
+                       T* __restrict__ o, int BH, int nq, int S, int T_len,
                        float sm_scale, int causal) {
   using L = WgTile<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -485,13 +589,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* v_full = bars + 1 + kStages;
   uint64_t* empty = bars + 1 + 2 * kStages;
 
-  const int q0 = static_cast<int>(gridDim.x - 1 - blockIdx.x) * kWgBQ;
-  const int bh = blockIdx.y;
-  int nkb = (T_len + kWgBK - 1) / kWgBK;
-  if (causal) {
-    const int last_q = (q0 + kWgBQ < S ? q0 + kWgBQ : S) - 1;
-    nkb = nkb < last_q / kWgBK + 1 ? nkb : last_q / kWgBK + 1;
-  }
+  int bh, q0;
+  cta_tile(BH, nq, bh, q0);
+  const int nkb = kv_tiles(q0, S, T_len, kWgBK, causal);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -534,8 +634,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    consume<D>(smem, q_full, k_full, v_full, empty, threadIdx.x / 128 - 1, q0,
-               nkb, bh, S, T_len, sm_scale, causal, o);
+    consume<T, D>(smem, q_full, k_full, v_full, empty, threadIdx.x / 128 - 1,
+                  q0, nkb, bh, S, T_len, sm_scale, causal, o);
   }
 }
 
@@ -566,11 +666,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over [BH, rows, D] bf16 (D innermost), boxes of 64 x 128 rows
-// with the 128-byte swizzle. Being 3-D, a box that runs past `rows` reads
-// zeros, never the next head's rows.
-bool tensor_map_3d(CUtensorMap* map, EncodeTiled encode, const void* base,
-                   int64_t BH, int64_t rows, int D) {
+// A 3-D map over [BH, rows, D] of 16-bit `type` (D innermost), boxes of
+// 64 x 128 rows with the 128-byte swizzle. Being 3-D, a box that runs past
+// `rows` reads zeros, never the next head's rows.
+bool tensor_map_3d(CUtensorMap* map, EncodeTiled encode,
+                   CUtensorMapDataType type, const void* base, int64_t BH,
+                   int64_t rows, int D) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(BH)};
@@ -578,55 +679,78 @@ bool tensor_map_3d(CUtensorMap* map, EncodeTiled encode, const void* base,
                                  static_cast<cuuint64_t>(rows) * D * 2};
   const cuuint32_t box[3] = {64, 128, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 int64_t BH, int64_t S, int64_t T_len, int causal,
-                 float sm_scale, cudaStream_t stream) {
+template <typename T, int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
+                 int nq, int S, int T_len, int causal, float sm_scale,
+                 cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr CUtensorMapDataType type = Half16<T>::kMapType;
   CUtensorMap tm_q, tm_k, tm_v;
-  if (!tensor_map_3d(&tm_q, encode, q, BH, S, D)
-      || !tensor_map_3d(&tm_k, encode, k, BH, T_len > 0 ? T_len : 1, D)
-      || !tensor_map_3d(&tm_v, encode, v, BH, T_len > 0 ? T_len : 1, D))
+  if (!tensor_map_3d(&tm_q, encode, type, q, BH, S, D)
+      || !tensor_map_3d(&tm_k, encode, type, k, BH, T_len > 0 ? T_len : 1, D)
+      || !tensor_map_3d(&tm_v, encode, type, v, BH, T_len > 0 ? T_len : 1, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_fwd_kernel_wgmma<D>;
+  auto kernel = flash_fwd_kernel_wgmma<T, D>;
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(WgTile<D>::kBytes));
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(static_cast<unsigned>((S + kWgBQ - 1) / kWgBQ),
-                  static_cast<unsigned>(BH));
-  kernel<<<grid, kWgThreads, WgTile<D>::kBytes, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o),
-      static_cast<int>(S), static_cast<int>(T_len), sm_scale, causal);
+  kernel<<<static_cast<unsigned>(BH) * static_cast<unsigned>(nq), kWgThreads,
+           WgTile<D>::kBytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<T*>(o), BH, nq, S, T_len, sm_scale,
+      causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int BH,
+           int S, int T_len, int dtype, int causal, float sm_scale,
+           cudaStream_t stream) {
+  const int nq = (S + kBQ - 1) / kBQ;
+  switch (dtype) {
+    case 0:
+      return launch_tf32<D>(q, k, v, o, BH, nq, S, T_len, causal, sm_scale,
+                            stream);
+    case 1:
+      return launch_wgmma<__nv_bfloat16, D>(q, k, v, o, BH, nq, S, T_len,
+                                            causal, sm_scale, stream);
+    case 2:
+      return launch_wgmma<__half, D>(q, k, v, o, BH, nq, S, T_len, causal,
+                                     sm_scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // q: [BH, S, D], k/v: [BH, T, D], o: [BH, S, D], contiguous and 16-byte
-// aligned, fp32 (bf16 = 0) or bf16 (bf16 = 1); D is 64 or 128 (else
-// returns cudaErrorInvalidValue); 1 <= S, T < 2^31, 1 <= BH <= 65535.
-// Launches on `stream`, does not synchronise, returns the first CUDA error.
+// aligned, of one type: fp32 (dtype 0), bf16 (1) or fp16 (2); D is 64 or
+// 128; 1 <= S < 2^31, 0 <= T < 2^31 and BH * ceil(S / 128) < 2^31 (else
+// returns cudaErrorInvalidValue). Launches on `stream`, does not
+// synchronise, returns the first CUDA error.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int64_t BH, int64_t S, int64_t T,
-                                   int D, int bf16, int causal, float sm_scale,
+                                   int D, int dtype, int causal, float sm_scale,
                                    void* stream) {
+  const int64_t blocks = BH * ((S + kBQ - 1) / kBQ);
+  if (BH < 1 || S < 1 || T < 0 || S > INT32_MAX || T > INT32_MAX
+      || blocks > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && !bf16)
-    return launch<float, 64>(q, k, v, o, BH, S, T, causal, sm_scale, s);
-  if (D == 128 && !bf16)
-    return launch<float, 128>(q, k, v, o, BH, S, T, causal, sm_scale, s);
-  if (D == 64 && bf16)
-    return launch_wgmma<64>(q, k, v, o, BH, S, T, causal, sm_scale, s);
-  if (D == 128 && bf16)
-    return launch_wgmma<128>(q, k, v, o, BH, S, T, causal, sm_scale, s);
+  const int bh = static_cast<int>(BH), si = static_cast<int>(S),
+            ti = static_cast<int>(T);
+  if (D == 64) return launch<64>(q, k, v, o, bh, si, ti, dtype, causal,
+                                 sm_scale, s);
+  if (D == 128) return launch<128>(q, k, v, o, bh, si, ti, dtype, causal,
+                                   sm_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -51,15 +51,17 @@ def test_report_lines_are_the_kernel_list_then_the_result_line():
 
 
 def test_report_lines_keep_device_and_composed_times():
-    """An entry's ``device_ms`` and ``composed_ms`` reach the kernel list
-    where it has them; no other extra key does."""
+    """An entry's ``device_ms``, ``composed_ms`` and ``fp32_fma_bound_ms``
+    reach the kernel list where it has them; no other extra key does."""
     cs = _load()
     e = dict(_entry("scored_topk"), device_ms=0.01, composed_ms=0.4,
-             bytes=18, shape={"M": 1})
+             fp32_fma_bound_ms=1.0, bytes=18, shape={"M": 1})
     kernels = json.loads(cs.report_lines([e, _entry("b")], "x", 1)[0])
     first, second = kernels["kernels"]
-    assert set(first) == set(cs.KERNEL_KEYS) | {"device_ms", "composed_ms"}
+    assert set(first) == set(cs.KERNEL_KEYS) | {"device_ms", "composed_ms",
+                                                "fp32_fma_bound_ms"}
     assert (first["device_ms"], first["composed_ms"]) == (0.01, 0.4)
+    assert first["fp32_fma_bound_ms"] == 1.0
     assert set(second) == set(cs.KERNEL_KEYS)
 
 
@@ -274,9 +276,12 @@ def test_attention_entry_and_tail_rows_on_the_cpu(monkeypatch):
 
 
 def test_attention_fp32_entry_has_its_own_bound_and_rate(monkeypatch):
-    """The fp32 route's entry: the CUDA-core design, the bound at the 67
-    TFLOP/s fp32 rate, and the achieved TFLOP/s as the causal flops over
-    the measured time (CPU rehearsal: every time stubbed to 2 ms)."""
+    """The fp32 route's entry: the design of three TF32 tensor-core
+    products, the bound at three times the causal flops over the 495
+    TFLOP/s TF32 rate (and, beside it, the flops at the 67 TFLOP/s fp32
+    rate, the bound before this design), and the achieved TFLOP/s as the
+    causal flops over the measured time (CPU rehearsal: every time stubbed
+    to 2 ms)."""
     cs = _load()
     from repro_torch.kernels import ref
     monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 2.0)[1])
@@ -289,14 +294,82 @@ def test_attention_fp32_entry_has_its_own_bound_and_rate(monkeypatch):
                                  ref.flash_attention(*qkv))
     e = cs.attention_kernel_entry("flash_attention[fp32]", qkv, 1,
                                   "attention phase: x", checked)
-    assert (e["route"], e["design"]) == ("cuda", "cuda-cores")
+    assert (e["route"], e["design"]) == ("cuda", "cuda-mma-3xtf32")
     assert set(cs.KERNEL_KEYS) <= set(e)
     flops, nbytes = cs.attention_work(1, 2, 256, 64, 4)
     assert (e["flops"], e["bytes"]) == (flops, nbytes)
-    assert e["bound_ms"] == max(flops / cs.FP32_FLOP_PER_S,
+    assert e["bound_ms"] == max(3 * flops / cs.TF32_FLOP_PER_S,
                                 nbytes / cs.HBM_BYTES_PER_S) * 1e3
+    assert e["fp32_fma_bound_ms"] == max(flops / cs.FP32_FLOP_PER_S,
+                                         nbytes / cs.HBM_BYTES_PER_S) * 1e3
+    assert e["bound_ms"] < e["fp32_fma_bound_ms"]
     assert e["tflops"] == e["device_tflops"] == flops / 2.0 / 1e9
     assert e["shape"]["dtype"] == "torch.float32"
+
+
+def test_attention_fp16_entry_takes_the_16_bit_kernel(monkeypatch):
+    """The fp16 entry: the wgmma/TMA design, the bound at the 16-bit
+    tensor rate, SDPA on the fp16 inputs as the library call, and no fp32
+    FMA bound (CPU rehearsal, times stubbed)."""
+    cs = _load()
+    from repro_torch.kernels import ref
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 1.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    qkv = tuple(t.to(torch.float16) for t in cs.attention_inputs(
+        torch.device("cpu"), 256, heads=2, dim=64))
+    checked = cs.attention_check("x", ref.flash_attention(*qkv),
+                                 ref.flash_attention(*qkv))
+    assert checked["tol"] == 1e-2
+    e = cs.attention_kernel_entry("flash_attention[fp16]", qkv, 1,
+                                  "attention phase: x", checked)
+    assert (e["route"], e["design"]) == ("cuda", "cuda-wgmma-tma")
+    assert set(cs.KERNEL_KEYS) <= set(e) and "fp32_fma_bound_ms" not in e
+    flops, nbytes = cs.attention_work(1, 2, 256, 64, 2)
+    assert e["bound_ms"] == max(flops / cs.BF16_FLOP_PER_S,
+                                nbytes / cs.HBM_BYTES_PER_S) * 1e3
+    assert e["shape"]["dtype"] == "torch.float16"
+    assert e["library_ms"] == 1.0 and e["library_max_abs_diff"] < 1e-2
+
+
+def test_attention_phase_checks_every_route_and_the_padded_dim(monkeypatch):
+    """CPU rehearsal of the attention phase at a small size, with a
+    wrapper that counts one launch a call as the card's does: bf16, fp32
+    and fp16 at the short length, bf16 and fp32 at the padded head dim,
+    bf16 at the long length, each checked and counted once; the short
+    runs' inputs come back for the kernel entries."""
+    cs = _load()
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention as fa
+    plain = ops.flash_attention
+
+    def counted(*args, **kw):
+        fa.flash_attention.launches += 1
+        return plain(*args, **kw)
+
+    inputs = cs.attention_inputs
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "attention_inputs",
+                        lambda dev, seq, dim=64: inputs(dev, seq, heads=2,
+                                                        dim=min(dim, 64)))
+    for name, value in (("ATTN_SHORT", 256), ("ATTN_LONG", 512),
+                        ("ATTN_CHUNK", 128), ("ATTN_PAD_SEQ", 128),
+                        ("ATTN_PAD_DIM", 48)):
+        monkeypatch.setattr(cs, name, value)
+    record, qkv = cs.attention_phase(torch.device("cpu"))
+    assert (record["launches_short"], record["launches_long"]) == (5, 1)
+    for n in ("bf16", "fp32", "fp16"):
+        assert record[f"launches_short_{n}"] == 1
+        assert record[f"short_{n}"]["tol_ratio"] == 0.0
+        assert qkv[f"short_{n}"][0].shape == (1, 2, 256, 64)
+    assert qkv["short_fp16"][0].dtype == torch.float16
+    assert record["shape_padded"] == [1, 2, 128, 48]
+    assert {n: c["launches"] for n, c in record["padded"].items()} == \
+        {"bf16": 1, "fp32": 1}
+    assert record["tol"] == {"bf16": 1e-2, "fp16": 1e-2, "fp32": 2e-4}
+    assert record["long_prefix_rows_equal"]
+    assert record["long_rows"]["rows"] == 512
 
 
 def _planted(kind, q, k, v, want):

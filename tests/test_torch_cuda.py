@@ -12,8 +12,9 @@ tolerance, unless a case states why it needs more; the top-k kernels
 and scales of ``quantize_q8`` are held to exact equality,
 ``flash_attention`` block by block of 128 query rows to |got - want| <=
 tol * (the block's rms + |want|), tol 2e-4 for fp32 and 1e-2 for bf16
-(one bf16 ulp is at most 2^-7 of a value): an attention row's values
-shrink with the keys it sees, so the limit follows them."""
+and fp16 (one bf16 ulp is at most 2^-7 of a value, one fp16 ulp 2^-10):
+an attention row's values shrink with the keys it sees, so the limit
+follows them."""
 import pytest
 import torch
 
@@ -361,7 +362,7 @@ def test_aggregate_pytree_card_matches_cpu(card):
                                    atol=ATOL)
 
 
-ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2}
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 1e-2, torch.float16: 1e-2}
 
 
 def assert_attention_close(got, want, rows=128):
@@ -391,6 +392,22 @@ def assert_attention_close(got, want, rows=128):
     (1, 2, 256, 384, 64, torch.bfloat16, False, 128),
     (2, 3, 320, 192, 128, torch.bfloat16, False, 64),   # ragged, S != T
     (1, 1, 128, 128, 128, torch.bfloat16, True, 128),
+    # fp16: the 16-bit kernel with the .f16 wgmma
+    (1, 2, 256, 256, 128, torch.float16, True, 128),
+    (2, 3, 320, 192, 64, torch.float16, False, 64),    # ragged, S != T
+    (1, 16, 1024, 1024, 128, torch.float16, True, 128),
+    # fp32 (three TF32 products): ragged tiles, S != T, both masks
+    (2, 3, 320, 192, 128, torch.float32, False, 64),
+    (2, 3, 192, 320, 128, torch.float32, True, 64),
+    (1, 2, 256, 256, 128, torch.float32, False, 128),
+    (1, 16, 1024, 1024, 128, torch.float32, True, 128),
+    # head dims the kernels run padded to 64 or 128, each type
+    (1, 2, 256, 256, 16, torch.float32, True, 128),
+    (1, 2, 256, 384, 96, torch.float32, False, 128),
+    (1, 2, 256, 256, 16, torch.bfloat16, False, 128),
+    (1, 2, 384, 256, 96, torch.bfloat16, True, 128),
+    (1, 2, 256, 256, 16, torch.float16, True, 128),
+    (1, 2, 256, 256, 96, torch.float16, False, 128),
 ])
 def test_flash_attention_kernel_matches_plain(card, b, h, s, t, d, dtype,
                                               causal, block):
@@ -408,15 +425,18 @@ def test_flash_attention_kernel_matches_plain(card, b, h, s, t, d, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("d, causal", [(128, True), (64, False)])
 def test_flash_attention_ragged_tile_never_reads_the_next_head(card, d,
-                                                               causal):
-    """S = T = 192: the bf16 kernel's last 128-row tile runs 64 rows past
-    each head. Head 1 is all NaN; head 0 must come out finite and right
-    (its tile past the end reads zeros, not head 1's rows)."""
+                                                               causal, dtype):
+    """S = T = 192: every kernel's last 128-row query tile runs 64 rows
+    past each head (and the 16-bit kernels' last 128-key tile too). Head 1
+    is all NaN; head 0 must come out finite and right (its tiles past the
+    end read zeros, not head 1's rows)."""
     gen = torch.Generator(device=card).manual_seed(d)
     q, k, v = (torch.randn(1, 2, 192, d, device=card, generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
+                           ).to(dtype) for _ in range(3))
     for t in (q, k, v):
         t[:, 1] = float("nan")
     got = ops.flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
@@ -428,10 +448,11 @@ def test_flash_attention_ragged_tile_never_reads_the_next_head(card, d,
 
 
 @pytest.mark.cuda
-def test_flash_attention_prefix_rows_equal_the_prefix_run(card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_prefix_rows_equal_the_prefix_run(card, dtype):
     gen = torch.Generator(device=card).manual_seed(2)
     q, k, v = (torch.randn(1, 4, 512, 128, device=card, generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
+                           ).to(dtype) for _ in range(3))
     full = ops.flash_attention(q, k, v)
     prefix = ops.flash_attention(*(t[:, :, :256].contiguous()
                                    for t in (q, k, v)))
@@ -440,10 +461,28 @@ def test_flash_attention_prefix_rows_equal_the_prefix_run(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_takes_more_than_65535_heads(card, dtype):
+    """B * H = 65,537 (past the 65,535 of a grid's second dimension): one
+    launch, every head right."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn(1, 65537, 128, 64, device=card, generator=gen
+                           ).to(dtype) for _ in range(3))
+    before = attn.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn.flash_attention.launches == before + 1
+    assert_attention_close(got, ref.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
 def test_flash_attention_raises_on_what_it_does_not_take(card):
-    t = torch.zeros(1, 2, 128, 96, device=card)
-    with pytest.raises(NotImplementedError, match="64, 128"):
+    """D = 96 and fp16 compute now; D past 128 and fp64 do not."""
+    t = torch.zeros(1, 2, 128, 192, device=card)
+    with pytest.raises(NotImplementedError, match="128"):
         ops.flash_attention(t, t, t)
-    h = torch.zeros(1, 2, 128, 64, device=card, dtype=torch.float16)
+    h = torch.zeros(1, 2, 128, 64, device=card, dtype=torch.float64)
+    before = attn.flash_attention.launches
     with pytest.raises(TypeError):
         ops.flash_attention(h, h, h)
+    assert attn.flash_attention.launches == before
