@@ -30,7 +30,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      top-k kernel. Median ms per call, launches per call, and the
      dirty-slot flush (the host's share of a call) over 20 repetitions,
      whole and split into host packing, host-to-device copies and index
-     writes;
+     writes; then the top-k past the kernel's k (the sort route, the
+     reference's ``lax.top_k`` route): ``masked_topk`` at k = 4096 on the
+     2^20 fleet-shaped scores and ``scored_topk`` at k = 1025 on the fleet
+     state, bit-equal to the plain versions on the card and on the CPU,
+     one sort a call and no kernel launch, each timed;
   5. profile: one more fedavg round under ``torch.profiler`` (device busy
      time, idle share, kernel time by name; informational, no limit);
   6. reference: small ProxyCNN runs on the card against the same runs on
@@ -42,10 +46,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   7. compress: the apodotiko run's update (final minus initial MnistCNN
      params) through three ``compress_update`` calls with the error
      feedback carried, then ``decompress_update``, on the card and on a CPU
-     copy: int8 codes and scales equal to the bit, the error and the
-     decompressed update within rtol 1e-6 / atol 1e-7, and exactly 3
-     ``quantize_q8`` and 4 ``dequantize_q8`` launches (counts zeroed just
-     before the card calls, read just after);
+     copy: each card round's codes, scales and error equal to the plain
+     version run on the card to the bit; codes and scales equal to the
+     CPU copy's to the bit, the error and the decompressed update within
+     rtol 1e-6 / atol 1e-7 of it; and exactly 3 fused ``compress_q8``
+     launches, 1 ``dequantize_q8`` and no ``quantize_q8`` (counts zeroed
+     just before the card calls, read just after);
   8. attention: causal ``flash_attention`` at qwen3-1.7b's attention width
      (16 heads of 128; k/v given 16 heads, grouped-query expansion being
      the caller's). Every check is per block of 128 query rows, at
@@ -60,25 +66,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      each call one launch;
   9. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
-     the top-k entries and ``quantize_q8`` / ``dequantize_q8`` exactly;
-     attention by its phase's check), and timed (median of CUDA-event
-     times) beside the plain version, one PyTorch library call where one
-     computes the same function (``dequantize_q8``: ``torch.mul``, held to
-     the bit; attention: ``scaled_dot_product_attention``; ``quantize_q8``
-     has none), and the bound: the larger of bytes / HBM
-     rate and operations / the peak rate of their type (fp32; the 16-bit
-     tensor rate for bf16 and fp16 attention; for fp32 attention, three
-     TF32 products a product at the TF32 tensor rate, with the fp32 FMA
-     time beside it). Attention has an entry per input type at 4,096
-     tokens (bf16 and fp16: the wgmma/TMA kernel; fp32: the kernel of three
-     TF32 mma.sync products) and the bf16 one at 32,768, each with its
-     achieved TFLOP/s. Top-k
-     has four: ``block_topk`` (the one-launch ``masked_topk`` on seeded
-     scores at M = 256) and ``block_topk[fleet]`` (at 2^20), each beside
-     ``torch.topk``; ``scored_topk`` (the fused selection step at the
-     ``apodotiko-topk`` run's own state, M = 256, k = 100, beta 1.2: the
-     main path's call) and ``scored_topk[fleet]`` (at the fleet phase's
-     state), each beside the stepwise torch composition.
+     the top-k entries and the quant8 kernels exactly; attention by its
+     phase's check), and timed (median of CUDA-event times) beside the
+     plain version, one PyTorch library call where one computes the same
+     function (``dequantize_q8``: ``torch.mul``, held to the bit;
+     attention: ``scaled_dot_product_attention``; ``quantize_q8`` and
+     ``compress_q8`` have none: ``compress_q8``, at the compress phase's
+     update with its error feedback carried, is timed beside the stepwise
+     path it replaces, event and device time), and the bound: the larger
+     of bytes / HBM rate and operations / the peak rate of their type
+     (fp32; the 16-bit tensor rate for bf16 and fp16 attention; for fp32
+     attention, three TF32 products a product at the TF32 tensor rate,
+     with the fp32 FMA time beside it). Attention has an entry per input
+     type at 4,096 tokens (bf16 and fp16: the wgmma/TMA kernel; fp32: the
+     kernel of three TF32 mma.sync products) and the bf16 one at 32,768,
+     each with its achieved TFLOP/s. Top-k has four: ``block_topk`` (the
+     one-launch ``masked_topk`` on seeded scores at M = 256) and
+     ``block_topk[fleet]`` (at 2^20), each beside ``torch.topk``;
+     ``scored_topk`` (the fused selection step at the ``apodotiko-topk``
+     run's own state, M = 256, k = 100, beta 1.2: the main path's call)
+     and ``scored_topk[fleet]`` (at the fleet phase's state), each beside
+     the stepwise torch composition.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,6 +183,23 @@ def device_ms(calls: dict, reps: int = 10) -> dict:
     return out
 
 
+def device_total_ms(fn, reps: int = 10):
+    """Device time of one call of ``fn``, all its kernels together: the sum
+    of every device activity over ``reps`` calls in one ``torch.profiler``
+    session, divided by ``reps``. None where the profiler saw nothing."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start) / 1e3
+             for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(spans) / reps if spans else None
+
+
 def put_device_ms(entry: dict, key: str, ms) -> None:
     entry[key] = ms
     if ms is None:
@@ -192,12 +217,14 @@ def kernel_wrappers() -> dict:
     """Every port kernel's wrapper, by name; each counts its launches."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.quant8 import dequantize_q8, quantize_q8
+    from repro_torch.kernels.quant8 import (compress_q8, dequantize_q8,
+                                            quantize_q8)
     from repro_torch.kernels.staleness_agg import staleness_agg
     from repro_torch.kernels.topk import block_topk
     return {"staleness_agg": staleness_agg, "fused_adam": fused_adam,
             "block_topk": block_topk, "quantize_q8": quantize_q8,
-            "dequantize_q8": dequantize_q8, "flash_attention": flash_attention}
+            "dequantize_q8": dequantize_q8, "compress_q8": compress_q8,
+            "flash_attention": flash_attention}
 
 
 def zero_counts() -> None:
@@ -442,6 +469,59 @@ def fleet_phase(dev) -> tuple[dict, object]:
     return record, card_db.fleet._dev
 
 
+SORT_K_MASKED, SORT_K_SCORED = 4096, 1025   # past the kernel's k <= 1024
+
+
+def topk_sort_route_phase(state, dev) -> dict:
+    """The top-k past the kernel's k (k > 1024: the sort route, the
+    counterpart of the reference's ``lax.top_k`` route) at fleet scale on
+    the card: ``ops.masked_topk`` at k = 4096 on the seeded 2^20
+    fleet-shaped scores and ``ops.scored_topk`` at k = 1025 on the fleet
+    phase's device state, each held to its plain version on the card and
+    on CPU copies to the bit (vals and idx; idx, valid and the new
+    booster). The sort route must run once a call (``masked_topk.sorts``)
+    and the kernel never (``block_topk.launches``). Median ms a call."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.topk import block_topk, masked_topk
+
+    s = topk_scores(FLEET_CAPACITY, dev)
+    args = (state.num, state.den, state.booster, state.eligible, state.ever,
+            FLEET_BETA, SORT_K_SCORED)
+    sorts, launches = masked_topk.sorts, block_topk.launches
+    vals, idx = ops.masked_topk(s, SORT_K_MASKED)
+    got = ops.scored_topk(*args)
+    torch.cuda.synchronize()
+    counts = {"sorts": masked_topk.sorts - sorts,
+              "kernel_launches": block_topk.launches - launches}
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    wants = {"masked_topk": (ref.masked_topk(s, SORT_K_MASKED),
+                             ref.masked_topk(s.cpu(), SORT_K_MASKED)),
+             "scored_topk": (ref.scored_topk(*args),
+                             ref.scored_topk(*cpu_args))}
+    for name, result in (("masked_topk", (vals, idx)),
+                         ("scored_topk", got)):
+        for where, want in zip(("card", "CPU"), wants[name]):
+            for a, b in zip(result, want):
+                a, b = a.cpu(), b.cpu()
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} past k = 1024 differs "
+                                         f"from the plain version on the "
+                                         f"{where}")
+    record = {"M": FLEET_CAPACITY, "masked_k": SORT_K_MASKED,
+              "scored_k": SORT_K_SCORED, **counts, "exact": True,
+              "scored_valid": int(got[1].sum()),
+              "masked_ms": time_ms(lambda: ops.masked_topk(s, SORT_K_MASKED)),
+              "scored_ms": time_ms(lambda: ops.scored_topk(*args))}
+    emit("topk_sort_route", **record)
+    if counts != {"sorts": 2, "kernel_launches": 0}:
+        raise AssertionError(f"past k = 1024: {counts}, want one sort a "
+                             "call and no kernel launch")
+    return record
+
+
 def reference_phase(dev) -> None:
     """Small ProxyCNN runs on the card vs the same runs on the CPU, and the
     Controller poll loop vs the Scheduler on the card."""
@@ -575,14 +655,21 @@ def mnist_update(engine, dev) -> dict:
             for k, v in engine.params.items()}
 
 
+COMPRESS_LAUNCHES = {"compress_q8": COMPRESS_ROUNDS, "quantize_q8": 0,
+                     "dequantize_q8": 1}
+
+
 def compress_phase(update: dict, run: str) -> dict:
     """Three ``compress_update`` calls with the error feedback carried,
     then ``decompress_update``: on the card (counts zeroed just before, read
-    just after), then on a CPU copy. Codes and scales must be equal to the
-    bit, the error and the decompressed update allclose, the launches
-    exactly one quantize and one dequantize a compress and one dequantize
-    for the decompress. Returns the phase record."""
-    from repro_torch.kernels import ops
+    just after), then on a CPU copy. Each card round's codes, scales and
+    error must equal the plain version ``ref.compress_q8`` run on the card
+    on the same inputs to the bit; codes and scales must equal the CPU
+    copy's to the bit, the error and the decompressed update be allclose
+    to it; the launches exactly one fused ``compress_q8`` a compress and one
+    ``dequantize_q8`` for the decompress (``COMPRESS_LAUNCHES``). Returns
+    the phase record."""
+    from repro_torch.kernels import ops, ref
 
     def rounds(upd):
         err, out = None, []
@@ -601,6 +688,15 @@ def compress_phase(update: dict, run: str) -> dict:
     if read_counts() != launches:
         raise AssertionError("the CPU copy launched a kernel")
     n, n_pad = spec.n_params, card[0][0].shape[0]
+    flat, ef = spec.ravel(update), None
+    for r, (q, s, err) in enumerate(card):
+        want = ref.compress_q8(flat, ef, n_pad)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   if a.dtype == torch.float32 else torch.equal(a, b)
+                   for a, b in zip((q, s, err), want)):
+            raise AssertionError(f"round {r}: compress differs from its "
+                                 "plain version on the card")
+        ef = err
     per_round = []
     for r, ((q, s, err), (q_c, s_c, err_c)) in enumerate(zip(card, cpu)):
         if not torch.equal(q.cpu(), q_c):
@@ -626,20 +722,20 @@ def compress_phase(update: dict, run: str) -> dict:
                                    rtol=COMPRESS_RTOL, atol=COMPRESS_ATOL)
         back_diff = max(back_diff,
                         float((leaf.cpu() - cpu_back[name]).abs().max()))
-    want = {"quantize_q8": COMPRESS_ROUNDS,
-            "dequantize_q8": COMPRESS_ROUNDS + 1}
-    got = {k: launches[k] for k in want}
-    flat = spec.ravel(update)
+    got = {k: launches[k] for k in COMPRESS_LAUNCHES}
     record = {"update_of": run, "n_params": n, "codes": n_pad,
               "scales": card[0][1].shape[0], "rounds": COMPRESS_ROUNDS,
               "launches": got, "card_s": card_s,
+              "equal_to_plain_on_card": True,
               "codes_and_scales_equal": True, "per_round": per_round,
               "decompressed_diff_vs_cpu": back_diff,
               "update_max_abs": float(flat.abs().max()),
               "rtol": COMPRESS_RTOL, "atol": COMPRESS_ATOL}
     emit("compress", **record)
-    if got != want or any(launches[k] for k in launches if k not in want):
-        raise AssertionError(f"compress launches {launches}, want {want}")
+    if got != COMPRESS_LAUNCHES or any(
+            launches[k] for k in launches if k not in COMPRESS_LAUNCHES):
+        raise AssertionError(f"compress launches {launches}, want "
+                             f"{COMPRESS_LAUNCHES}")
     if n_pad % 2048 or n_pad - n >= 2048:
         raise AssertionError(f"{n} params padded to {n_pad} codes")
     return record
@@ -1095,6 +1191,68 @@ def main_path_selection(engine) -> tuple:
             promotion_rate(engine.cfg.adjustment_rate))
 
 
+def compress_kernel_entry(update: dict, launches: int, run: str) -> dict:
+    """``compress_q8`` at the compress phase's steady state: the update
+    raveled, with its first round's error feedback carried (what the
+    second and third ``compress_update`` calls hand the kernel), held to
+    its plain version ``ref.compress_q8`` and to the stepwise path it
+    replaces to the bit (codes, scales, error). ``composed_ms`` and
+    ``composed_device_ms`` time that stepwise path (add, pad,
+    ``quantize_q8``, ``dequantize_q8``, slice, subtract). The bound is the
+    fused call's bytes: flat and the error feedback read (4N each), the
+    codes, the scales and the error written (n_pad + 4 n_pad / 256 + 4N).
+    No single PyTorch call computes the step."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant8 import (QBLOCK, ROWS, compress_q8,
+                                            dequantize_q8, quantize_q8)
+
+    flat = ops.RavelSpec(update).ravel(update)
+    n = flat.shape[0]
+    n_pad = n + (-n) % (ROWS * QBLOCK)
+    ef = compress_q8(flat, None, n_pad)[2]          # the first round's error
+
+    def composed():
+        v = flat + ef
+        q, s = quantize_q8(torch.nn.functional.pad(v, (0, n_pad - n)))
+        return q, s, v - dequantize_q8(q, s)[:n]
+
+    got = compress_q8(flat, ef, n_pad)
+    torch.cuda.synchronize()
+    want = ref.compress_q8(flat, ef, n_pad)
+    for what, other in (("plain version", want),
+                        ("stepwise path", composed())):
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   if a.dtype == torch.float32 else torch.equal(a, b)
+                   for a, b in zip(got, other)):
+            raise AssertionError(f"compress_q8: kernel differs from the "
+                                 f"{what}")
+    nbytes = 3 * 4 * n + n_pad + 4 * (n_pad // QBLOCK)
+    entry = {"name": "compress_q8", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/quant8.cu",
+             "replaces": "src/repro/kernels/quant8.py:58",
+             "replaces_also": "src/repro/kernels/quant8.py:89, both as "
+                              "src/repro/kernels/ops.py:357 compress_update "
+                              "composes them",
+             "launches": launches, "launches_run": run,
+             "shape": {"N": n, "N_padded": n_pad, "blocks": n_pad // QBLOCK,
+                       "error_feedback": True},
+             "max_abs_err": float((got[2] - want[2]).abs().max()),
+             "exact": True, "bytes": nbytes, "library_ms": None,
+             "library_note": "no single PyTorch call computes block-scaled "
+                             "int8 codes with error feedback; composed_ms "
+                             "is the stepwise path the kernel replaces"}
+    entry["ms"] = time_ms(lambda: compress_q8(flat, ef, n_pad))
+    put_device_ms(entry, "device_ms", device_ms(
+        {"compress_q8_kernel": lambda: compress_q8(flat, ef, n_pad)}
+    )["compress_q8_kernel"])
+    entry["plain_ms"] = time_ms(lambda: ref.compress_q8(flat, ef, n_pad))
+    entry["composed_ms"] = time_ms(composed)
+    put_device_ms(entry, "composed_device_ms", device_total_ms(composed))
+    # add, abs, max, divide, round, clip, multiply, subtract a value
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, 8 * n_pad)
+    return entry
+
+
 def quant8_kernel_entries(update: dict, launches: dict, run: str) -> list:
     """``quantize_q8`` and ``dequantize_q8`` at the compress phase's shape:
     the update raveled and zero-padded to a multiple of 2048, as
@@ -1133,19 +1291,24 @@ def quant8_kernel_entries(update: dict, launches: dict, run: str) -> list:
               "launches_run": run, "shape": {"N": n, "blocks": nb},
               "exact": True, "bytes": nbytes}
     entries = []
-    for name, line, fn, plain, lib_fn, flops, err in (
-            ("quantize_q8", 58, lambda: quantize_q8(x),
+    # (quantize_q8 launches the fused compress kernel without error feedback)
+    for name, line, kernel, fn, plain, lib_fn, flops, err in (
+            ("quantize_q8", 58, "compress_q8_kernel", lambda: quantize_q8(x),
              lambda: ref.quantize_q8(x), None,
              5 * n,                              # abs, max, div, round, clip
              (s - want_s).abs().max()),
-            ("dequantize_q8", 89, lambda: dequantize_q8(q, s),
-             lambda: ref.dequantize_q8(q, s), library, n,   # one multiply
-             (got - want).abs().max())):
+            ("dequantize_q8", 89, "dequantize_q8_kernel",
+             lambda: dequantize_q8(q, s), lambda: ref.dequantize_q8(q, s),
+             library, n, (got - want).abs().max())):   # one multiply
         e = {"name": name, "replaces": f"src/repro/kernels/quant8.py:{line}",
              "launches": launches[name], "max_abs_err": float(err), **common}
+        if name == "quantize_q8":
+            e["launches_note"] = ("compress_update runs the fused "
+                                  "compress_q8; no path calls quantize_q8 "
+                                  "alone, the reference's entry point")
         e["ms"] = time_ms(fn)
         e["plain_ms"] = time_ms(plain)
-        calls = {f"{name}_kernel": fn}
+        calls = {kernel: fn}
         if lib_fn is None:
             e["library_ms"] = None
             e["library_note"] = ("no single PyTorch call computes "
@@ -1156,7 +1319,7 @@ def quant8_kernel_entries(update: dict, launches: dict, run: str) -> list:
                             "bit-equal to the kernel")
             calls["elementwise"] = lib_fn
         dev_ms = device_ms(calls)
-        put_device_ms(e, "device_ms", dev_ms[f"{name}_kernel"])
+        put_device_ms(e, "device_ms", dev_ms[kernel])
         if lib_fn is not None:
             put_device_ms(e, "library_device_ms", dev_ms["elementwise"])
         e["bound_ms"], e["bound_by"] = bound(nbytes, flops)
@@ -1248,9 +1411,11 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 
 # kept in the kernel list where an entry has them: the kernel's own time
-# (profiler), for the fused selection step its torch composition's, and
-# for fp32 attention the bound at the fp32 FMA rate
-EXTRA_KEYS = ("device_ms", "composed_ms", "fp32_fma_bound_ms")
+# (profiler), for the fused selection step and the fused compress step the
+# stepwise composition's (for compress also its device time), and for fp32
+# attention the bound at the fp32 FMA rate
+EXTRA_KEYS = ("device_ms", "composed_ms", "composed_device_ms",
+              "fp32_fma_bound_ms")
 
 
 def report_lines(kernels: list, kind: str, count: int) -> list:
@@ -1307,6 +1472,7 @@ def main() -> int:
     main_m = topk_engine.db.fleet.capacity
     main_selection = main_path_selection(topk_engine)
     fleet, fleet_state = fleet_phase(dev)
+    topk_sort_route_phase(fleet_state, dev)
     reference_phase(dev)
     profile_round(data, dev, avg["rounds"][0]["wall_s"])
     update = mnist_update(apo_engine, dev)
@@ -1329,10 +1495,12 @@ def main() -> int:
                scored_topk_entry("scored_topk[fleet]", fleet_state, FLEET_K,
                                  FLEET_BETA, sum(fleet["launches_per_call"]),
                                  fleet_run)]
-    kernels += quant8_kernel_entries(
-        update, compress["launches"],
-        f"compress phase: {COMPRESS_ROUNDS} compress_update calls and one "
-        "decompress_update")
+    compress_run = (f"compress phase: {COMPRESS_ROUNDS} compress_update "
+                    "calls and one decompress_update")
+    kernels.append(compress_kernel_entry(
+        update, compress["launches"]["compress_q8"], compress_run))
+    kernels += quant8_kernel_entries(update, compress["launches"],
+                                     compress_run)
     kernels += [
         attention_kernel_entry(
             "flash_attention" + ("" if n == "bf16" else f"[{n}]"),

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -97,6 +99,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def stream(t) -> int:
+    """The current stream of tensor ``t``'s CUDA device as a raw handle,
+    without the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream`` builds: host time that a kernel of a few
+    microseconds would otherwise be bound by."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def function(name: str, symbol: str, restype, argtypes):

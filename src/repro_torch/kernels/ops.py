@@ -11,12 +11,15 @@
   - ``masked_topk`` / ``scored_topk``: the fleet-scale top-k selection step
     of ``apodotiko-topk`` (``FleetStore.select_topk``);
   - ``compress_update`` / ``decompress_update``: int8 client-update
-    compression with error feedback (``kernels.quant8``);
+    compression with error feedback (``kernels.quant8``: one fused
+    ``compress_q8`` launch a compression, one ``dequantize_q8`` a
+    decompression);
   - ``flash_attention`` (``kernels.flash_attention``).
 
 The reductions go through ``kernels.staleness_agg``, the top-k through
-``kernels.topk`` (one launch per call): a CUDA tensor launches the kernel,
-a CPU tensor takes its plain version.
+``kernels.topk`` (one launch per call for k <= 1024; a larger k is a sort
+on the tensors' device, as the reference's ``lax.top_k`` route): a CUDA
+tensor launches the kernel, a CPU tensor takes its plain version.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.quant8 import QBLOCK, ROWS, dequantize_q8, quantize_q8
+from repro_torch.kernels.quant8 import (  # noqa: F401
+    QBLOCK, ROWS, compress_q8, dequantize_q8, quantize_q8)
 from repro_torch.kernels.staleness_agg import VEC, staleness_agg
 from repro_torch.kernels.topk import masked_topk, scored_topk  # noqa: F401
 
@@ -180,23 +184,21 @@ def aggregate_pytree(updates: Sequence[Params], weights, *,
 def compress_update(update: Params, error_feedback: Optional[torch.Tensor]
                     = None):
     """int8-compress a client update with residual error feedback (twin of
-    the reference's ``ops.compress_update``): ravel, add the flat error
-    feedback, zero-pad to a multiple of ``ROWS * QBLOCK`` (so the codes
-    keep the padded length), quantize, dequantize and trim. Returns
+    the reference's ``ops.compress_update``): ravel, then one
+    ``compress_q8`` (add the flat error feedback, zero-pad to a multiple of
+    ``ROWS * QBLOCK`` so the codes keep the padded length, quantize,
+    dequantize, trim, subtract), one launch on the card. Returns
     ``((q, scales, spec), err)`` with ``err = flat - dequantized`` [N]."""
     spec = RavelSpec(update)
-    flat = spec.ravel(update)
-    if error_feedback is not None:
-        flat = flat + error_feedback
     N = spec.n_params
-    pad = (-N) % (ROWS * QBLOCK)
-    q, s = quantize_q8(F.pad(flat, (0, pad)) if pad else flat)
-    err = flat - dequantize_q8(q, s)[:N]
+    q, s, err = compress_q8(spec.ravel(update), error_feedback,
+                            N + (-N) % (ROWS * QBLOCK))
     return (q, s, spec), err
 
 
 def decompress_update(q: torch.Tensor, s: torch.Tensor, meta: RavelSpec
                       ) -> Params:
     """The update tree back from ``compress_update``'s codes and scales, in
-    the leaves' own dtypes."""
-    return meta.unravel(dequantize_q8(q, s)[:meta.n_params])
+    the leaves' own dtypes: only the first N codes are dequantized (the
+    padding's would be cut away)."""
+    return meta.unravel(dequantize_q8(q[:meta.n_params], s))

@@ -149,6 +149,19 @@ def dequantize_q8(q: torch.Tensor, scales: torch.Tensor,
     return (qb.to(torch.float32) * s[:, None]).reshape(-1)[:N].to(dtype)
 
 
+def compress_q8(flat: torch.Tensor, ef: Optional[torch.Tensor], n_pad: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One int8 compression step with error feedback, composed stepwise as
+    the reference's ``ops.compress_update`` composes it: ``v = flat + ef``,
+    zero-pad to ``n_pad``, ``quantize_q8``, ``dequantize_q8``, trim to N,
+    ``err = v - dequantized`` (a product and a difference, each rounded to
+    fp32). Returns ``(q [n_pad], scales [n_pad / 256], err [N])``."""
+    N = flat.shape[0]
+    v = flat.to(torch.float32) if ef is None else flat + ef
+    q, s = quantize_q8(F.pad(v, (0, n_pad - N)))
+    return q, s, v - dequantize_q8(q, s)[:N]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale=None) -> torch.Tensor:
     """q [B,H,S,D], k/v [B,H,T,D] -> [B,H,S,D] in q's dtype: the whole

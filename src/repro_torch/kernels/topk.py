@@ -14,6 +14,12 @@ The order is ``lax.top_k``'s: larger first, equal scores by ascending index,
 no index twice. A CPU tensor takes the plain torch version in ``ref``; a
 CUDA tensor launches the kernel or raises. ``block_topk.launches`` counts
 every launch of the source, by all three wrappers.
+
+The kernel takes k <= ``MAX_K``. For a larger k the reference's
+``ops.masked_topk`` leaves its Pallas kernel for ``jax.lax.top_k``, an XLA
+op; ``masked_topk`` and ``scored_topk`` route such a k by k alone to that
+route's counterpart, ``sorted_topk`` / ``sorted_scored_topk`` (torch ops on
+the tensors' own device), and ``masked_topk.sorts`` counts those calls.
 """
 from __future__ import annotations
 
@@ -29,13 +35,6 @@ TILE = 8192         # scores per CTA of masked_topk / scored_topk (topk.cu)
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _TICKETS: dict = {}   # (device index, stream) -> the merge's ticket
-
-
-def _stream(t: torch.Tensor) -> int:
-    """The current stream of ``t``'s device as a raw handle, without the
-    ``torch.cuda.Stream`` object that ``torch.cuda.current_stream`` builds
-    (host time that a one-CTA selection would otherwise be bound by)."""
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _merge(t: torch.Tensor, M: int, k: int, stream: int
@@ -106,7 +105,7 @@ def block_topk(scores: torch.Tensor, k: int, block: int = BLOCK_TOPK
     fn = _build.function("topk", "block_topk_f32", _INT,
                          [_P, _I64, _INT, _INT, _P, _P, _P])
     _check(fn(scores.data_ptr(), M, block, k, vals.data_ptr(),
-              idx.data_ptr(), _stream(scores)), "block_topk")
+              idx.data_ptr(), _build.stream(scores)), "block_topk")
     block_topk.launches += 1
     return vals, idx
 
@@ -119,17 +118,16 @@ def masked_topk(scores: torch.Tensor, k: int
     """Top-k of ``scores [M]`` -> ``(vals [k] fp32, idx [k] int64)``,
     descending, ties to the lowest index, no index twice; masked entries are
     -inf scores, which the caller filters by value. One launch on the card
-    for 1 <= k <= 1024 (a larger k raises ``NotImplementedError`` there);
-    the plain version (a stable descending sort) on a CPU tensor."""
+    for 1 <= k <= 1024, ``sorted_topk`` there for a larger k; the plain
+    version (a stable descending sort) on a CPU tensor."""
     M = scores.shape[0]
     _check_k(M, k)
     if scores.device.type == "cpu":
         return ref.masked_topk(scores, k)
     if k > MAX_K:
-        raise NotImplementedError(
-            f"the top-k kernel takes k <= {MAX_K}; k={k} has no kernel")
+        return sorted_topk(scores, k)
     _card_tensor(scores, torch.float32, "scores")
-    stream = _stream(scores)
+    stream = _build.stream(scores)
     scratch, ticket = _merge(scores, M, k, stream)
     vals = torch.empty(k, dtype=torch.float32, device=scores.device)
     idx = torch.empty(k, dtype=torch.int64, device=scores.device)
@@ -150,15 +148,15 @@ def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
     ``valid = vals > -inf``; the new booster (out of place) 1 at every valid
     pick, ``booster * beta`` where eligible and unpicked, else unchanged.
     All fp32 (``beta`` rounded to fp32). Returns ``(idx [k] int64,
-    valid [k] bool, new_booster [M] fp32)``. One launch on the card; the
-    plain composition ``ref.scored_topk`` on CPU tensors."""
+    valid [k] bool, new_booster [M] fp32)``. One launch on the card for
+    k <= 1024, ``sorted_scored_topk`` there for a larger k; the plain
+    composition ``ref.scored_topk`` on CPU tensors."""
     M = booster.shape[0]
     _check_k(M, k)
     if booster.device.type == "cpu":
         return ref.scored_topk(num, den, booster, eligible, ever, beta, k)
     if k > MAX_K:
-        raise NotImplementedError(
-            f"the top-k kernel takes k <= {MAX_K}; k={k} has no kernel")
+        return sorted_scored_topk(num, den, booster, eligible, ever, beta, k)
     for name, t, dtype in (("num", num, torch.float32),
                            ("den", den, torch.float32),
                            ("booster", booster, torch.float32),
@@ -167,7 +165,7 @@ def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
         _card_tensor(t, dtype, name)
         if t.shape != (M,) or t.device != booster.device:
             raise ValueError(f"{name} must be [{M}] on {booster.device}")
-    stream = _stream(booster)
+    stream = _build.stream(booster)
     scratch, ticket = _merge(booster, M, k, stream)
     vals = torch.empty(k, dtype=torch.float32, device=booster.device)
     idx = torch.empty(k, dtype=torch.int64, device=booster.device)
@@ -183,3 +181,43 @@ def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
               stream), "scored_topk")
     block_topk.launches += 1
     return idx, valid, new_booster
+
+
+masked_topk.sorts = 0
+
+
+def sorted_topk(scores: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``masked_topk`` for a k the kernel does not take: the counterpart of
+    the reference's ``jax.lax.top_k`` route (``repro/kernels/ops.py:295``,
+    an XLA op, no Pallas kernel), as torch ops on ``scores``' device. A
+    stable descending sort of the int32 order keys (``ref.order_key``:
+    -NaN < -inf < -0 < +0 < +inf < +NaN; the floats themselves would tie
+    -0 with +0) cut to k, so equal scores go to the lowest index. Counted
+    in ``masked_topk.sorts``."""
+    masked_topk.sorts += 1
+    s = scores.to(torch.float32)
+    idx = torch.sort(ref.order_key(s), descending=True, stable=True
+                     ).indices[:k]
+    return s[idx], idx
+
+
+def sorted_scored_topk(num, den, booster, eligible, ever, beta, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``scored_topk`` for a k the kernel does not take: the reference's
+    jnp composition (``repro/kernels/ops.py:308``) around its
+    ``lax.top_k`` route, as torch ops: the score ``booster * (num /
+    clamp_min(den, 1e-12))`` (NaN kept, bit for bit the kernel's), +inf
+    where never invoked, -inf where ineligible, ``sorted_topk``, then the
+    booster update (1 at every valid pick, ``booster * beta`` where
+    eligible and unpicked, else unchanged)."""
+    score = booster * (num / torch.clamp_min(den, 1e-12))
+    score = torch.where(ever, score, float("inf"))
+    score = torch.where(eligible, score, float("-inf"))
+    vals, idx = sorted_topk(score, k)
+    valid = vals > float("-inf")
+    chosen = torch.zeros_like(eligible)
+    chosen[idx] = valid
+    boost = torch.where(chosen, 1.0, torch.where(
+        eligible, booster * ref.fp32(beta), booster))
+    return idx, valid, boost

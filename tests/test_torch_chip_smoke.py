@@ -190,7 +190,7 @@ def test_every_kernel_wrapper_counts_its_launches():
     cs = _load()
     wrappers = cs.kernel_wrappers()
     assert set(wrappers) == {"staleness_agg", "fused_adam", "block_topk",
-                             "quantize_q8", "dequantize_q8",
+                             "quantize_q8", "dequantize_q8", "compress_q8",
                              "flash_attention"}
     assert all(isinstance(fn.launches, int) for fn in wrappers.values())
 
@@ -199,7 +199,9 @@ def test_quant8_entries_are_exact_with_byte_bounds(monkeypatch):
     """CPU rehearsal of the quant8 entries: the update padded as
     ``compress_update`` pads it, plain against plain (exact), no library
     call and the reason why, the bound in bytes (fp32 in, int8 codes and
-    fp32 scales out), and the compress phase's launch counts."""
+    fp32 scales out), and the compress phase's launch counts (no
+    ``quantize_q8`` there since ``compress_update`` runs the fused
+    kernel, and the entry says so)."""
     cs = _load()
     monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "device_ms", _device_ms)
@@ -208,9 +210,11 @@ def test_quant8_entries_are_exact_with_byte_bounds(monkeypatch):
     update = {"w": torch.randn(300, 70, generator=gen),
               "b": torch.randn(13, generator=gen)}
     q_e, dq_e = cs.quant8_kernel_entries(
-        update, {"quantize_q8": 3, "dequantize_q8": 4}, "compress phase: x")
+        update, {"quantize_q8": 0, "dequantize_q8": 1}, "compress phase: x")
     n = 22_528                            # 21,013 params padded to 11 x 2048
-    assert (q_e["launches"], dq_e["launches"]) == (3, 4)
+    assert (q_e["launches"], dq_e["launches"]) == (0, 1)
+    assert "compress_q8" in q_e["launches_note"]
+    assert "launches_note" not in dq_e
     for e in (q_e, dq_e):
         assert set(cs.KERNEL_KEYS) <= set(e)
         assert e["shape"] == {"N": n, "blocks": n // 256}
@@ -223,6 +227,112 @@ def test_quant8_entries_are_exact_with_byte_bounds(monkeypatch):
     assert dq_e["library_ms"] == 0.0 and "torch.mul" in dq_e["library"]
     assert q_e["replaces"] == "src/repro/kernels/quant8.py:58"
     assert dq_e["replaces"] == "src/repro/kernels/quant8.py:89"
+
+
+def _small_update():
+    gen = torch.Generator().manual_seed(0)
+    return {"w": torch.randn(300, 70, generator=gen) * 0.01,
+            "b": torch.randn(13, generator=gen)}
+
+
+def test_compress_entry_is_exact_with_the_fused_calls_bytes(monkeypatch):
+    """CPU rehearsal of the ``compress_q8`` entry: the raveled update with
+    its first round's error feedback, held to the plain version and to the
+    stepwise path it replaces (exact), the bound at the fused call's bytes
+    (flat, error feedback and error at 4 B a value, 1 B a padded code, 4 B
+    a scale), no library call and why, and the stepwise path's event and
+    device times beside the kernel's."""
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.5)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(cs, "device_total_ms",
+                        lambda fn, **kw: (fn(), 0.25)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    e = cs.compress_kernel_entry(_small_update(), 3, "compress phase: x")
+    n, n_pad = 21_013, 22_528
+    assert set(cs.KERNEL_KEYS) <= set(e)
+    assert (e["name"], e["route"], e["launches"]) == ("compress_q8", "cuda",
+                                                      3)
+    assert e["replaces"] == "src/repro/kernels/quant8.py:58"
+    assert "quant8.py:89" in e["replaces_also"]
+    assert e["exact"] and e["max_abs_err"] == 0.0
+    assert e["shape"] == {"N": n, "N_padded": n_pad, "blocks": n_pad // 256,
+                          "error_feedback": True}
+    assert e["bytes"] == 12 * n + n_pad + 4 * (n_pad // 256)
+    assert e["bound_by"] == "bytes"
+    assert e["bound_ms"] == e["bytes"] / cs.HBM_BYTES_PER_S * 1e3
+    assert e["library_ms"] is None and "no single PyTorch call" in \
+        e["library_note"]
+    assert (e["ms"], e["plain_ms"], e["composed_ms"]) == (0.5, 0.5, 0.5)
+    assert (e["device_ms"], e["composed_device_ms"]) == (0.0, 0.25)
+    line = json.loads(cs.report_lines([e], "x", 1)[0])["kernels"][0]
+    assert line["composed_device_ms"] == 0.25 and line["composed_ms"] == 0.5
+
+
+def test_compress_phase_wants_one_fused_launch_a_compress(monkeypatch):
+    """CPU rehearsal of the compress phase with wrappers that count one
+    launch a call for the card run, as the card's do (the CPU copy counts
+    nothing): three ``compress_q8``, one ``dequantize_q8`` and no
+    ``quantize_q8`` pass, every round equal to the plain version; a
+    compress that still went through the two kernels fails."""
+    cs = _load()
+    from repro_torch.kernels import ops, quant8
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    card = [True]
+    read = cs.read_counts
+
+    def read_counts():
+        card[0] = False                 # counts are read after the card run
+        return read()
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            getattr(quant8, name).launches += card[0]
+            return fn(*a, **k)
+        return wrapper
+
+    monkeypatch.setattr(cs, "read_counts", read_counts)
+    monkeypatch.setattr(ops, "compress_q8",
+                        counted("compress_q8", quant8.compress_q8))
+    monkeypatch.setattr(ops, "dequantize_q8",
+                        counted("dequantize_q8", quant8.dequantize_q8))
+    r = cs.compress_phase(_small_update(), "x")
+    assert r["launches"] == cs.COMPRESS_LAUNCHES == {
+        "compress_q8": 3, "quantize_q8": 0, "dequantize_q8": 1}
+    assert r["equal_to_plain_on_card"] and r["codes"] == 22_528
+
+    def stepwise(flat, ef, n_pad):      # the two-kernel path, counted
+        quant8.quantize_q8.launches += card[0]
+        quant8.dequantize_q8.launches += card[0]
+        return quant8.compress_q8(flat, ef, n_pad)
+
+    card[0] = True
+    monkeypatch.setattr(ops, "compress_q8", stepwise)
+    with pytest.raises(AssertionError, match="compress launches"):
+        cs.compress_phase(_small_update(), "x")
+
+
+def test_topk_sort_route_phase_on_the_cpu(monkeypatch):
+    """CPU rehearsal of the sort-route phase on a small fleet store, with
+    the entry points sent to the sort route as a card tensor is for
+    k > 1024: bit-equal to the plain versions, one sort a call, no kernel
+    launch; the kernel route instead fails the phase."""
+    cs = _load()
+    from repro_torch.kernels import ops, topk
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.0)[1])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "FLEET_CAPACITY", 8192)
+    fs = _small_store(capacity=8192, n=6000)
+    fs._flush_device()
+    monkeypatch.setattr(ops, "masked_topk", topk.sorted_topk)
+    monkeypatch.setattr(ops, "scored_topk", topk.sorted_scored_topk)
+    r = cs.topk_sort_route_phase(fs._dev, torch.device("cpu"))
+    assert (r["sorts"], r["kernel_launches"]) == (2, 0) and r["exact"]
+    assert (r["masked_k"], r["scored_k"]) == (4096, 1025)
+    assert r["scored_valid"] == 1025
+    monkeypatch.setattr(ops, "masked_topk", topk.masked_topk)
+    with pytest.raises(AssertionError, match="one sort a call"):
+        cs.topk_sort_route_phase(fs._dev, torch.device("cpu"))
 
 
 def test_attention_bound_counts_causal_flops_at_the_bf16_rate():

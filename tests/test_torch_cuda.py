@@ -8,8 +8,9 @@ that has only the port's dependencies:
 
 Tolerance: rtol 1e-5 / atol 1e-6, the reference's kernel self-check
 tolerance, unless a case states why it needs more; the top-k kernels
-(values, indices, valid flags and the new booster) and the int8 codes
-and scales of ``quantize_q8`` are held to exact equality,
+(values, indices, valid flags and the new booster), their sort route for
+k > 1024, the int8 codes and scales of ``quantize_q8`` and every output
+of the fused ``compress_q8`` are held to exact equality,
 ``flash_attention`` block by block of 128 query rows to |got - want| <=
 tol * (the block's rms + |want|), tol 2e-4 for fp32 and 1e-2 for bf16
 and fp16 (one bf16 ulp is at most 2^-7 of a value, one fp16 ulp 2^-10):
@@ -263,12 +264,23 @@ def test_topk_first_call_on_a_stream_under_capture(card):
 
 @pytest.mark.cuda
 def test_topk_raises_on_what_it_does_not_take(card):
+    """k > 1024 is no longer refused: it takes the sort route (the
+    reference's ``lax.top_k`` route), bit-equal to the plain versions,
+    with no kernel launch. Wrong types and strides still raise."""
     s = torch.randn(3000, device=card)
     state = _score_state("fleet", 3000, 1, card)
-    with pytest.raises(NotImplementedError):
-        ops.masked_topk(s, 1025)
-    with pytest.raises(NotImplementedError):
-        ops.scored_topk(*state, 1.2, 1025)
+    sorts, launches = topk.masked_topk.sorts, topk.block_topk.launches
+    vals, idx = ops.masked_topk(s, 1025)
+    got = ops.scored_topk(*state, 1.2, 1025)
+    torch.cuda.synchronize()
+    assert (topk.masked_topk.sorts, topk.block_topk.launches) == \
+        (sorts + 2, launches)
+    want_v, want_i = ref.masked_topk(s, 1025)
+    assert torch.equal(idx, want_i) and torch.equal(_bits(vals),
+                                                    _bits(want_v))
+    want = ref.scored_topk(*state, 1.2, 1025)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(_bits(got[2]), _bits(want[2]))
     with pytest.raises(TypeError):
         ops.masked_topk(s.double(), 10)
     with pytest.raises(ValueError):
@@ -276,6 +288,33 @@ def test_topk_raises_on_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         ops.scored_topk(state[0], state[1], state[2], state[3].float(),
                         state[4], 1.2, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k", [(1 << 20, 4096), ((1 << 20) + 7, 1025),
+                                  (3000, 3000)])
+def test_topk_past_the_kernels_k_equals_plain(card, m, k):
+    """The sort route at fleet scale, every kind of input: masked_topk and
+    scored_topk bit-equal to the plain versions on the card and to the
+    plain versions on CPU copies (the score is the reference's bit for
+    bit), no kernel launch."""
+    for kind in TOPK_KINDS:
+        s = _topk_scores(kind, m, k, card)
+        state = _score_state(kind, m, k, card)
+        launches = topk.block_topk.launches
+        vals, idx = ops.masked_topk(s, k)
+        got = ops.scored_topk(*state, 1.2, k)
+        torch.cuda.synchronize()
+        assert topk.block_topk.launches == launches
+        for want_v, want_i in (ref.masked_topk(s, k),
+                               ref.masked_topk(s.cpu(), k)):
+            assert torch.equal(idx.cpu(), want_i.cpu())
+            assert torch.equal(_bits(vals.cpu()), _bits(want_v.cpu()))
+        for want in (ref.scored_topk(*state, 1.2, k),
+                     ref.scored_topk(*(t.cpu() for t in state), 1.2, k)):
+            assert torch.equal(got[0].cpu(), want[0].cpu())
+            assert torch.equal(got[1].cpu(), want[1].cpu())
+            assert torch.equal(_bits(got[2].cpu()), _bits(want[2].cpu()))
 
 
 def _same_bits(got, want):
@@ -324,12 +363,17 @@ def test_dequantize_q8_kernel_equals_plain(card, dtype, n, n_scales):
 
 @pytest.mark.cuda
 def test_compress_update_card_equals_cpu(card):
+    """Three compressions with the error carried and one decompression:
+    codes and scales equal to the CPU run's, the error and the update
+    within rtol 1e-6 / atol 1e-7, one ``compress_q8`` launch a compression
+    and one ``dequantize_q8`` for the decompression, no ``quantize_q8``."""
     gen = torch.Generator().manual_seed(0)
     tree = {"w": torch.randn(300, 70, generator=gen) * 0.01,
             "b": torch.randn(13, generator=gen)}
     on_card = {k: v.to(card) for k, v in tree.items()}
     err_card = err_cpu = None
-    before = (quant8.quantize_q8.launches, quant8.dequantize_q8.launches)
+    counters = (quant8.compress_q8, quant8.quantize_q8, quant8.dequantize_q8)
+    before = [fn.launches for fn in counters]
     for _ in range(3):
         (q, s, spec), err_card = ops.compress_update(on_card, err_card)
         (q_cpu, s_cpu, _), err_cpu = ops.compress_update(tree, err_cpu)
@@ -339,11 +383,72 @@ def test_compress_update_card_equals_cpu(card):
                                    atol=1e-7)
     back = ops.decompress_update(q, s, spec)
     torch.cuda.synchronize()
-    assert (quant8.quantize_q8.launches - before[0],
-            quant8.dequantize_q8.launches - before[1]) == (3, 4)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [3, 0, 1]
     for name, leaf in ops.decompress_update(q_cpu, s_cpu, spec).items():
         torch.testing.assert_close(back[name].cpu(), leaf, rtol=1e-6,
                                    atol=1e-7)
+
+
+def _offset(t, offset):
+    """``t``'s values in a view that starts ``offset`` elements into a
+    buffer of its own: offset 1 of fp32 breaks 16-byte alignment."""
+    buf = torch.empty(t.shape[0] + offset, dtype=t.dtype, device=t.device)
+    buf[offset:] = t
+    return buf[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["no_ef", "ef", "ef_misaligned",
+                                    "flat_misaligned"])
+@pytest.mark.parametrize("n", [1, 255, 257, 2047, 2049, 5003, 582026])
+def test_compress_q8_kernel_equals_plain(card, n, layout):
+    """The fused kernel against its plain version on the card, codes,
+    scales and error to the bit, one launch: lengths with a tail past the
+    last whole lane (N % 8, N % 4 != 0) and all-padding blocks, the error
+    feedback absent, aligned or in a view one element into a buffer (the
+    scalar path), a NaN block and an inf block where N > 512."""
+    gen = torch.Generator(device=card).manual_seed(n)
+    flat = torch.randn(n, device=card, generator=gen) * 0.02
+    ef = (None if layout == "no_ef"
+          else torch.randn(n, device=card, generator=gen) * 1e-4)
+    if n > 512:
+        flat[3], flat[300] = float("nan"), float("-inf")
+    if layout == "ef_misaligned":
+        ef = _offset(ef, 1)
+    if layout == "flat_misaligned":
+        flat = _offset(flat, 1)
+    n_pad = n + (-n) % 2048
+    before = quant8.compress_q8.launches
+    q, s, err = quant8.compress_q8(flat, ef, n_pad)
+    torch.cuda.synchronize()
+    assert quant8.compress_q8.launches == before + 1
+    want_q, want_s, want_err = ref.compress_q8(flat, ef, n_pad)
+    assert torch.equal(q, want_q)
+    _same_bits(s, want_s)
+    _same_bits(err, want_err)
+    if n > 512:
+        assert not bool(q[:512].any())
+        assert bool(torch.isnan(err[:512]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, offset", [(583680, 0), (2049, 0), (7, 0),
+                                       (5003, 1), (5000, 3)])
+def test_dequantize_q8_vector_path_equals_plain(card, dtype, n, offset):
+    """Eight codes a lane: one 8-byte load, 16-byte stores; the tail lane
+    (N % 8 != 0) and codes in a view that does not start on 8 bytes take
+    the scalar path. fp32 and bf16 out, to the bit."""
+    gen = torch.Generator(device=card).manual_seed(n + offset)
+    q = _offset(torch.randint(-127, 128, (n,), device=card, generator=gen,
+                              dtype=torch.int8), offset)
+    s = torch.rand(-(-n // 256), device=card, generator=gen) * 0.1
+    before = quant8.dequantize_q8.launches
+    got = quant8.dequantize_q8(q, s, dtype=dtype)
+    torch.cuda.synchronize()
+    assert quant8.dequantize_q8.launches == before + 1
+    want = ref.dequantize_q8(q, s, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 @pytest.mark.cuda

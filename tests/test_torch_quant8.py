@@ -7,12 +7,14 @@ oracle ``repro.kernels.ref.quantize_q8`` the codes are equal and the scales
 within rtol 1e-6: the oracle divides by 127 where the entry point multiplies
 by the fp32 reciprocal, one ulp apart in a few percent of blocks.
 ``compress_update`` / ``decompress_update`` follow the reference's to the
-bit over three rounds of error feedback. The CUDA kernels run only on a
-card: ``test_torch_cuda.py`` and ``chip_smoke.py`` hold them against the
-plain versions."""
+bit over three rounds of error feedback; ``compress_q8``, the one fused
+step they run, equals the stepwise composition it replaces to the bit. The
+CUDA kernels run only on a card: ``test_torch_cuda.py`` and
+``chip_smoke.py`` hold them against the plain versions."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -183,3 +185,113 @@ def test_compress_update_restores_leaf_dtypes():
     for name in tree:
         np.testing.assert_array_equal(back[name].float().numpy(),
                                       np.asarray(jback[name], np.float32))
+
+
+# ------------------------------------------------------- the fused step
+def _small_tree(seed=3):
+    rng = np.random.default_rng(seed)
+    return {"w": (rng.standard_normal((300, 70)) * 0.01).astype(np.float32),
+            "b": rng.standard_normal(13).astype(np.float32)}
+
+
+def test_plain_compress_q8_matches_the_reference_over_three_rounds():
+    """``ref.compress_q8`` on the raveled update, the error carried,
+    against the reference's ``ops.compress_update`` (Pallas in interpret
+    mode): codes, scales and error to the bit, each round."""
+    tree = _small_tree()
+    upd = params_from_numpy(tree, "cpu")
+    jupd = jax.tree.map(jnp.asarray, tree)
+    flat = ops.RavelSpec(upd).ravel(upd)
+    n_pad = 11 * 2048                      # 21,013 params
+    err = jerr = None
+    for _ in range(3):
+        q, s, err = ref.compress_q8(flat, err, n_pad)
+        (jq, js, _), jerr = jops.compress_update(jupd, jerr, interpret=True)
+        assert q.shape == (n_pad,) and s.shape == (n_pad // 256,)
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(_bits(s), _bits(js))
+        np.testing.assert_array_equal(_bits(err), _bits(jerr))
+
+
+def _stepwise(flat, ef, n_pad):
+    """The composition ``ops.compress_update`` ran before it was one step:
+    add, pad, ``quantize_q8``, ``dequantize_q8``, slice, subtract."""
+    N = flat.shape[0]
+    v = flat if ef is None else flat + ef
+    q, s = quant8.quantize_q8(F.pad(v, (0, n_pad - N)))
+    return q, s, v - quant8.dequantize_q8(q, s)[:N]
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("with_ef", [False, True])
+@pytest.mark.parametrize("n", [1, 255, 257, 2047, 2049, 582_026])
+def test_compress_q8_equals_the_stepwise_composition(n, with_ef, planted):
+    """``compress_q8`` (and its plain version) against the stepwise
+    composition, codes, scales and error to the bit, at lengths around
+    the block and the 2048 padding, with and without error feedback, and
+    with a NaN block (block 0) and an inf block (block 1, where N > 256):
+    their codes 0, their scales NaN / inf, their errors NaN."""
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor((rng.standard_normal(n) * 0.02).astype(np.float32))
+    ef = (torch.as_tensor((rng.standard_normal(n) * 1e-4).astype(np.float32))
+          if with_ef else None)
+    if planted:
+        x[0] = float("nan")
+        if n > 256:
+            x[256] = float("inf")
+    n_pad = n + (-n) % 2048
+    want = _stepwise(x, ef, n_pad)
+    for got in (quant8.compress_q8(x, ef, n_pad),
+                ref.compress_q8(x, ef, n_pad)):
+        assert [t.shape for t in got] == [(n_pad,), (n_pad // 256,), (n,)]
+        assert torch.equal(got[0], want[0])
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+    q, s, err = want
+    if n_pad - n >= 256:                        # an all-padding block
+        assert float(s[-1]) == ref.fp32(1e-12)
+    if planted:
+        assert bool(torch.isnan(s[0])) and not bool(q[:256].any())
+        assert bool(torch.isnan(err[:min(n, 256)]).all())
+        if n > 256:
+            assert float(s[1]) == float("inf") and not bool(q[256:512].any())
+            assert bool(torch.isnan(err[256:min(n, 512)]).all())
+
+
+def test_a_single_rounding_of_the_error_differs_from_the_reference():
+    """Why the card kernel computes the error as ``__fsub_rn(v,
+    __fmul_rn(q, scale))``: the reference rounds ``q * scale`` to fp32
+    (its dequantize) and then ``v - deq``; one FMA rounds ``v - q * scale``
+    once. Emulated here in float64 (``q * scale`` and the difference are
+    exact there, then one rounding to fp32), that single rounding differs
+    from the reference's error on seeded inputs."""
+    rng = np.random.default_rng(11)
+    v = torch.as_tensor((rng.standard_normal(1 << 16) * 0.01
+                         ).astype(np.float32))
+    q, s, err = ref.compress_q8(v, None, v.shape[0])
+    step = s.repeat_interleave(256)
+    two_roundings = v - q.to(torch.float32) * step
+    one_rounding = (v.double() - q.double() * step.double()).float()
+    np.testing.assert_array_equal(_bits(err), _bits(two_roundings))
+    differ = int((_bits(one_rounding) != _bits(err)).sum())
+    assert differ > 0, "a fused multiply-subtract would give the same bits"
+
+
+def test_compress_q8_rejects_malformed_input_and_takes_no_fallback(
+        monkeypatch):
+    x = torch.zeros(300)
+    for bad in (lambda: quant8.compress_q8(x, None, 300),     # not 256k
+                lambda: quant8.compress_q8(x, None, 256),     # short
+                lambda: quant8.compress_q8(x, torch.zeros(299), 512),
+                lambda: quant8.compress_q8(torch.zeros(2, 150), None, 512)):
+        with pytest.raises(ValueError):
+            bad()
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain version reached for a non-CPU tensor")
+
+    monkeypatch.setattr(ref, "compress_q8", forbidden)
+    before = quant8.compress_q8.launches
+    with pytest.raises((RuntimeError, TypeError, ValueError)):
+        quant8.compress_q8(torch.zeros(300, device="meta"), None, 512)
+    assert quant8.compress_q8.launches == before

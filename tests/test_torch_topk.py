@@ -17,7 +17,7 @@ from repro.core.fleet_store import FleetStore as JaxFleetStore
 from repro.kernels import ops as jops
 from repro.kernels.topk import block_topk as jax_block_topk
 from repro_torch.core.fleet_store import FleetStore
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, topk
 from repro_torch.kernels.ref import chosen_mask
 from repro_torch.kernels.topk import BLOCK_TOPK, block_topk
 
@@ -132,9 +132,12 @@ def test_nan_signed_zero_and_infinities_follow_lax_top_k():
 
 def test_k_outside_the_kernel_takes_the_stable_sort():
     """k > 1024 is a stable descending sort on the CPU (lax.top_k's answer
-    too) and raises on any other device; every k on a CPU tensor is the
-    plain version, a stable sort of the whole vector, which is exact (the
-    card's one launch is pinned in ``tests/test_torch_cuda.py``)."""
+    too) and, on any other device, the sort route ``sorted_topk`` (the
+    counterpart of the reference's ``lax.top_k`` route), chosen by k
+    alone: counted in ``masked_topk.sorts``, no kernel launch, no raise.
+    Every k on a CPU tensor is the plain version, a stable sort of the
+    whole vector, which is exact (the card's one launch is pinned in
+    ``tests/test_torch_cuda.py``)."""
     rng = np.random.default_rng(5)
     s = np.round(rng.normal(size=3000), 1).astype(np.float32)   # many ties
     for k in (1500, 600, 1024, 40):
@@ -149,12 +152,85 @@ def test_k_outside_the_kernel_takes_the_stable_sort():
                    lambda *a: calls.append(a[1:]) or real(*a))
         ops.masked_topk(torch.as_tensor(s), 600)
     assert calls == [(600,)]              # the plain version, once
-    with pytest.raises(NotImplementedError):
-        ops.masked_topk(torch.empty(3000, device="meta"), 1500)
+    sorts, launches = topk.masked_topk.sorts, block_topk.launches
+    v, i = ops.masked_topk(torch.empty(3000, device="meta"), 1500)
+    assert v.shape == i.shape == (1500,) and v.device.type == "meta"
+    meta = [torch.empty(3000, device="meta") for _ in range(3)] + \
+        [torch.empty(3000, dtype=torch.bool, device="meta") for _ in range(2)]
+    i, valid, boost = ops.scored_topk(*meta, 1.2, 1025)
+    assert i.shape == valid.shape == (1025,) and boost.shape == (3000,)
+    assert (topk.masked_topk.sorts, block_topk.launches) == (sorts + 2,
+                                                             launches)
     with pytest.raises(ValueError):
         ops.masked_topk(torch.as_tensor(s), 3001)
     with pytest.raises(ValueError):
         block_topk(torch.as_tensor(s), 1025, 2048)
+
+
+SORT_KS = (1025, 4096)
+
+
+def _special_scores(kind, m, seed):
+    """Rounded normals (many ties) with NaN, -NaN, +-inf, +0 and -0
+    planted, or all -inf but for a few finite scores."""
+    rng = np.random.default_rng(seed)
+    if kind == "few_finite":
+        s = np.full(m, -np.inf, np.float32)
+        s[rng.choice(m, 50, replace=False)] = rng.normal(size=50)
+        return s
+    s = np.round(rng.normal(size=m), 1).astype(np.float32)
+    nan = np.float32(np.nan)
+    picks = rng.choice(m, 1200, replace=False).reshape(6, 200)
+    for vals, value in zip(picks, (nan, -nan, np.inf, -np.inf, 0.0, -0.0)):
+        s[vals] = value
+    return s
+
+
+@pytest.mark.parametrize("kind", ["special", "few_finite"])
+@pytest.mark.parametrize("k", SORT_KS)
+def test_sort_route_masked_topk_equals_lax_top_k(k, kind):
+    """The sort route that a card tensor takes for k > 1024, called
+    through its own entry on CPU tensors: values to the bit and indices
+    equal ``jax.lax.top_k``'s (the reference's route for such a k), in
+    its order -NaN < -inf < -0 < +0 < +inf < +NaN, ties to the lowest
+    index, a short finite set filled with the lowest -inf indices."""
+    s = _special_scores(kind, 10_000, k)
+    v_x, i_x = jax.lax.top_k(jnp.asarray(s), k)
+    v_o, i_o = jops.masked_topk(jnp.asarray(s), k)
+    before = topk.masked_topk.sorts
+    v, i = topk.sorted_topk(torch.as_tensor(s), k)
+    assert topk.masked_topk.sorts == before + 1
+    assert i.dtype == torch.int64 and v.dtype == torch.float32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_x))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_o))
+    _bits_equal(v.numpy(), v_x)
+    _bits_equal(v.numpy(), v_o)
+
+
+@pytest.mark.parametrize("k", SORT_KS)
+def test_sort_route_scored_topk_equals_the_reference_step(k):
+    """The sort route's selection step, through its own entry on CPU
+    tensors, against the reference's ``ops.scored_topk`` (which takes
+    ``lax.top_k`` for k > 1024): idx, valid and the new booster to the
+    bit, with NaN num, NaN den, den = 0, +0 and -0 scores, tied scores,
+    and fewer eligible slots than k = 4096 (invalid picks)."""
+    m = 6000
+    num, den, booster, eligible, ever = _score_state(m, k)
+    num[:200], num[200:400] = 0.0, -0.0          # +0 and -0 scores
+    num[400:600], den[400:600], booster[400:600] = 1.0, 0.5, 1.5   # ties
+    beta = np.float32(1.2)
+    ji, jv, jb = jops.scored_topk(*map(jnp.asarray, (num, den, booster,
+                                                     eligible, ever)),
+                                  beta, k)
+    before = topk.masked_topk.sorts
+    i, v, b = topk.sorted_scored_topk(*map(torch.as_tensor, (
+        num, den, booster, eligible, ever)), beta, k)
+    assert topk.masked_topk.sorts == before + 1
+    assert i.dtype == torch.int64 and v.dtype == torch.bool
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    _bits_equal(b.numpy(), jb)
+    assert int(eligible.sum()) < 4096 and bool(v[-1]) == (k == 1025)
 
 
 def _score_state(m, seed):
