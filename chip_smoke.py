@@ -34,7 +34,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      reference's ``lax.top_k`` route): ``masked_topk`` at k = 4096 on the
      2^20 fleet-shaped scores and ``scored_topk`` at k = 1025 on the fleet
      state, bit-equal to the plain versions on the card and on the CPU,
-     one sort a call and no kernel launch, each timed;
+     one sort a call and no kernel launch, each timed beside its byte
+     bound and ``torch.topk`` at the same k;
   5. profile: one more fedavg round under ``torch.profiler`` (device busy
      time, idle share, kernel time by name; informational, no limit);
   6. reference: small ProxyCNN runs on the card against the same runs on
@@ -80,7 +81,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      with the fp32 FMA time beside it). Attention has an entry per input
      type at 4,096 tokens (bf16 and fp16: the wgmma/TMA kernel; fp32: the
      kernel of three TF32 mma.sync products) and the bf16 one at 32,768,
-     each with its achieved TFLOP/s. Top-k has four: ``block_topk`` (the
+     each with its achieved TFLOP/s. ``staleness_agg`` has two, the sweep
+     form at the ``fedavg`` round's shape and the rows form at the
+     ``apodotiko`` round's, each with two calls bit-equal, its column split
+     on this card (``ctas``, ``pieces_per_cta``, ``piece_bytes_max``), the
+     event time warm (``ms``) and with the L2 flushed before each call by
+     256 MB of scratch written and read back outside the events
+     (``flushed_ms``), the
+     kernel's own profiler time both ways (``device_ms``,
+     ``flushed_device_ms``), and ``bound_share``, the bound over the
+     flushed device time. Top-k has four: ``block_topk`` (the
      one-launch ``masked_topk`` on seeded scores at M = 256) and
      ``block_topk[fleet]`` (at 2^20), each beside ``torch.topk``;
      ``scored_topk`` (the fused selection step at the ``apodotiko-topk``
@@ -112,6 +122,7 @@ FP32_FLOP_PER_S = 67e12       # H100 SXM data sheet, fp32 outside the tensor cor
 BF16_FLOP_PER_S = 989e12      # H100 SXM data sheet, dense bf16 (and fp16) tensor cores
 TF32_FLOP_PER_S = 495e12      # H100 SXM data sheet, dense TF32 tensor cores
 TF32_PRODUCTS = 3             # TF32 products per fp32 product (hi/lo split)
+L2_FLUSH_BYTES = 256 << 20   # scratch written and read between flushed reps
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 SEED = 0
@@ -140,8 +151,9 @@ class NumpyBatchIndices:
         return torch.as_tensor((u * n).astype(np.int64), device=n_i.device)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event times, in ms."""
+def time_ms(fn, reps: int = 20, warmup: int = 3, before=None) -> float:
+    """Median of per-call CUDA-event times, in ms; ``before`` (if given)
+    runs ahead of each call, outside the events."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -149,6 +161,8 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         start.record()
         fn()
         end.record()
@@ -198,6 +212,16 @@ def device_total_ms(fn, reps: int = 10):
              for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     return sum(spans) / reps if spans else None
+
+
+def l2_flush(dev):
+    """A function that writes ``L2_FLUSH_BYTES`` of scratch on ``dev``,
+    several times the card's 50 MB L2, then reads it back: after it, a
+    kernel finds none of its inputs in the L2, as a caller that last
+    touched them a round ago does, and no dirty line of the scratch that
+    the kernel would have to write back to make room."""
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    return lambda: scratch.fill_(1.0).sum()
 
 
 def put_device_ms(entry: dict, key: str, ms) -> None:
@@ -480,7 +504,9 @@ def topk_sort_route_phase(state, dev) -> dict:
     phase's device state, each held to its plain version on the card and
     on CPU copies to the bit (vals and idx; idx, valid and the new
     booster). The sort route must run once a call (``masked_topk.sorts``)
-    and the kernel never (``block_topk.launches``). Median ms a call."""
+    and the kernel never (``block_topk.launches``). Median ms a call, each
+    beside its byte bound and ``torch.topk``'s time at the same k on the
+    same scores."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.topk import block_topk, masked_topk
 
@@ -510,11 +536,27 @@ def topk_sort_route_phase(state, dev) -> dict:
                     raise AssertionError(f"{name} past k = 1024 differs "
                                          f"from the plain version on the "
                                          f"{where}")
-    record = {"M": FLEET_CAPACITY, "masked_k": SORT_K_MASKED,
+    m = FLEET_CAPACITY
+    # bytes as the kernel entries count them: the scores read and the k
+    # values and int64 indices written; the step's 18 B a slot (num, den,
+    # booster, eligible, ever read, the booster written) and 9 B a pick
+    masked_bytes = 4 * m + 12 * SORT_K_MASKED
+    scored_bytes = 18 * m + 9 * SORT_K_SCORED
+    record = {"M": m, "masked_k": SORT_K_MASKED,
               "scored_k": SORT_K_SCORED, **counts, "exact": True,
               "scored_valid": int(got[1].sum()),
               "masked_ms": time_ms(lambda: ops.masked_topk(s, SORT_K_MASKED)),
-              "scored_ms": time_ms(lambda: ops.scored_topk(*args))}
+              "scored_ms": time_ms(lambda: ops.scored_topk(*args)),
+              "masked_bytes": masked_bytes,
+              "masked_bound_ms": bound(masked_bytes, m)[0],
+              "scored_bytes": scored_bytes,
+              "scored_bound_ms": bound(scored_bytes, m)[0],
+              # torch.topk on the same scores at each k (no ordering of
+              # ties promised; a yardstick of time only)
+              "masked_library_ms": time_ms(
+                  lambda: torch.topk(s, SORT_K_MASKED)),
+              "scored_library_ms": time_ms(
+                  lambda: torch.topk(s, SORT_K_SCORED))}
     emit("topk_sort_route", **record)
     if counts != {"sorts": 2, "kernel_launches": 0}:
         raise AssertionError(f"past k = 1024: {counts}, want one sort a "
@@ -936,10 +978,15 @@ def main_run(record: dict) -> str:
 def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
     """``staleness_agg`` at the shapes of the main path's last aggregate:
     the sweep form (weights scattered over the whole [C, W] buffer) or the
-    rows form (only the K referenced rows)."""
+    rows form (only the K referenced rows). Timed warm, calls back to
+    back with the L2 holding what the last one left (``ms``, and the
+    kernel's own ``device_ms``), and with the L2 flushed before each call
+    (``flushed_ms``, ``flushed_device_ms``), as the main path finds it
+    once a round; ``bound_share`` is the bound over the flushed device
+    time. ``shape`` has the kernel's column split on this card."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import SUBLANE
-    from repro_torch.kernels.staleness_agg import staleness_agg
+    from repro_torch.kernels.staleness_agg import plan, staleness_agg
 
     last = record["rounds"][-1]
     C, W = last["store_capacity"], record["row_width"]
@@ -967,19 +1014,36 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
         library = lambda: full_w @ buf
     got = staleness_agg(*args)
     torch.cuda.synchronize()
+    split = plan(W, torch.cuda.get_device_properties(dev).multi_processor_count)
     entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
              "replaces": "src/repro/kernels/staleness_agg.py:38",
              "launches": record["launches"]["staleness_agg"],
              "launches_run": main_run(record),
              "shape": {"C": C, "W": W, "K": k, "K_padded": kp,
-                       "rows_form": rows_form},
+                       "rows_form": rows_form, "ctas": len(split),
+                       "pieces_per_cta": max(map(len, split)),
+                       "piece_bytes_max": 4 * max(b - a for p in split
+                                                  for a, b in p)},
              **check(name, got, ref.staleness_agg(*args))}
+    again = staleness_agg(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+        raise AssertionError(f"{name}: two calls differ")
     entry["library_max_abs_diff"] = float((library() - got).abs().max())
-    entry["ms"] = time_ms(lambda: staleness_agg(*args))
+    call = lambda: staleness_agg(*args)
+    flush = l2_flush(dev)
+    entry["ms"] = time_ms(call)
+    entry["flushed_ms"] = time_ms(call, before=flush)
+    # one profiler session each: the two share the kernel's name
+    warm, flushed = (device_ms({"staleness_agg": fn})["staleness_agg"]
+                     for fn in (call, lambda: (flush(), call())))
+    put_device_ms(entry, "device_ms", warm)
+    put_device_ms(entry, "flushed_device_ms", flushed)
     entry["plain_ms"] = time_ms(lambda: ref.staleness_agg(*args))
     entry["library_ms"] = time_ms(library)
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
+    entry["bound_share"] = entry["bound_ms"] / flushed if flushed else None
     entry["bytes"] = nbytes
     return entry
 
@@ -1412,10 +1476,13 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 # kept in the kernel list where an entry has them: the kernel's own time
 # (profiler), for the fused selection step and the fused compress step the
-# stepwise composition's (for compress also its device time), and for fp32
-# attention the bound at the fp32 FMA rate
+# stepwise composition's (for compress also its device time), for fp32
+# attention the bound at the fp32 FMA rate, and for staleness_agg the event
+# and device times with the L2 flushed before each call and the bound over
+# the flushed device time
 EXTRA_KEYS = ("device_ms", "composed_ms", "composed_device_ms",
-              "fp32_fma_bound_ms")
+              "fp32_fma_bound_ms", "flushed_ms", "flushed_device_ms",
+              "bound_share")
 
 
 def report_lines(kernels: list, kind: str, count: int) -> list:

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for hand-written kernels: mbarriers, TMA
-// tile loads through a tensor map, warpgroup matrix multiplies (wgmma, bf16
-// or fp16) with their shared-memory descriptors, the warp-level TF32
-// mma.sync and cp.async copies. Inline PTX only; no CUTLASS.
+// tile loads through a tensor map and 1-D bulk copies, warpgroup matrix
+// multiplies (wgmma, bf16 or fp16) with their shared-memory descriptors, the
+// warp-level TF32 mma.sync and cp.async copies. Inline PTX only; no
+// CUTLASS.
 //
 // Layout that every descriptor here assumes: a tile of 16-bit values is
 // stored as "panels" of 64 columns (128 bytes a row), each panel written by
@@ -69,6 +70,28 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// An L2 cache policy for data read once: its lines are the first to go.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// `bytes` contiguous bytes from global to shared memory, no tensor map,
+// under the L2 cache `policy`; completion is counted in bytes on `bar`.
+// Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)),
+         "l"(policy)
       : "memory");
 }
 

@@ -186,6 +186,63 @@ def test_flush_split_times_the_parts_of_one_flush(monkeypatch):
         assert torch.equal(getattr(fs._dev, col), getattr(once._dev, col))
 
 
+@pytest.mark.parametrize("rows_form", [False, True])
+def test_agg_entry_reports_flushed_and_device_times(monkeypatch, rows_form):
+    """CPU rehearsal of the two ``staleness_agg`` entries at a small store:
+    held to the plain version, the kernel's column split on the card
+    (``plan`` at the card's SM count), the warm event time beside the
+    flushed one (the flush runs before each call, outside the events),
+    the kernel's device time both ways (one profiler session each, the
+    second with the flush before every call), the bound over the flushed
+    device time, and the new keys kept in the kernel list."""
+    import types
+    cs = _load()
+    flushed, sessions = [], []
+
+    def time_ms(fn, before=None, **kw):
+        if before is not None:
+            before()
+        fn()
+        return 0.5
+
+    def device_ms(calls, **kw):
+        assert list(calls) == ["staleness_agg"]
+        n = len(flushed)
+        calls["staleness_agg"]()
+        sessions.append(len(flushed) - n)        # flushes in this session
+        return {"staleness_agg": 0.2 if len(sessions) == 1 else 0.25}
+
+    monkeypatch.setattr(cs, "time_ms", time_ms)
+    monkeypatch.setattr(cs, "device_ms", device_ms)
+    monkeypatch.setattr(cs, "l2_flush",
+                        lambda dev: lambda: flushed.append(dev))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    C, W, k = 24, 4096, 5
+    record = {"strategy": "apodotiko", "row_width": W,
+              "rounds": [{"store_capacity": C, "n_aggregated": k}],
+              "launches": {"staleness_agg": 3}}
+    e = cs.agg_kernel_entry("staleness_agg[x]", record, torch.device("cpu"),
+                            rows_form=rows_form)
+    assert set(cs.KERNEL_KEYS) <= set(e) and e["max_abs_err"] < 1e-6
+    assert e["launches"] == 3 and e["launches_run"] == \
+        "main path: apodotiko, 1 rounds"
+    assert e["shape"]["K_padded"] == 8 and e["shape"]["ctas"] == 128
+    assert e["shape"]["pieces_per_cta"] == 1
+    assert e["shape"]["piece_bytes_max"] == 128      # one 128-byte unit
+    assert e["bytes"] == ((k * W + W) * 4 + 8 * 12 if rows_form
+                          else (C * W + C + W) * 4)
+    assert (e["ms"], e["flushed_ms"]) == (0.5, 0.5)
+    assert (e["device_ms"], e["flushed_device_ms"]) == (0.2, 0.25)
+    assert sessions == [0, 1] and len(flushed) == 2   # + flushed_ms's one
+    assert e["bound_share"] == e["bound_ms"] / 0.25
+    line = json.loads(cs.report_lines([e], "x", 1)[0])["kernels"][0]
+    assert set(line) == set(cs.KERNEL_KEYS) | {
+        "device_ms", "flushed_ms", "flushed_device_ms", "bound_share"}
+
+
 def test_every_kernel_wrapper_counts_its_launches():
     cs = _load()
     wrappers = cs.kernel_wrappers()
@@ -330,6 +387,11 @@ def test_topk_sort_route_phase_on_the_cpu(monkeypatch):
     assert (r["sorts"], r["kernel_launches"]) == (2, 0) and r["exact"]
     assert (r["masked_k"], r["scored_k"]) == (4096, 1025)
     assert r["scored_valid"] == 1025
+    assert (r["masked_bytes"], r["scored_bytes"]) == (4 * 8192 + 12 * 4096,
+                                                      18 * 8192 + 9 * 1025)
+    assert r["masked_bound_ms"] == r["masked_bytes"] / cs.HBM_BYTES_PER_S \
+        * 1e3
+    assert (r["masked_library_ms"], r["scored_library_ms"]) == (0.0, 0.0)
     monkeypatch.setattr(ops, "masked_topk", topk.masked_topk)
     with pytest.raises(AssertionError, match="one sort a call"):
         cs.topk_sort_route_phase(fs._dev, torch.device("cpu"))

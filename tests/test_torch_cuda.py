@@ -38,24 +38,71 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c, k, n", [(16, None, 4096), (208, 32, 582656)])
-def test_staleness_agg_kernel_matches_plain(card, c, k, n):
-    gen = torch.Generator(device=card).manual_seed(0)
+def _agg_inputs(card, c, k, n, pad=0, seed=0):
+    """Seeded [c, n] rows and weights: the sweep form (k None: one weight a
+    row) or the rows form (k row ids, drawn with repeats when k > c), with
+    ``pad`` zero-weight repeats of the first row id, as ops._pad_rows."""
+    gen = torch.Generator(device=card).manual_seed(seed)
     buf = torch.randn(c, n, device=card, generator=gen)
     if k is None:
-        w, rows = torch.rand(c, device=card, generator=gen), None
-    else:
-        w = torch.rand(k, device=card, generator=gen)
-        rows = torch.randperm(c, device=card, generator=gen)[:k]
+        return buf, torch.rand(c, device=card, generator=gen), None
+    w = torch.rand(k, device=card, generator=gen)
+    rows = (torch.randperm(c, device=card, generator=gen)[:k] if k <= c else
+            torch.randint(0, c, (k,), device=card, generator=gen))
+    rows = torch.cat([rows, rows[:1].repeat(pad)])
+    w = torch.cat([w, torch.zeros(pad, device=card)])
+    return buf, w, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, k, n, pad", [
+    (16, None, 4096, 0), (208, 32, 582656, 0),
+    (1, None, 4096, 0), (208, 1, 582656, 0),          # K = 1
+    (1100, None, 4096, 0), (208, 1100, 8192, 0),      # K past 1,024
+    (8, None, 582660, 0), (208, 30, 582660, 0),       # N / 4 odd
+    (208, 30, 582656, 2),     # the main path's rows form: 30 padded to 32
+])
+def test_staleness_agg_kernel_matches_plain(card, c, k, n, pad):
+    buf, w, rows = _agg_inputs(card, c, k, n, pad)
     before = sa.staleness_agg.launches
     got = sa.staleness_agg(buf, w, rows=rows)
     torch.cuda.synchronize()
     assert sa.staleness_agg.launches == before + 1
     want = ref.staleness_agg(buf, w, rows=rows)
-    # sums of up to c unit-normal terms in another order: the absolute
-    # error of an fp32 sum near zero grows with the number of terms
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL * c)
+    # sums of up to max(c, K) unit-normal terms in another order: the
+    # absolute error of an fp32 sum near zero grows with the number of terms
+    torch.testing.assert_close(got, want, rtol=RTOL,
+                               atol=ATOL * max(c, w.shape[0]))
+
+
+@pytest.mark.cuda
+def test_staleness_agg_nan_in_a_zero_weight_row(card):
+    """A NaN in a row of weight 0 reaches the sweep form's output (0 * NaN
+    = NaN: what the aggregation's finiteness guard relies on to catch
+    garbage in freed rows) and, when that row is not referenced, not the
+    rows form's."""
+    buf, w, _ = _agg_inputs(card, 16, None, 4096)
+    buf[5, 100] = float("nan")
+    w[5] = 0.0
+    sweep = sa.staleness_agg(buf, w)
+    rows = torch.tensor([0, 1, 2, 3, 0], device=card)
+    picked = sa.staleness_agg(buf, w[:5].clone(), rows=rows)
+    torch.cuda.synchronize()
+    assert torch.isnan(sweep[100])
+    assert int(torch.isnan(sweep).sum()) == 1
+    assert bool(torch.isfinite(picked).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c, k, pad", [(208, None, 0), (208, 30, 2)])
+def test_staleness_agg_two_calls_are_bitwise_equal(card, c, k, pad):
+    """No atomics, no split of K: each column's sum has one order, so
+    two calls on the same inputs agree to the bit."""
+    buf, w, rows = _agg_inputs(card, c, k, 582656, pad)
+    first = sa.staleness_agg(buf, w, rows=rows)
+    second = sa.staleness_agg(buf, w, rows=rows)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -72,6 +72,34 @@ def test_staleness_agg_rejects_malformed_input():
         sa.staleness_agg(u.reshape(-1), torch.zeros(4))
 
 
+@pytest.mark.parametrize("n", [4, 4096, 582_656, 582_660])
+def test_staleness_agg_plan_covers_every_column_once_in_balanced_pieces(n):
+    """The kernel's column split (mirrored by ``plan``) on a card of 132
+    SMs: every column in exactly one piece, in order; every piece starts on
+    a 128-byte boundary of the row (so a 16-byte one), is a whole number of
+    16-byte float4s and at most ``PIECE_COLS`` wide; each CTA takes the
+    fewest pieces its columns need, and its bytes are within one piece of
+    the mean: within one 128-byte unit, plus the last CTA's float4s past
+    the last whole unit."""
+    sms = 132
+    split = sa.plan(n, sms)
+    assert len(split) == max(1, min(sms, n // 32))
+    pos = 0
+    for a, b in (piece for cta in split for piece in cta):
+        assert a == pos and b > a
+        assert (4 * a) % 128 == 0 and (4 * (b - a)) % 16 == 0
+        assert b - a <= sa.PIECE_COLS
+        pos = b
+    assert pos == n
+    cols = [sum(b - a for a, b in cta) for cta in split]
+    assert [len(cta) for cta in split] == [-(-c // sa.PIECE_COLS)
+                                           for c in cols]
+    mean = 4 * n / len(split)
+    for cta, c in zip(split, cols):
+        assert abs(4 * c - mean) <= min(4 * (b - a) for a, b in cta)
+        assert abs(4 * c - mean) < 128 + 4 * (n % 32)
+
+
 # ---------------------------------------------------------------- fused_adam
 def _adam_state(rng, kp, w):
     p = rng.normal(size=(kp, w)).astype(np.float32)
