@@ -16,13 +16,24 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   3. main path: the paper's MNIST setup at published width (MnistCNN,
      582,026 params; 200 clients on the 65/25/10 fleet, 100 per round,
      E=5, B=10, Adam 1e-3, CR=0.3) through ``build_engine(...).run()`` (the
-     event-driven ``Scheduler``), with ``apodotiko`` (3 rounds), ``fedavg``
-     (1 round) and ``apodotiko-topk`` (3 rounds). Every kernel count is
+     event-driven ``Scheduler``, ``megastep="fused"`` by default: each run
+     reports why no round fused), with ``apodotiko`` (3 rounds),
+     ``fedavg`` (1 round), ``apodotiko-topk`` (3 rounds) and ``scaffold``
+     (2 rounds; its control variates finite). Every kernel count is
      set to 0 just before each run and read just after; a kernel of the
      run's path that it never launched fails the script (the top-k kernel,
      counted as ``block_topk``: at least once per round, and each
      ``select_topk`` timed). The result
      must be finite, of the model's shapes, with a consistent update store;
+     then the megastep: the reference's megastep bench config at that
+     width (``apodotiko-topk``, 100 a round, CR 1.0, no eval, instances
+     never cool, on zero-variability hardware of speeds 1.0 / 1.45 / 1.9),
+     6 rounds, run stepwise, fused, fused, stepwise, all under
+     deterministic algorithms: at least 3 rounds fused in each fused run,
+     host trace, params, free list, booster and generator bit-equal
+     across all four, the same launches in each (``block_topk`` and
+     ``staleness_agg`` once a round, ``fused_adam`` once a local step),
+     wall time a round for each run, bootstrap rounds apart;
   4. fleet: the control plane at a million clients: ``select_topk(100,
      1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
      on a CPU copy of the same state; selections and the device booster
@@ -40,10 +51,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      time, idle share, kernel time by name; informational, no limit);
   6. reference: small ProxyCNN runs on the card against the same runs on
      the CPU (the kernels' plain versions), on one shared minibatch-index
-     table, for ``fedavg``, ``apodotiko``, ``apodotiko-topk`` and
-     ``apodotiko-hedge`` (hedges firing): identical host trace, params
-     within rtol 1e-4 / atol 1e-5; and the ``Controller`` poll loop
-     against the ``Scheduler`` on the card: identical host trace;
+     table, for ``fedavg``, ``apodotiko``, ``apodotiko-topk``,
+     ``apodotiko-hedge`` (hedges firing), ``scaffold`` and a fused
+     ``apodotiko-topk`` run (5 of 8 rounds fused): identical host trace
+     and megastep counters, params within rtol 1e-4 / atol 1e-5 (and
+     SCAFFOLD's ``c_global`` within rtol 1e-4 / atol 1e-5 / lr: a variate
+     divides a params difference by steps * lr); and the ``Controller``
+     poll loop against the ``Scheduler`` on the card: identical host
+     trace;
   7. compress: the apodotiko run's update (final minus initial MnistCNN
      params) through three ``compress_update`` calls with the error
      feedback carried, then ``decompress_update``, on the card and on a CPU
@@ -105,14 +120,19 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# deterministic algorithms (the megastep phase) need a fixed cuBLAS
+# workspace, set before the first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -342,6 +362,9 @@ def run_main_path(strategy: str, rounds: int, data, dev):
               "guard_recomputes": aggregation.guard_recomputes() - guard0,
               "final_accuracy": metrics["final_accuracy"],
               "total_sim_time_s": metrics["total_time"],
+              "megastep": metrics["megastep"],
+              "megastep_rounds": metrics["megastep_rounds"],
+              "megastep_fallback_reason": metrics["megastep_fallback_reason"],
               "n_params": ctl.spec.n_params,
               "row_width": ctl.store.row_width}
     emit("main_path", **record)
@@ -350,6 +373,9 @@ def run_main_path(strategy: str, rounds: int, data, dev):
     # consistent update store, every kernel of the path launched
     if metrics["engine"] != "scheduler":
         raise AssertionError(f"build_engine ran {metrics['engine']}")
+    if metrics["megastep_rounds"]:
+        raise AssertionError(f"{strategy}: a round fused under a progress "
+                             "callback")
     if ctl.spec.n_params != 582_026:
         raise AssertionError(f"MnistCNN has {ctl.spec.n_params} params")
     if len(ctl.history) != rounds:
@@ -362,6 +388,11 @@ def run_main_path(strategy: str, rounds: int, data, dev):
             raise AssertionError(f"{name}: not finite on the card")
     if not all(0.0 <= r["accuracy"] <= 1.0 for r in rounds_log):
         raise AssertionError("accuracy out of [0, 1]")
+    if ctl.c_global is not None and (
+            tuple(ctl.c_global.shape) != (ctl.store.row_width,)
+            or not bool(torch.isfinite(ctl.c_global).all())
+            or not bool(torch.isfinite(ctl.c_buf).all())):
+        raise AssertionError(f"{strategy}: control variates malformed")
     pending = {r.update_row for r in ctl.db.results if not r.aggregated}
     live = set(map(int, ctl.store.live_rows()))
     if not pending <= live:
@@ -375,6 +406,152 @@ def run_main_path(strategy: str, rounds: int, data, dev):
                              f"{launches['block_topk']} times in "
                              f"{len(select_ms)} selections, {rounds} rounds")
     return ctl, record
+
+
+# ----------------------------------------------------------------- megastep
+MEGA_ROUNDS, MEGA_BOOT = 6, 2        # rounds in all; stepwise bootstrap ones
+MEGA_SPEEDS = (1.0, 1.45, 1.9)       # benchmarks/bench_round.py's hardware
+
+
+def det_fleet(n: int) -> list:
+    """Zero-variability hardware (``benchmarks/bench_round.py``'s megastep
+    fleet): invocation durations are pure functions of profile and steps,
+    the precondition of the megastep's eligibility proof."""
+    from repro_torch.faas.hardware import HardwareProfile
+    return [HardwareProfile(f"det{i % 3}", speed=MEGA_SPEEDS[i % 3],
+                            vcpus=1.0, mem_gib=2.0, variability=0.0)
+            for i in range(n)]
+
+
+def megastep_cfg(**over) -> dict:
+    """The reference's megastep bench config (``bench_round.py``: top-k
+    selection, CR 1.0, no eval, instances never cool) at the paper's MNIST
+    width: 200 clients, 100 a round, E=5, B=10, Adam 1e-3."""
+    cfg = dict(n_clients=200, clients_per_round=100, rounds=MEGA_ROUNDS,
+               strategy="apodotiko-topk", concurrency_ratio=1.0,
+               local_epochs=5, batch_size=10, optimizer="adam", lr=1e-3,
+               eval_every=0, keep_warm=1e9, seed=SEED)
+    cfg.update(over)
+    return cfg
+
+
+MEGA_ORDER = ("stepwise", "fused", "fused", "stepwise")   # ABBA
+
+
+def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
+                   order: tuple = MEGA_ORDER, **cfg_over) -> dict:
+    """The fused-round megastep at paper width: the same run (``megastep_cfg``,
+    MnistCNN unless ``model`` is given) once per entry of ``order``, the
+    modes alternated so that neither gains from running later, all under
+    ``torch.use_deterministic_algorithms(True)`` (restored after). Each run
+    is two segments, the ``boot`` stepwise bootstrap rounds (every client
+    invoked once) and then the rest, each timed on the host clock with the
+    card drained, its kernel counts zeroed just before and read just after.
+    The phase fails unless every fused run fused at least 3 rounds, every
+    run's host trace, params, free list, device booster and generator equal
+    the first stepwise run's bit for bit, and every run launched
+    ``block_topk`` and ``staleness_agg`` once a round and ``fused_adam``
+    once a local step (the cohort's largest step budget a round)."""
+    from repro_torch.core.aggregation import rows_dispatch
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.core.services import FLConfig
+    from repro_torch.models.paper_models import MnistCNN
+
+    kw = megastep_cfg(**cfg_over)
+    rounds, n_steady = kw["rounds"], kw["rounds"] - boot
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in order:
+            eng = build_engine(
+                FLConfig(**{**kw, "rounds": boot, "megastep": mode}),
+                model or MnistCNN(), data, det_fleet(kw["n_clients"]),
+                device=dev)
+            segs = []
+            for upto in (boot, rounds):
+                eng.cfg.rounds = upto
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = eng.run()
+                torch.cuda.synchronize()
+                segs.append((time.perf_counter() - t0, read_counts()))
+            runs.append((mode, eng, m, segs))
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+    # the launches a round must make: one selection, one aggregate, one
+    # Adam step per local step of the cohort's largest budget
+    first = runs[0][1]
+    steps = lambda cid: max(-(-int(data.n[cid]) // kw["batch_size"])
+                            * kw["local_epochs"], 1)
+    per_round = collections.defaultdict(int)
+    for r in first.platform.invocations:
+        per_round[r.round] = max(per_round[r.round], steps(r.client_id))
+    want = {"block_topk": rounds, "staleness_agg": rounds,
+            "fused_adam": sum(per_round.values())}
+
+    def state(eng):
+        eng.db.fleet._flush_device()
+        return {"trace": host_trace(eng), "free_list": list(eng.store._free),
+                "booster": eng.db.fleet._dev.booster.cpu().view(torch.int32),
+                "generator": eng.trainer.generator.get_state().cpu(),
+                "params": {n: p.view(torch.int32)
+                           for n, p in eng.params.items()}}
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+    ref_state = state(first)
+    report, equal = [], {}
+    for i, (mode, eng, m, segs) in enumerate(runs):
+        got = state(eng)
+        equal[f"{i}:{mode}"] = {k: same(v, ref_state[k])
+                                for k, v in got.items()}
+        report.append({
+            "mode": mode, "megastep_rounds": m["megastep_rounds"],
+            "megastep_scans": m["megastep_scans"],
+            "megastep_fallback_reason": m["megastep_fallback_reason"],
+            "bootstrap_wall_s_per_round": segs[0][0] / boot,
+            "wall_s_per_round": segs[1][0] / n_steady,
+            "launches": {k: sum(c[k] for _, c in segs) for k in want}})
+    walls = {mode: [r["wall_s_per_round"] for r in report
+                    if r["mode"] == mode] for mode in set(order)}
+    record = {
+        "config": {k: kw[k] for k in ("n_clients", "clients_per_round",
+                                      "rounds", "strategy",
+                                      "concurrency_ratio", "local_epochs",
+                                      "batch_size", "eval_every",
+                                      "keep_warm")},
+        "speeds": list(MEGA_SPEEDS), "n_params": first.spec.n_params,
+        "deterministic_algorithms": True, "bootstrap_rounds": boot,
+        "order": list(order), "runs": report,
+        "agg_route": "gather" if rows_dispatch(
+            first.store.capacity, kw["clients_per_round"]) else "sweep",
+        "store_capacity": first.store.capacity,
+        "wall_s_per_round": walls,
+        "fused_over_stepwise": (statistics.mean(walls["fused"])
+                                / statistics.mean(walls["stepwise"])),
+        "launches_wanted": want,
+        "launches_per_round": {k: v / rounds for k, v in want.items()},
+        "bit_equal": equal}
+    emit("megastep", **record)
+    for r in report:
+        fused = r["mode"] == "fused"
+        if fused and r["megastep_rounds"] < min(3, n_steady) or \
+                not fused and r["megastep_rounds"]:
+            raise AssertionError(f"a {r['mode']} run fused "
+                                 f"{r['megastep_rounds']} rounds: "
+                                 f"{r['megastep_fallback_reason']}")
+        if r["launches"] != want:
+            raise AssertionError(f"a {r['mode']} run launched "
+                                 f"{r['launches']}, want {want}")
+    if not all(all(e.values()) for e in equal.values()):
+        raise AssertionError(f"fused differs from stepwise: {equal}")
+    return record
 
 
 def straggler_fleet(n: int) -> list:
@@ -565,7 +742,9 @@ def topk_sort_route_phase(state, dev) -> dict:
 
 
 def reference_phase(dev) -> None:
-    """Small ProxyCNN runs on the card vs the same runs on the CPU, and the
+    """Small ProxyCNN runs on the card vs the same runs on the CPU (among
+    them ``scaffold``, its ``c_global`` too, and a fused-megastep run on
+    zero-variability hardware, its megastep counters equal), and the
     Controller poll loop vs the Scheduler on the card."""
     from repro_torch.core.controller import Controller
     from repro_torch.core.scheduler import Scheduler, build_engine
@@ -582,14 +761,20 @@ def reference_phase(dev) -> None:
     # the reference's smoke_hedge setting, on its straggler hardware mix
     hedge = dict(rounds=4, cold_start_s=120.0, keep_warm=30.0,
                  hedge_fraction=1.0, concurrency_ratio=0.5)
+    # tests/trace_harness.py's megastep_cfg: 3 bootstrap rounds, 5 fused
+    fused = dict(rounds=8, strategy="apodotiko-topk", concurrency_ratio=1.0,
+                 eval_every=0, keep_warm=1e9, megastep="fused")
+    cases = {"fedavg": {}, "apodotiko": {}, "apodotiko-topk": {},
+             "apodotiko-hedge": hedge, "scaffold": {},
+             "apodotiko-topk[fused]": fused}
     out = {}
-    for strategy in ("fedavg", "apodotiko", "apodotiko-topk",
-                     "apodotiko-hedge"):
-        kw = {**base, **(hedge if strategy == "apodotiko-hedge" else {}),
-              "strategy": strategy}
+    for name, over in cases.items():
+        strategy = name.split("[")[0]
+        kw = {**base, "strategy": strategy, **over}
         runs = {}
         for where in (dev, "cpu"):
             fleet = (straggler_fleet(10) if strategy == "apodotiko-hedge"
+                     else det_fleet(10) if over is fused
                      else list(paper_fleet(10)))
             eng = build_engine(FLConfig(**kw), ProxyCNN(10), data, fleet,
                                device=where,
@@ -603,28 +788,45 @@ def reference_phase(dev) -> None:
         (card, m_card, card_launches) = runs[str(dev)]
         (cpu, m_cpu, cpu_launches) = runs["cpu"]
         if host_trace(card) != host_trace(cpu):
-            raise AssertionError(f"{strategy}: host trace differs card vs cpu")
+            raise AssertionError(f"{name}: host trace differs card vs cpu")
+        extra = {}
+        mega = {k: m_card[k] for k in ("megastep_rounds", "megastep_scans",
+                                       "megastep_fallback_reason")}
+        if mega != {k: m_cpu[k] for k in mega}:
+            raise AssertionError(f"{name}: megastep counters differ card "
+                                 "vs cpu")
+        if (mega["megastep_rounds"] > 0) != (over is fused):
+            raise AssertionError(f"{name}: {mega}")
         if min(card_launches) <= 0 or max(cpu_launches) != 0:
-            raise AssertionError(f"{strategy}: launches card {card_launches} "
+            raise AssertionError(f"{name}: launches card {card_launches} "
                                  f"cpu {cpu_launches}")
         if m_card["n_hedges"] != m_cpu["n_hedges"]:
-            raise AssertionError(f"{strategy}: hedges differ")
+            raise AssertionError(f"{name}: hedges differ")
         if strategy == "apodotiko-hedge" and m_card["n_hedges"] <= 0:
             raise AssertionError("apodotiko-hedge fired no hedge")
         err = 0.0
-        for name, leaf in card.params.items():
-            a, b = leaf.cpu().numpy(), cpu.params[name].numpy()
+        for leaf_name, leaf in card.params.items():
+            a, b = leaf.cpu().numpy(), cpu.params[leaf_name].numpy()
             np.testing.assert_allclose(a, b, rtol=PARAM_RTOL, atol=PARAM_ATOL,
-                                       err_msg=f"{strategy}: {name}")
+                                       err_msg=f"{name}: {leaf_name}")
             err = max(err, float(np.max(np.abs(a - b))))
+        if strategy == "scaffold":
+            # a variate divides a params difference by steps * lr, so its
+            # absolute tolerance is the params' over lr
+            a, b = card.c_global.cpu().numpy(), cpu.c_global.numpy()
+            np.testing.assert_allclose(a, b, rtol=PARAM_RTOL,
+                                       atol=PARAM_ATOL / card.cfg.lr,
+                                       err_msg=f"{name}: c_global")
+            extra["c_global_max_abs_err"] = float(np.max(np.abs(a - b)))
+            extra["c_global_atol"] = PARAM_ATOL / card.cfg.lr
         acc_card = [l.accuracy for l in card.history]
         acc_cpu = [l.accuracy for l in cpu.history]
-        out[strategy] = {"params_max_abs_err": err, "acc_card": acc_card,
-                         "acc_cpu": acc_cpu, "rounds": len(card.history),
-                         "engine": m_card["engine"],
-                         "n_hedges": m_card["n_hedges"],
-                         "card_launches": dict(zip(path_kernels(strategy),
-                                                   card_launches))}
+        out[name] = {**extra, "params_max_abs_err": err, "acc_card": acc_card,
+                     "acc_cpu": acc_cpu, "rounds": len(card.history),
+                     "engine": m_card["engine"],
+                     "n_hedges": m_card["n_hedges"], **mega,
+                     "card_launches": dict(zip(path_kernels(strategy),
+                                               card_launches))}
 
     # the poll loop against the Scheduler, both on the card
     cfg = FLConfig(**base, strategy="apodotiko")
@@ -1536,6 +1738,8 @@ def main() -> int:
     apo_engine, apo = run_main_path("apodotiko", 3, data, dev)
     _, avg = run_main_path("fedavg", 1, data, dev)
     topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
+    run_main_path("scaffold", 2, data, dev)
+    megastep_phase(data, dev)
     main_m = topk_engine.db.fleet.capacity
     main_selection = main_path_selection(topk_engine)
     fleet, fleet_state = fleet_phase(dev)

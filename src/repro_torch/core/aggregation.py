@@ -17,8 +17,11 @@ row id. It keeps the reference's two routes and their rule:
     as the exact recompute when the sweep's result is not finite
     (0 * inf = nan from garbage in a freed row).
 
-Both routes run the ``staleness_agg`` kernel on the card. ``last_path()``
-names the route of the latest aggregate, ``guard_recomputes()`` counts the
+Both routes run the ``staleness_agg`` kernel on the card. ``rows_dispatch``
+is the route's one predicate, shared with the fused-round megastep, whose
+aggregation (``kernels.ops.aggregate_rows_traced``) takes the same route
+on row ids and weights that are already on the card. ``last_path()`` names
+the route of the latest aggregate, ``guard_recomputes()`` counts the
 finiteness guard's recomputes.
 """
 from __future__ import annotations
@@ -43,9 +46,17 @@ def last_path() -> str:
 
 
 def guard_recomputes() -> int:
-    """How many sweeps the finiteness guard recomputed through the gather
-    route in this process."""
+    """How many sweeps of ``weighted_aggregate_rows`` the finiteness guard
+    recomputed through the gather route in this process."""
     return _GUARD_RECOMPUTES
+
+
+def rows_dispatch(buffer_rows: int, k: int) -> bool:
+    """The route of an aggregate of ``k`` rows of a ``[buffer_rows, W]``
+    buffer: True for the gather (the K rows are a small fraction of a grown
+    buffer), False for the sweep. The one place this predicate lives, so
+    that the stepwise route and the megastep's cannot fork."""
+    return buffer_rows >= 4 * max(k, kernel_ops.SUBLANE)
 
 
 def staleness_weights(rounds: Sequence[int], cardinalities: Sequence[int],
@@ -73,8 +84,7 @@ def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,
             "the port (only the 1x1 mesh is supported)")
     if len(row_idx) != len(weights) or len(row_idx) == 0:
         raise ValueError(f"{len(row_idx)} rows for {len(weights)} weights")
-    sparse = buffer.shape[0] >= 4 * max(len(row_idx), kernel_ops.SUBLANE)
-    if sparse:
+    if rows_dispatch(buffer.shape[0], len(row_idx)):
         flat = kernel_ops.aggregate_rows_gather(buffer, row_idx, weights)
         _LAST_PATH = "gather"
     else:

@@ -24,8 +24,24 @@ match the reference's.
 Minibatch indices come from the trainer's ``torch.Generator``, or from the
 ``batch_indices(Kp, max_steps, n_i) -> int64 [Kp, max_steps, B]`` hook,
 which the parity tests use to replay the reference's ``jax.random`` draws.
+The draw is one ``[Kp, max_steps, B]`` block a cohort, ``max_steps`` the
+cohort's largest step budget, so the values and the generator's position
+depend on it: both entries below draw with the same ``max_steps``.
 
-FedProx's proximal term is supported; SCAFFOLD comes with a later slice.
+Two entries share the step loop (``_train_lanes``):
+
+  * ``train_cohort_indexed``: the stepwise engine's, the cohort as host
+    client ids; trained models land in freshly allocated update-store rows;
+  * ``train_cohort_rows``: the fused-round megastep's (``core.megastep``,
+    the counterpart of the reference's ``cohort_fn_indexed`` program), the
+    cohort as device tensors and the rows already allocated.
+
+Client-side modifications of the baselines: FedProx's proximal term, and
+SCAFFOLD's control variates. Given variates (the runtime passes them when
+its strategy needs them), every lane's raveled grads are corrected to
+``(g - c_i) + c`` before the optimizer step, and the new variate is
+``c_i' = c_i - c + (w0 - w) / (max(steps, 1) * lr)``; the variates are
+flat ``[W]`` rows in ``RavelSpec`` order, pad lanes zero.
 """
 from __future__ import annotations
 
@@ -62,12 +78,9 @@ class CohortTrainer:
     """Vectorized local training over a cohort sharing one model/optimizer."""
 
     def __init__(self, model, *, optimizer: str, lr: float, batch_size: int,
-                 prox_mu: float = 0.0, scaffold: bool = False, seed: int = 0,
+                 prox_mu: float = 0.0, seed: int = 0,
                  cohort_floor: Optional[int] = None, device=None,
                  batch_indices: Optional[BatchIndices] = None):
-        if scaffold:
-            raise NotImplementedError(
-                "SCAFFOLD comes with a later slice of the port")
         self.model = model
         self.opt = build_optimizer(optimizer, lr)
         self.lr = lr
@@ -100,60 +113,113 @@ class CohortTrainer:
                        generator=self.generator, device=self.device)
         return torch.minimum((u * n).long(), n - 1)
 
+    def cohort_bucket(self, K: int) -> int:
+        """The padded cohort size: the next power-of-two multiple of the
+        cohort floor (2)."""
+        return _bucket(K, self.cohort_floor)
+
+    def _train_lanes(self, global_params: Params, store, sel_t: torch.Tensor,
+                     n_t: torch.Tensor, steps_t: torch.Tensor, max_steps: int,
+                     W: int, c_global: Optional[torch.Tensor] = None,
+                     c_lanes: Optional[torch.Tensor] = None):
+        """The local-training loop of both entries: every lane (client
+        ``sel_t`` [Kp] int64, ``n_t`` [Kp] int64 samples, ``steps_t`` [Kp]
+        int32 budget, all on the device) trains from ``global_params`` for
+        its budget, ``max_steps`` being the largest. With SCAFFOLD,
+        ``c_global`` [W] and ``c_lanes`` [Kp, W] are the variates. Returns
+        ``(flat [Kp, W] trained rows, mean losses [Kp], c_i' [Kp, W] or
+        None)``, all on the device."""
+        dev = self.device
+        Kp = sel_t.shape[0]
+        spec = RavelSpec(global_params)
+        row0 = torch.zeros(W, dtype=torch.float32, device=dev)
+        row0[:spec.n_params] = spec.ravel(global_params)
+        flat = row0.repeat(Kp, 1)
+        grads = torch.zeros_like(flat)
+        params, grad_views = spec.unravel_stacked(flat), spec.unravel_stacked(grads)
+        opt_state = self.opt.cohort_init(flat)
+        bidx = self.batch_indices(Kp, max_steps, n_t)
+        sel_c = sel_t[:, None]
+        losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
+        for s in range(max_steps):
+            idx = bidx[:, s]
+            g, loss = self._grad_fn(params, store.X[sel_c, idx],
+                                    store.y[sel_c, idx], global_params)
+            for view, leaf in zip(tree_leaves(grad_views), tree_leaves(g)):
+                view.copy_(leaf)
+            if c_global is not None:
+                # (g - c_i) + c, the reference's order of roundings
+                grads.sub_(c_lanes).add_(c_global)
+            self.opt.cohort_step(flat, opt_state, grads, steps_t, s)
+            losses += torch.where(steps_t > s, loss, 0.0)
+        mean_loss = losses / torch.clamp(steps_t, min=1)
+        ci_new = None
+        if c_global is not None:
+            denom = torch.clamp(steps_t, min=1).to(torch.float32) * self.lr
+            ci_new = (c_lanes - c_global) + (row0 - flat) / denom[:, None]
+        return flat, mean_loss, ci_new
+
     def train_cohort_indexed(self, global_params: Params, store, selection,
                              n_i: np.ndarray, steps: np.ndarray,
                              c_global=None, c_clients=None, *,
                              update_sink=None):
         """Train the cohort ``selection`` (client indices into ``store``, a
         ``DatasetStore``) from ``global_params``. Pad lanes repeat the last
-        client and run 0 steps.
+        client and run 0 steps (with SCAFFOLD, zero variates).
 
         With ``update_sink`` (an ``UpdateStore``) the trained models are
         written into freshly allocated rows and the first return value is
         the ``[K]`` row ids; without it, the ``[K, ...]``-stacked params.
-        Returns ``(that, None, mean losses [K] numpy)``."""
-        if c_global is not None or c_clients is not None:
-            raise NotImplementedError(
-                "SCAFFOLD control variates come with a later slice of the port")
+        Returns ``(that, c_i' [K, W] or None, mean losses [K] numpy)``;
+        ``c_global`` [W] and ``c_clients`` [K, W] are SCAFFOLD's variates."""
         sel = np.asarray(selection, np.int64)
         n_i = np.asarray(n_i, np.int64)
         steps = np.asarray(steps, np.int64)
         K = len(sel)
-        Kp = _bucket(K, self.cohort_floor)
+        Kp = self.cohort_bucket(K)
         if Kp != K:
             sel = np.concatenate([sel, np.repeat(sel[-1:], Kp - K)])
             n_i = np.concatenate([n_i, np.repeat(n_i[-1:], Kp - K)])
             steps = np.concatenate([steps, np.zeros(Kp - K, steps.dtype)])
         dev = self.device
-        spec = RavelSpec(global_params)
         W = (update_sink.row_width if update_sink is not None
-             else _round_up(spec.n_params, BLOCK_N))
-        flat = torch.zeros((Kp, W), dtype=torch.float32, device=dev)
-        flat[:, :spec.n_params] = spec.ravel(global_params)
-        grads = torch.zeros_like(flat)
-        params, grad_views = spec.unravel_stacked(flat), spec.unravel_stacked(grads)
-        opt_state = self.opt.cohort_init(flat)
-        sel_t = torch.as_tensor(sel, device=dev)[:, None]
-        steps_t = torch.as_tensor(steps.astype(np.int32), device=dev)
-        n_t = torch.as_tensor(n_i, device=dev)
-        max_steps = int(steps.max())
-        bidx = self.batch_indices(Kp, max_steps, n_t)
-        losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
-        for s in range(max_steps):
-            idx = bidx[:, s]
-            g, loss = self._grad_fn(params, store.X[sel_t, idx],
-                                    store.y[sel_t, idx], global_params)
-            for view, leaf in zip(tree_leaves(grad_views), tree_leaves(g)):
-                view.copy_(leaf)
-            self.opt.cohort_step(flat, opt_state, grads, steps_t, s)
-            losses += torch.where(steps_t > s, loss, 0.0)
-        mean_loss = (losses / torch.clamp(steps_t, min=1)).cpu().numpy()[:K]
+             else _round_up(RavelSpec(global_params).n_params, BLOCK_N))
+        c_lanes = None
+        if c_global is not None:
+            c_lanes = torch.zeros((Kp, W), dtype=torch.float32, device=dev)
+            c_lanes[:K] = c_clients
+        flat, mean_loss, ci_new = self._train_lanes(
+            global_params, store, torch.as_tensor(sel, device=dev),
+            torch.as_tensor(n_i, device=dev),
+            torch.as_tensor(steps.astype(np.int32), device=dev),
+            int(steps.max()), W, c_global, c_lanes)
+        mean_loss = mean_loss.cpu().numpy()[:K]
+        if ci_new is not None:
+            ci_new = ci_new[:K]
         if update_sink is None:
-            return spec.unravel_stacked(flat[:K]), None, mean_loss
+            spec = RavelSpec(global_params)
+            return spec.unravel_stacked(flat[:K]), ci_new, mean_loss
         # pad lanes ran 0 steps: their rows hold the global model and are
         # recycled right away, as the reference's flat-update path does
         ids = update_sink.alloc(Kp)
         scatter_rows(update_sink.buffer, ids, flat)
         if Kp != K:
             update_sink.free(ids[K:])
-        return ids[:K], None, mean_loss
+        return ids[:K], ci_new, mean_loss
+
+    def train_cohort_rows(self, global_params: Params, store,
+                          cidx: torch.Tensor, n_p: torch.Tensor,
+                          steps_p: torch.Tensor, buffer: torch.Tensor,
+                          row_ids: torch.Tensor) -> torch.Tensor:
+        """The fused body's cohort step: the padded cohort as device
+        tensors (``cidx`` [Kp] int64 clients, ``n_p`` [Kp] int64 samples,
+        ``steps_p`` [Kp] int32 budgets, pad lanes at 0 steps) trains as
+        ``train_cohort_indexed`` trains it, with the same ``batch_indices``
+        draw (one host read of the step maximum), and its rows land in
+        ``buffer`` at ``row_ids`` [Kp], allocated by the caller. Returns the
+        mean losses [Kp] on the device."""
+        flat, mean_loss, _ = self._train_lanes(
+            global_params, store, cidx, n_p, steps_p, int(steps_p.max()),
+            buffer.shape[1])
+        scatter_rows(buffer, row_ids, flat)
+        return mean_loss

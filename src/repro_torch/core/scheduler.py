@@ -22,10 +22,12 @@ are dropped when their round closes, and — for legacy-compat policies
 future events, exactly like a drained ``run_until`` that never reached its
 ``max_time``.
 
-The reference's fused-round megastep, open-loop traffic and durability
-hooks are not part of this slice: ``megastep`` is always ``"stepwise"``
-(``FLConfig(megastep="fused")`` raises), and traffic and durability stay
-off.
+Before every round the Scheduler tries the fused-round megastep
+(``core.megastep``; ``megastep="fused"``, the default, as in the
+reference): a run of provably quiescent rounds runs as one fused loop, and
+``megastep_fallback_reason`` says why a round did not. The reference's
+open-loop traffic and durability hooks are not part of the port yet:
+traffic and durability stay off.
 
 Entry points::
 
@@ -46,6 +48,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from repro_torch.core.controller import Controller
+from repro_torch.core.megastep import try_megastep
 from repro_torch.core.protocol import (Action, Aggregate, CancelInvocation,
                                        DatabaseView, EndRun, Event, Hedge,
                                        Invoke, LoopDrained, Quarantine,
@@ -54,7 +57,7 @@ from repro_torch.core.protocol import (Action, Aggregate, CancelInvocation,
 from repro_torch.core.recovery import RecoveryPolicy, recovery_enabled
 from repro_torch.core.services import (FLConfig, FLRuntime, Inflight,
                                        RoundLog, resolve_engine,
-                                       strategy_config)
+                                       resolve_megastep, strategy_config)
 from repro_torch.core.strategies.reactive import is_reactive, make_policy
 
 #: timer-heap round key for runtime timers (invocation timeouts). The huge
@@ -96,7 +99,12 @@ class Scheduler(FLRuntime):
         self._progress: Optional[Callable[[RoundLog], None]] = None
         self.n_events = 0               # protocol events dispatched
         self.n_coalesced = 0            # actions merged into batched dispatches
-        self.megastep = "stepwise"
+        # fused-round megastep (core.megastep): runs of quiescent rounds
+        # lowered into one fused loop
+        self.megastep = resolve_megastep(cfg.megastep)
+        self.megastep_rounds = 0        # rounds executed inside fused loops
+        self.megastep_scans = 0         # fused loops entered
+        self.megastep_fallback_reason = "unattempted"
 
     # -------------------------------------------------------------------- run
     def run(self, progress: Optional[Callable[[RoundLog], None]] = None):
@@ -281,6 +289,18 @@ class Scheduler(FLRuntime):
 
     # ------------------------------------------------------------- round flow
     def _open_round(self) -> None:
+        # Fused fast path: before handing the round to the policy, try to
+        # run a stretch of provably quiescent rounds as one fused loop
+        # (core.megastep). The loop re-checks after each run because the
+        # completions it replays extend keep-warm windows, which can make
+        # further rounds eligible. Any ineligibility falls through to the
+        # event-driven engine — the bit-exact oracle — for this round.
+        if self.megastep == "fused":
+            while try_megastep(self):
+                if (self.db.round >= self.cfg.rounds
+                        or self.loop.now >= self.cfg.max_sim_time):
+                    self._done = True
+                    return
         self._t0 = self.loop.now
         self._invoked_this_round = False
         self._dispatch(RoundStarted(t=self.loop.now, round=self.db.round))
@@ -318,6 +338,9 @@ class Scheduler(FLRuntime):
         m["n_events"] = self.n_events
         m["n_coalesced"] = self.n_coalesced
         m["megastep"] = self.megastep
+        m["megastep_rounds"] = self.megastep_rounds
+        m["megastep_scans"] = self.megastep_scans
+        m["megastep_fallback_reason"] = self.megastep_fallback_reason
         m.update(self.policy.metrics())
         return m
 

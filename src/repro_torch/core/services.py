@@ -15,16 +15,22 @@ and the three round services both drivers share:
     (Eq. 2) over the update store's rows, stale pruning;
   * **evaluation** (``evaluate``).
 
+It also keeps SCAFFOLD's state (``c_global`` and the per-client variate
+buffer ``c_buf``, flat ``[W]`` / ``[capacity, W]`` fp32 rows on the card in
+``RavelSpec`` order) and elastic membership (``add_clients`` /
+``remove_clients``).
+
 Drivers differ only in *when* they call the services: ``Controller`` keeps
 the poll loop (Algorithm 1 verbatim); ``Scheduler`` dispatches typed
 protocol events to a reactive policy through the ``_emit`` hook, a no-op
 for the poll loop.
 
-This slice of the port runs both engines with the device update and data
-planes, on the ``object`` or ``columnar`` control plane. Settings that need
-a later slice raise ``NotImplementedError`` naming it (``_check_supported``):
-megastep, the blob update plane and host data plane, SCAFFOLD, fault and
-traffic profiles, durability and checkpointing, and meshes other than
+The port runs both engines with the device update and data planes, on the
+``object`` or ``columnar`` control plane, and the Scheduler's fused-round
+megastep (``megastep="fused"``, the default, as in the reference). Settings
+that need a later slice raise ``NotImplementedError`` naming it
+(``_check_supported``): the blob update plane and host data plane, fault
+and traffic profiles, durability and checkpointing, and meshes other than
 ``1x1``.
 """
 from __future__ import annotations
@@ -39,12 +45,14 @@ from repro_torch.core.aggregation import weighted_aggregate_rows
 from repro_torch.core.client import CohortTrainer
 from repro_torch.core.data_plane import DatasetStore
 from repro_torch.core.database import ClientRecord, Database, ResultRecord
-from repro_torch.core.protocol import (Event, InvocationFailed,
-                                       InvocationTimedOut, ResultLanded)
+from repro_torch.core.protocol import (ClientJoined, ClientLeft, Event,
+                                       InvocationFailed, InvocationTimedOut,
+                                       ResultLanded)
 from repro_torch.core.scoring import decay_rate
 from repro_torch.core.strategies.base import (Strategy, StrategyConfig,
                                               build_strategy)
-from repro_torch.core.update_store import UpdateStore
+from repro_torch.core.update_store import (UpdateStore, gather_stacked,
+                                          grow_stacked, scatter_stacked_tree)
 from repro_torch.device import resolve_device
 from repro_torch.faas.cost import CostModel
 from repro_torch.faas.events import EventLoop
@@ -70,14 +78,23 @@ def resolve_engine(mode: str) -> str:
     return mode
 
 
+def resolve_megastep(mode: str) -> str:
+    """'fused' (= 'auto': the Scheduler runs provably quiescent rounds as
+    one fused loop, ``core.megastep``) | 'stepwise' (every round through
+    the event-driven engine, the bit-exact oracle). Unlike the reference,
+    no environment variable is read."""
+    mode = _resolve(mode, "fused")
+    if mode not in ("fused", "stepwise"):
+        raise ValueError(f"unknown megastep mode {mode!r} "
+                         "(expected 'fused', 'stepwise', or 'auto')")
+    return mode
+
+
 def _check_supported(cfg: "FLConfig") -> None:
     """Raise for every setting this slice of the port does not run."""
     later = "comes with a later slice of the port"
     resolve_engine(cfg.engine)
-    if _resolve(cfg.megastep, "stepwise") != "stepwise":
-        raise NotImplementedError(
-            f"megastep={cfg.megastep!r} comes with the megastep slice of the "
-            "port; only 'stepwise' (= 'auto') runs")
+    resolve_megastep(cfg.megastep)
     if _resolve(cfg.update_plane, "device") != "device":
         raise NotImplementedError(f"update_plane={cfg.update_plane!r} {later}")
     if _resolve(cfg.data_plane, "device") != "device":
@@ -177,9 +194,10 @@ class FLConfig:
     data_plane: str = "auto"       # training-input transport: "device"
     #                                 (= "auto"): the dataset stays resident
     #                                 on the card, minibatches gathered there
-    megastep: str = "auto"         # fused rounds (Scheduler only): "stepwise"
-    #                                 (= "auto") only; "fused" comes with
-    #                                 the megastep slice
+    megastep: str = "auto"         # fused rounds (Scheduler only): "fused"
+    #                                 (= "auto"): runs of quiescent rounds as
+    #                                 one fused loop (core.megastep), or
+    #                                 "stepwise", the event-driven oracle
     durability: str = "auto"       # durable runs: "auto"/"off" only in this
     #                                 slice
     mesh: str = "auto"             # device mesh: "1x1" (= "auto") only in
@@ -276,8 +294,7 @@ class FLRuntime:
         self.trainer = CohortTrainer(
             model, optimizer=cfg.optimizer, lr=cfg.lr,
             batch_size=cfg.batch_size, prox_mu=self.strategy.prox_mu,
-            scaffold=self.strategy.needs_scaffold, seed=cfg.seed,
-            device=self.device)
+            seed=cfg.seed, device=self.device)
 
         self.control_plane = _resolve(cfg.control_plane, "columnar")
         self.db = Database(control_plane=self.control_plane,
@@ -292,6 +309,13 @@ class FLRuntime:
                 batch_size=cfg.batch_size,
                 local_epochs=cfg.local_epochs))
         self.hw = {cid: fleet[cid] for cid in range(len(fleet))}
+        # never pruned: cost/metrics must resolve hardware for historical
+        # invocations of since-removed clients
+        self._hw_history = dict(self.hw)
+        # client id -> position in ``fleet``: removal must drop the entry
+        # the id owns, not the first list entry that compares equal (two
+        # clients may share one HardwareProfile object)
+        self._fleet_pos = {cid: cid for cid in range(len(fleet))}
 
         if init_params is None:
             gen = torch.Generator().manual_seed(cfg.seed)
@@ -322,6 +346,17 @@ class FLRuntime:
         # data plane: the federated dataset is resident on the card
         self.data_plane = "device"
         self.dataset = DatasetStore(data, device=self.device)
+        # SCAFFOLD state: c_global plus a persistent card-resident buffer of
+        # per-client control variates indexed by client id, both flat rows
+        # of the update store's width
+        self.c_global: Optional[torch.Tensor] = None
+        self.c_buf: Optional[torch.Tensor] = None
+        self._c_cap = 0
+        if self.strategy.needs_scaffold:
+            self.c_global = torch.zeros(self.store.row_width,
+                                        dtype=torch.float32,
+                                        device=self.device)
+            self._ensure_c_capacity(max(cfg.n_clients, 1))
 
     # -- driver view contract (protocol.DatabaseView reads these) ------------
     @property
@@ -331,6 +366,59 @@ class FLRuntime:
     @property
     def round_start(self) -> float:
         return getattr(self, "_t0", 0.0)
+
+    # ------------------------------------------------------- SCAFFOLD buffer
+    def _ensure_c_capacity(self, n: int) -> None:
+        """Grow the control-variate buffer to hold client ids < ``n``
+        (amortized doubling, zero-initialized new rows)."""
+        if n <= self._c_cap:
+            return
+        cap = max(n, 2 * self._c_cap)
+        if self.c_buf is None:
+            self.c_buf = torch.zeros((cap, self.store.row_width),
+                                     dtype=torch.float32, device=self.device)
+        else:
+            self.c_buf = grow_stacked(self.c_buf, self._c_cap, cap)
+        self._c_cap = cap
+
+    # ---------------------------------------------------------------- elastic
+    def add_clients(self, records: list[ClientRecord],
+                    profiles: list[HardwareProfile]) -> None:
+        for rec, hw in zip(records, profiles):
+            self.db.register_client(rec)
+            self.hw[rec.client_id] = hw
+            self._hw_history[rec.client_id] = hw
+            self._fleet_pos[rec.client_id] = len(self.fleet)
+            self.fleet.append(hw)
+            if self.c_buf is not None:
+                self._ensure_c_capacity(rec.client_id + 1)
+            self._emit(ClientJoined(t=self.loop.now, client_id=rec.client_id))
+
+    def remove_clients(self, client_ids: list[int]) -> None:
+        """Deregister clients mid-run: cancel their in-flight invocations
+        (releasing update rows), drop their hardware profile from ``hw``
+        and ``fleet`` (by the id's recorded fleet position — a
+        ``list.remove`` identity scan would evict the wrong entry when two
+        clients share one HardwareProfile object), and emit ``ClientLeft``
+        through the protocol."""
+        for cid in client_ids:
+            for inv in list(self.inflight.get(cid, ())):
+                self._cancel_inflight(inv)
+            self.inflight.pop(cid, None)
+            if not self.db.unregister_client(cid):
+                continue
+            if self.c_buf is not None and cid < self._c_cap:
+                # a rejoining id must start from zero variates, like any
+                # fresh client
+                self.c_buf[cid] = 0.0
+            self.hw.pop(cid, None)
+            pos = self._fleet_pos.pop(cid, None)
+            if pos is not None:
+                del self.fleet[pos]
+                for c, p in self._fleet_pos.items():
+                    if p > pos:
+                        self._fleet_pos[c] = p - 1
+            self._emit(ClientLeft(t=self.loop.now, client_id=cid))
 
     # -------------------------------------------------- protocol emit hook
     def _emit(self, event: Event) -> None:
@@ -350,9 +438,16 @@ class FLRuntime:
         n_i = self.data.n[selection]   # raises on an out-of-range selection
         steps = np.ceil(n_i / cfg.batch_size).astype(np.int64) * cfg.local_epochs
         steps = np.maximum(steps, 1)
-        row_ids, _, losses = self.trainer.train_cohort_indexed(
-            self.params, self.dataset, selection, n_i, steps,
+        cg, ci = self.c_global, None
+        if self.strategy.needs_scaffold:
+            # card gather out of the persistent variate buffer
+            self._ensure_c_capacity(max(selection) + 1)
+            ci = gather_stacked(self.c_buf, selection)
+        row_ids, ci_new, losses = self.trainer.train_cohort_indexed(
+            self.params, self.dataset, selection, n_i, steps, cg, ci,
             update_sink=self.store)
+        if self.strategy.needs_scaffold:
+            self._apply_scaffold_updates(selection, ci_new)
         for k, cid in enumerate(selection):
             self._launch(cid, round_, float(steps[k]),
                          _Payload(row=int(row_ids[k])), int(n_i[k]),
@@ -501,6 +596,18 @@ class FLRuntime:
             launched.append(cid)
         return launched
 
+    def _apply_scaffold_updates(self, selection, ci_new: torch.Tensor) -> None:
+        """c <- c + sum(c_i' - c_i) / N_total, all on the card: the old
+        variates are gathered out of the persistent buffer, the delta is a
+        sum over the cohort's lanes (divided by N_total as an fp32 tensor,
+        a true division as the reference's), and the new variates scatter
+        back in place."""
+        old = gather_stacked(self.c_buf, selection)
+        n_total = torch.tensor(float(max(self.db.n_clients, 1)),
+                               dtype=torch.float32, device=self.device)
+        self.c_global = self.c_global + torch.sum(ci_new - old, dim=0) / n_total
+        scatter_stacked_tree(self.c_buf, selection, ci_new)
+
     # ------------------------------------------------- aggregation service
     def aggregate_round(self, round_: int) -> tuple[int, int, float]:
         strat = self.strategy
@@ -560,7 +667,8 @@ class FLRuntime:
     # ---------------------------------------------------------------- metrics
     def metrics(self) -> dict:
         inv = self.platform.invocations
-        cost = self.cost_model.total(inv, lambda cid: self.hw[cid])
+        # _hw_history, not hw: invocation records outlive removed clients
+        cost = self.cost_model.total(inv, lambda cid: self._hw_history[cid])
         counts = self.platform.invocation_counts()
         count_arr = [counts.get(cid, 0) for cid in self.db.client_ids()]
         return {

@@ -117,11 +117,6 @@ class Scaffold(Strategy):
     name = "scaffold"
     needs_scaffold = True
 
-    def __init__(self, cfg):
-        raise NotImplementedError(
-            "SCAFFOLD (control-variate buffer and c_i update) comes with a "
-            "later slice of the port")
-
 
 class FedLesScan(Strategy):
     """Semi-asynchronous: clustering-based selection on past training

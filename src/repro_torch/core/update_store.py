@@ -11,7 +11,17 @@ one case where that is not exact (NaN/Inf left by a diverged client).
 Geometry as in the reference: ``W`` is ``n_params`` rounded up to 1024 and
 ``capacity`` a multiple of 8; the buffer doubles when the free-list runs
 dry, and the free-list order (and so every row id) matches the reference's
-for the same sequence of calls.
+for the same sequence of calls. ``free_stack`` hands that order to the
+fused-round megastep (``core.megastep``), which replays the LIFO pops and
+pushes on the card.
+
+The stacked helpers ``gather_stacked`` / ``scatter_stacked_tree`` /
+``grow_stacked`` are the reference's persistent-buffer contract (SCAFFOLD's
+control variates, ``core.services``). The reference keeps such a buffer as
+a pytree of ``[M, ...]`` leaves; the port keeps it as ONE flat
+``[M, W]`` fp32 tensor in ``RavelSpec`` order, the layout of the update
+rows (``RavelSpec.unravel_stacked`` gives per-leaf views), so the helpers
+act on rows.
 """
 from __future__ import annotations
 
@@ -28,10 +38,35 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def gather_stacked(buffer: torch.Tensor, idx) -> torch.Tensor:
+    """``[M, W] -> [K, W]``: the rows ``idx`` of a stacked buffer (a copy)."""
+    return buffer[torch.as_tensor(idx, dtype=torch.int64,
+                                  device=buffer.device)]
+
+
+def scatter_stacked_tree(buffer: torch.Tensor, idx,
+                         values: torch.Tensor) -> torch.Tensor:
+    """Write ``[K, W]`` rows into a ``[M, W]`` stacked buffer at ``idx``, in
+    place (the write half of ``gather_stacked``); returns the buffer."""
+    buffer[torch.as_tensor(idx, dtype=torch.int64,
+                           device=buffer.device)] = values.to(buffer.dtype)
+    return buffer
+
+
+def grow_stacked(buffer: torch.Tensor, old_rows: int,
+                 new_rows: int) -> torch.Tensor:
+    """Extend a ``[old_rows, W]`` stacked buffer with zero rows to
+    ``[new_rows, W]`` (persistent-buffer growth on client join)."""
+    if new_rows <= old_rows:
+        return buffer
+    return torch.cat([buffer, buffer.new_zeros(
+        (new_rows - old_rows,) + tuple(buffer.shape[1:]))])
+
+
 def scatter_rows(buffer: torch.Tensor, ids, rows: torch.Tensor) -> None:
-    """Write ``[K, n<=W]`` rows into ``buffer`` at ``ids`` in place, the
-    tail pad lanes zeroed."""
-    idx = torch.as_tensor(np.asarray(ids, np.int64), device=buffer.device)
+    """Write ``[K, n<=W]`` rows into ``buffer`` at ``ids`` (host ids or an
+    int64 tensor) in place, the tail pad lanes zeroed."""
+    idx = torch.as_tensor(ids, dtype=torch.int64, device=buffer.device)
     n = rows.shape[1]
     buffer[idx, :n] = rows.to(buffer.dtype)
     if n < buffer.shape[1]:
@@ -91,6 +126,13 @@ class UpdateStore:
             if i in self._live:
                 self._live.discard(i)
                 self._free.append(i)
+
+    def free_stack(self) -> np.ndarray:
+        """The LIFO free-list as an ``[n_free] int64`` array, bottom -> top
+        (``alloc`` pops from the END). The fused-round megastep carries it
+        through its rounds so that its row allocation gives exactly the ids
+        ``alloc`` gives when the host replays the rounds afterwards."""
+        return np.asarray(self._free, np.int64)
 
     def live_rows(self) -> np.ndarray:
         return np.array(sorted(self._live), np.int64)

@@ -6,6 +6,9 @@
   - ``aggregate_rows``: the full-buffer sweep over a persistent ``[C, W]``
     row buffer (weights scattered over all C rows, free rows at 0);
   - ``aggregate_rows_gather``: the same sum over only the referenced rows;
+  - ``aggregate_rows_traced``: either route on row ids and weights already
+    on the card, with the sweep's finiteness guard (the fused-round
+    megastep's aggregation);
   - ``aggregate_pytree``: the same weighted sum over a list of parameter
     trees (ravel, stack, reduce, unravel);
   - ``masked_topk`` / ``scored_topk``: the fleet-scale top-k selection step
@@ -136,6 +139,25 @@ def _vec_pad(buffer: torch.Tensor) -> torch.Tensor:
     return F.pad(buffer, (0, pad_n)) if pad_n else buffer
 
 
+def _sweep(buffer: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
+           ) -> torch.Tensor:
+    full_w = torch.zeros(buffer.shape[0], dtype=torch.float32,
+                         device=buffer.device)
+    full_w.index_add_(0, idx, w)
+    return staleness_agg(_vec_pad(buffer), full_w)[:buffer.shape[1]]
+
+
+def _gather(buffer: torch.Tensor, idx: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+    return staleness_agg(_vec_pad(buffer), w, rows=idx)[:buffer.shape[1]]
+
+
+def _on(buffer: torch.Tensor, row_idx, weights):
+    idx, w = _pad_rows(row_idx, weights)
+    return (torch.as_tensor(idx, device=buffer.device),
+            torch.as_tensor(w, device=buffer.device))
+
+
 def aggregate_rows(buffer: torch.Tensor, row_idx, weights) -> torch.Tensor:
     """``sum_k weights[k] * buffer[row_idx[k], :]`` -> flat [W] fp32 by a
     sweep of the WHOLE buffer: the K weights scatter-add into a
@@ -143,23 +165,39 @@ def aggregate_rows(buffer: torch.Tensor, row_idx, weights) -> torch.Tensor:
     weight 0. Exact for finite values only (0 * inf = nan): callers guard
     the result and recompute through ``aggregate_rows_gather``, as
     ``core.aggregation.weighted_aggregate_rows`` does."""
-    idx, w = _pad_rows(row_idx, weights)
-    dev = buffer.device
-    full_w = torch.zeros(buffer.shape[0], dtype=torch.float32, device=dev)
-    full_w.index_add_(0, torch.as_tensor(idx, device=dev),
-                      torch.as_tensor(w, device=dev))
-    return staleness_agg(_vec_pad(buffer), full_w)[:buffer.shape[1]]
+    return _sweep(buffer, *_on(buffer, row_idx, weights))
 
 
 def aggregate_rows_gather(buffer: torch.Tensor, row_idx, weights
                           ) -> torch.Tensor:
     """Exact-rows form: reads ONLY the referenced rows, so it is immune to
     non-finite garbage in freed rows."""
-    idx, w = _pad_rows(row_idx, weights)
-    dev = buffer.device
-    return staleness_agg(_vec_pad(buffer), torch.as_tensor(w, device=dev),
-                         rows=torch.as_tensor(idx, device=dev)
-                         )[:buffer.shape[1]]
+    return _gather(buffer, *_on(buffer, row_idx, weights))
+
+
+def aggregate_rows_traced(buffer: torch.Tensor, row_idx: torch.Tensor,
+                          weights: torch.Tensor, *, sparse: bool
+                          ) -> torch.Tensor:
+    """The fused-round megastep's aggregation (twin of the reference's
+    traceable ``aggregate_rows_traced``): ``row_idx`` [K] int64 and
+    ``weights`` [K] fp32 already on ``buffer``'s device, padded on the
+    device as ``_pad_rows`` pads them (zero-weight repeats of row 0), then
+    the route ``sparse`` names (``core.aggregation.rows_dispatch``): the
+    gather, or the sweep with its finiteness guard, an exact-rows recompute
+    when the [W] result is not finite (one read on the host). The same
+    launches on the same values as the stepwise route, so the result is
+    equal to the bit."""
+    idx, w = row_idx.to(torch.int64), weights.to(torch.float32)
+    pad_k = (-idx.shape[0]) % SUBLANE
+    if pad_k:
+        idx = torch.cat([idx, idx[:1].repeat(pad_k)])
+        w = torch.cat([w, w.new_zeros(pad_k)])
+    if sparse:
+        return _gather(buffer, idx, w)
+    flat = _sweep(buffer, idx, w)
+    if not bool(torch.isfinite(flat).all()):
+        flat = _gather(buffer, idx, w)
+    return flat
 
 
 def aggregate_pytree(updates: Sequence[Params], weights, *,

@@ -619,6 +619,82 @@ def test_long_rows_check_covers_every_row(monkeypatch, kind, passes):
             cs.long_rows_check(got, q, k, v)
 
 
+def _count_plain_calls(monkeypatch):
+    """On the CPU a wrapper takes its kernel's plain version and counts
+    nothing: count each plain call of the megastep path's three kernels as
+    the launch it stands for, so the phase's launch checks run here."""
+    from repro_torch.kernels import fused_adam, ref, staleness_agg, topk
+    for name, wrapper in (("staleness_agg", staleness_agg.staleness_agg),
+                          ("fused_adam", fused_adam.fused_adam),
+                          ("scored_topk", topk.block_topk)):
+        def counted(*a, _plain=getattr(ref, name), _wrapper=wrapper, **k):
+            _wrapper.launches += 1
+            return _plain(*a, **k)
+        monkeypatch.setattr(ref, name, counted)
+
+
+def _megastep_rehearsal(cs, monkeypatch, **kw):
+    """chip_smoke's megastep phase on the CPU at the reference's test size
+    (ProxyCNN, 10 clients, 4 a round, 8 rounds, 3 of them bootstrap)."""
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _count_plain_calls(monkeypatch)
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    return cs.megastep_phase(
+        data, torch.device("cpu"), model=ProxyCNN(10), boot=3, n_clients=10,
+        clients_per_round=4, rounds=8, local_epochs=1, batch_size=5,
+        base_step_time=0.5, **kw)
+
+
+def test_megastep_phase_on_the_cpu(monkeypatch, capsys):
+    """The phase's output contract: the modes alternated (stepwise, fused,
+    fused, stepwise), at least 3 fused rounds in each fused run, every run
+    bit-equal to the first, every run's launches as wanted (one selection
+    and one aggregate a round, one Adam step a local step), wall time a
+    round per run, deterministic algorithms restored."""
+    cs = _load()
+    was = torch.are_deterministic_algorithms_enabled()
+    rec = _megastep_rehearsal(cs, monkeypatch)
+    assert torch.are_deterministic_algorithms_enabled() == was
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"phase": "megastep", **json.loads(json.dumps(rec))}
+    assert rec["order"] == ["stepwise", "fused", "fused", "stepwise"]
+    assert [r["megastep_rounds"] for r in rec["runs"]] == [0, 5, 5, 0]
+    assert [r["megastep_fallback_reason"] for r in rec["runs"]] == [
+        "unattempted", "eligible", "eligible", "unattempted"]
+    assert all(all(e.values()) for e in rec["bit_equal"].values())
+    assert len(rec["bit_equal"]) == 4
+    want = rec["launches_wanted"]
+    assert want["block_topk"] == want["staleness_agg"] == 8
+    assert want["fused_adam"] >= 8
+    assert all(r["launches"] == want for r in rec["runs"])
+    assert {k: len(v) for k, v in rec["wall_s_per_round"].items()} == {
+        "stepwise": 2, "fused": 2}
+    assert rec["fused_over_stepwise"] > 0
+    assert rec["agg_route"] == "sweep" and rec["deterministic_algorithms"]
+
+
+def test_megastep_phase_fails_on_a_planted_difference(monkeypatch):
+    """A fused aggregate one ulp-scale off the stepwise one fails the
+    phase, as does a fused round that launches its selection twice."""
+    from repro_torch.core import megastep
+
+    cs = _load()
+    agg = megastep.aggregate_rows_traced
+    monkeypatch.setattr(megastep, "aggregate_rows_traced",
+                        lambda *a, **k: agg(*a, **k) * (1 + 2 ** -20))
+    with pytest.raises(AssertionError, match="fused differs from stepwise"):
+        _megastep_rehearsal(cs, monkeypatch, order=("stepwise", "fused"))
+    monkeypatch.setattr(megastep, "aggregate_rows_traced", agg)
+    select = megastep.scored_topk
+    monkeypatch.setattr(megastep, "scored_topk",
+                        lambda *a: (select(*a), select(*a))[1])
+    with pytest.raises(AssertionError, match="launched"):
+        _megastep_rehearsal(cs, monkeypatch, order=("stepwise", "fused"))
+
+
 def test_every_stdout_print_is_json():
     """A bare text line (such as the raw ``nvidia-smi`` output) would break
     the one-JSON-object-per-line contract; the card's name and power limit

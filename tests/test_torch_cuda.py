@@ -15,16 +15,35 @@ of the fused ``compress_q8`` are held to exact equality,
 tol * (the block's rms + |want|), tol 2e-4 for fp32 and 1e-2 for bf16
 and fp16 (one bf16 ulp is at most 2^-7 of a value, one fp16 ulp 2^-10):
 an attention row's values shrink with the keys it sees, so the limit
-follows them."""
-import pytest
-import torch
+follows them.
 
-from repro_torch.kernels import flash_attention as attn
-from repro_torch.kernels import fused_adam as fa
-from repro_torch.kernels import ops, quant8
-from repro_torch.kernels import ref
-from repro_torch.kernels import staleness_agg as sa
-from repro_torch.kernels import topk
+The engine cases run the fused-round megastep against the stepwise engine
+on the card under ``torch.use_deterministic_algorithms(True)``, bit for
+bit, and a SCAFFOLD run on the card against the same run on the CPU
+(identical host trace, params within rtol 1e-4 / atol 1e-5, ``c_global``
+within rtol 1e-4 / atol 1e-5 / lr: a variate divides a params difference
+by steps * lr), on one shared table of minibatch indices."""
+import os
+
+# deterministic algorithms need a fixed cuBLAS workspace, set before the
+# first cuBLAS call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core.scheduler import Scheduler  # noqa: E402
+from repro_torch.core.services import FLConfig  # noqa: E402
+from repro_torch.data.synthetic import make_federated_dataset  # noqa: E402
+from repro_torch.faas.hardware import HardwareProfile, paper_fleet  # noqa: E402
+from repro_torch.kernels import flash_attention as attn  # noqa: E402
+from repro_torch.kernels import fused_adam as fa  # noqa: E402
+from repro_torch.kernels import ops, quant8  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import staleness_agg as sa  # noqa: E402
+from repro_torch.kernels import topk  # noqa: E402
+from repro_torch.models.proxy_models import ProxyCNN  # noqa: E402
 
 RTOL, ATOL = 1e-5, 1e-6
 LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8
@@ -638,3 +657,128 @@ def test_flash_attention_raises_on_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         ops.flash_attention(h, h, h)
     assert attn.flash_attention.launches == before
+
+
+# ----------------------------------------------------- engines on the card
+class TableIndices:
+    """Minibatch indices from a numpy generator, equal on every device, so
+    a card run and a CPU run draw the same minibatches."""
+
+    def __init__(self, seed, batch_size):
+        self.rng, self.batch_size = np.random.default_rng(seed), batch_size
+
+    def __call__(self, Kp, max_steps, n_i):
+        n = np.maximum(n_i.cpu().numpy(), 1)[:, None, None]
+        u = self.rng.random((Kp, max_steps, self.batch_size))
+        return torch.as_tensor((u * n).astype(np.int64), device=n_i.device)
+
+
+def _trace(eng):
+    return ([(l.round, l.t_start, l.t_end, l.accuracy, l.n_aggregated,
+              l.n_stale) for l in eng.history],
+            [(r.client_id, r.round, r.t_invoked, r.cold, r.duration,
+              r.failed) for r in eng.platform.invocations])
+
+
+MEGA_KW = dict(n_clients=10, clients_per_round=4, rounds=8, local_epochs=1,
+               batch_size=5, base_step_time=0.5, strategy="apodotiko-topk",
+               concurrency_ratio=1.0, eval_every=0, keep_warm=1e9, seed=0)
+
+
+@pytest.mark.cuda
+def test_fused_megastep_equals_stepwise_on_the_card(card):
+    """ProxyCNN on 10 zero-variability clients: 3 stepwise bootstrap
+    rounds, then 5 fused; trace, params, free list, device score state
+    and generator bit-equal to the stepwise run, launches equal."""
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    fleet = [HardwareProfile(f"det{i % 3}", speed=(1.0, 1.45, 1.9)[i % 3],
+                             vcpus=1.0, mem_gib=2.0, variability=0.0)
+             for i in range(10)]
+    runs, was = {}, torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mode in ("stepwise", "fused"):
+            eng = Scheduler(FLConfig(**MEGA_KW, megastep=mode), ProxyCNN(10),
+                            data, list(fleet), device=card)
+            counts = [w.launches for w in (topk.block_topk,
+                                           sa.staleness_agg, fa.fused_adam)]
+            m = eng.run()
+            torch.cuda.synchronize()
+            counts = [w.launches - c for w, c in zip(
+                (topk.block_topk, sa.staleness_agg, fa.fused_adam), counts)]
+            runs[mode] = (eng, m, counts)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (step, m_step, c_step), (fused, m_fused, c_fused) = runs.values()
+    assert (m_step["megastep_rounds"], m_fused["megastep_rounds"]) == (0, 5)
+    assert _trace(fused) == _trace(step)
+    for name, leaf in step.params.items():
+        assert torch.equal(leaf.view(torch.int32),
+                           fused.params[name].view(torch.int32)), name
+    assert fused.store._free == step.store._free
+    for eng in (step, fused):
+        eng.db.fleet._flush_device()
+    for col in ("num", "den", "booster", "eligible", "ever"):
+        assert torch.equal(getattr(step.db.fleet._dev, col),
+                           getattr(fused.db.fleet._dev, col)), col
+    assert torch.equal(step.trainer.generator.get_state(),
+                       fused.trainer.generator.get_state())
+    assert c_step == c_fused and c_fused[:2] == [8, 8]
+
+
+@pytest.mark.cuda
+def test_fused_weight_normalization_on_the_card_equals_the_hosts(card):
+    rng = np.random.default_rng(0)
+    for k in (1, 30, 100, 1000):
+        n = rng.integers(1, 600, size=k)
+        host = n.astype(np.float32)
+        host = host / host.sum()
+        w = torch.as_tensor(n.astype(np.float32), device=card)
+        got = (w / w.sum()).cpu().numpy()
+        assert np.array_equal(got.view(np.int32), host.view(np.int32)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap, k", [(208, 100), (208, 30)])
+def test_aggregate_rows_traced_equals_stepwise_route_on_the_card(card, cap,
+                                                                 k):
+    from repro_torch.core.aggregation import rows_dispatch
+    gen = torch.Generator(device=card).manual_seed(k)
+    buf = torch.randn(cap, 582656, device=card, generator=gen)
+    rows = torch.randperm(cap, device=card, generator=gen)[:k]
+    w = torch.rand(k, device=card, generator=gen)
+    sparse = rows_dispatch(cap, k)
+    stepwise = ops.aggregate_rows_gather if sparse else ops.aggregate_rows
+    want = stepwise(buf, rows.cpu().numpy(), w.cpu().numpy())
+    before = sa.staleness_agg.launches
+    got = ops.aggregate_rows_traced(buf, rows, w, sparse=sparse)
+    torch.cuda.synchronize()
+    assert sa.staleness_agg.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_scaffold_on_the_card_matches_the_cpu(card):
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    init = ProxyCNN(10).init(torch.Generator().manual_seed(1))
+    kw = dict(n_clients=10, clients_per_round=4, rounds=3, local_epochs=1,
+              batch_size=5, base_step_time=0.5, round_timeout=200.0, seed=0,
+              strategy="scaffold", lr=1e-3)
+    runs = {}
+    for where in (card, torch.device("cpu")):
+        eng = Scheduler(FLConfig(**kw), ProxyCNN(10), data,
+                        list(paper_fleet(10)), device=where,
+                        init_params={k: v.to(where) for k, v in init.items()})
+        eng.trainer.batch_indices = TableIndices(7, 5)
+        eng.run()
+        runs[where.type] = eng
+    on_card, on_cpu = runs["cuda"], runs["cpu"]
+    assert _trace(on_card) == _trace(on_cpu)
+    assert on_card.c_global.is_cuda and on_card.c_buf.is_cuda
+    for name, leaf in on_card.params.items():
+        torch.testing.assert_close(leaf.cpu(), on_cpu.params[name],
+                                   rtol=1e-4, atol=1e-5)
+    # a variate divides a params difference by steps * lr, so its absolute
+    # tolerance is the params' over lr
+    torch.testing.assert_close(on_card.c_global.cpu(), on_cpu.c_global,
+                               rtol=1e-4, atol=1e-5 / kw["lr"])

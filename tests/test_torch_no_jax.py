@@ -92,7 +92,6 @@ def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(strategy="scaffold"), "SCAFFOLD"),
     (dict(update_plane="blob"), "update_plane"),
     (dict(data_plane="host"), "data_plane"),
     (dict(fault_profile="crash-heavy"), "fault_profile"),
@@ -101,7 +100,6 @@ def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
     (dict(mesh="2x1"), "mesh"),
     (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpointing"),
     (dict(optimizer="adafactor"), "adafactor"),
-    (dict(megastep="fused"), "megastep"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)

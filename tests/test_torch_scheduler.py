@@ -117,7 +117,10 @@ def test_scheduler_matches_reference(datasets, strategy):
     launches = block_topk.launches
     port, m = _run_both(datasets, base_cfg_kw(strategy=strategy, rounds=3))
     assert m["rounds"] == 3 and m["engine"] == "scheduler"
-    assert m["megastep"] == "stepwise"
+    assert m["megastep"] == "fused" and m["megastep_rounds"] == 0
+    assert m["megastep_fallback_reason"] == (
+        "per-round evaluation enabled" if strategy == "apodotiko-topk"
+        else "strategy is not adapter-wrapped apodotiko-topk")
     assert block_topk.launches == launches      # the CPU takes the plain route
     if strategy == "apodotiko-topk":
         assert port.db.columnar and port.db.fleet._dev is not None
@@ -178,10 +181,3 @@ def test_build_engine_resolves_auto_scheduler_and_legacy(datasets):
                                             engine="legacy")),
                      ProxyCNN(10), data, list(paper_fleet(N_CLIENTS)),
                      device="cpu")
-
-
-def test_fused_megastep_raises_naming_its_slice(datasets):
-    _, data = datasets
-    with pytest.raises(NotImplementedError, match="megastep slice"):
-        Scheduler(FLConfig(**base_cfg_kw(megastep="fused")), ProxyCNN(10),
-                  data, list(paper_fleet(N_CLIENTS)), device="cpu")
