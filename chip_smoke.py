@@ -52,8 +52,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
   6. reference: small ProxyCNN runs on the card against the same runs on
      the CPU (the kernels' plain versions), on one shared minibatch-index
      table, for ``fedavg``, ``apodotiko``, ``apodotiko-topk``,
-     ``apodotiko-hedge`` (hedges firing), ``scaffold`` and a fused
-     ``apodotiko-topk`` run (5 of 8 rounds fused): identical host trace
+     ``apodotiko-hedge`` (hedges firing), ``scaffold``, a fused
+     ``apodotiko-topk`` run (5 of 8 rounds fused) and ProxyLSTM on the
+     shakespeare proxy (the sweep's cell: SGD 0.5, batch 8): identical
+     host trace
      and megastep counters, params within rtol 1e-4 / atol 1e-5 (and
      SCAFFOLD's ``c_global`` within rtol 1e-4 / atol 1e-5 / lr: a variate
      divides a params difference by steps * lr); and the ``Controller``
@@ -80,7 +82,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      first 4,096 query rows must equal the 4,096-token run to the bit and
      every row must match a plain computation of 1,024 rows at a time;
      each call one launch;
-  9. kernels: each kernel at the shapes its path gave it, against its
+  9. paper models: the paper's other three models at published width
+     (FemnistCNN, 6,603,710 params; SpeechCNN, 67,267; ShakespeareLSTM,
+     818,402) through ``build_engine(...).run()`` on the paper's IV-A
+     settings (``src/repro/configs/paper_*.py``: FEMNIST E=5, B=10, Adam
+     1e-3, 1 round; Speech E=5, B=5, Adam 1e-3, 1 round; Shakespeare E=1,
+     B=32, SGD 0.8, 2 rounds), each on 200 clients of the 65/25/10 fleet,
+     100 a round, ``apodotiko``, CR 0.3, data at the paper's shapes and
+     ``PAPER_DATA_SCALE``: finite params of the model's shapes, the
+     paper's count, the round wall, the cohort's largest step budget, and
+     the launches (``staleness_agg`` once a round, ``fused_adam`` once a
+     local step of each cohort's largest budget for Adam, never for SGD);
+ 10. sweep: the ``smoke`` preset and ``paper_tables`` at ``SMOKE_SCALE``
+     with ``fedavg`` and ``apodotiko`` (all four datasets on their
+     proxies) through ``run_sweep`` on the card and on the CPU: host
+     columns (rounds, invocations, cold starts, cost, simulated time)
+     equal, accuracies side by side; the ``smoke`` table under
+     deterministic algorithms the same to the byte for one and two
+     workers; every row printed;
+ 11. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
      phase's check), and timed (median of CUDA-event times) beside the
@@ -111,7 +131,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      ``scored_topk`` (the fused selection step at the ``apodotiko-topk``
      run's own state, M = 256, k = 100, beta 1.2: the main path's call)
      and ``scored_topk[fleet]`` (at the fleet phase's state), each beside
-     the stepwise torch composition.
+     the stepwise torch composition. ``fused_adam`` has three, at the
+     MNIST run's width, at FemnistCNN's (``fused_adam[femnist]``, [128,
+     6,603,776]) and at SpeechCNN's (``fused_adam[speech]``), from those
+     runs, each with its device time; ``staleness_agg[femnist]``,
+     ``[speech]`` and ``[shakespeare]`` are the rows form at each paper
+     run's own width and last K.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -196,8 +221,10 @@ def device_ms(calls: dict, reps: int = 10) -> dict:
     each key of ``calls`` over ``reps`` calls of its function, all in one
     ``torch.profiler`` session (device activity only): the kernel's own
     time, without the host work of its wrapper, which a CUDA-event time of
-    one short call includes. None for a name the profiler did not see:
-    this time is informational, the contract's ``ms`` is the event time."""
+    one short call includes. None for a name the profiler did not see, and
+    the kernel names it did see on stderr: this time is informational and
+    not validated (a session may miss a kernel or read one under its
+    bound); the contract's ``ms`` is the event time."""
     from torch.profiler import ProfilerActivity, profile
     for fn in calls.values():
         fn()
@@ -214,6 +241,11 @@ def device_ms(calls: dict, reps: int = 10) -> dict:
         times = [(e.time_range.end - e.time_range.start) / 1e3
                  for e in events if name in e.name]
         out[name] = statistics.median(times) if times else None
+    missing = [name for name, ms in out.items() if ms is None]
+    if missing:
+        seen = sorted({e.name[:60] for e in events})[:8]
+        print(f"chip_smoke: the profiler saw no {missing} in {len(events)} "
+              f"device events ({seen})", file=sys.stderr, flush=True)
     return out
 
 
@@ -280,9 +312,11 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def path_kernels(strategy: str) -> tuple:
-    """The kernels a run of ``strategy`` must launch."""
-    base = ("staleness_agg", "fused_adam")
+def path_kernels(strategy: str, optimizer: str = "adam") -> tuple:
+    """The kernels a run of ``strategy`` must launch (``fused_adam`` only
+    where the clients train with Adam)."""
+    base = ("staleness_agg",) + (("fused_adam",) if optimizer == "adam"
+                                 else ())
     return base + ("block_topk",) if strategy == "apodotiko-topk" else base
 
 
@@ -292,6 +326,11 @@ def host_trace(engine):
     inv = [(r.client_id, r.round, r.t_invoked, r.cold, r.duration, r.failed)
            for r in engine.platform.invocations]
     return hist, inv
+
+
+def step_budget(data, cid: int, batch_size: int, local_epochs: int) -> int:
+    """A client's local steps: ceil(n / B) * E, at least 1."""
+    return max(-(-int(data.n[cid]) // batch_size) * local_epochs, 1)
 
 
 # ---------------------------------------------------------------- main path
@@ -484,11 +523,10 @@ def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
     # the launches a round must make: one selection, one aggregate, one
     # Adam step per local step of the cohort's largest budget
     first = runs[0][1]
-    steps = lambda cid: max(-(-int(data.n[cid]) // kw["batch_size"])
-                            * kw["local_epochs"], 1)
     per_round = collections.defaultdict(int)
     for r in first.platform.invocations:
-        per_round[r.round] = max(per_round[r.round], steps(r.client_id))
+        per_round[r.round] = max(per_round[r.round], step_budget(
+            data, r.client_id, kw["batch_size"], kw["local_epochs"]))
     want = {"block_topk": rounds, "staleness_agg": rounds,
             "fused_adam": sum(per_round.values())}
 
@@ -744,7 +782,8 @@ def topk_sort_route_phase(state, dev) -> dict:
 def reference_phase(dev) -> None:
     """Small ProxyCNN runs on the card vs the same runs on the CPU (among
     them ``scaffold``, its ``c_global`` too, and a fused-megastep run on
-    zero-variability hardware, its megastep counters equal), and the
+    zero-variability hardware, its megastep counters equal), a ProxyLSTM
+    run on the shakespeare proxy (SGD: no ``fused_adam``), and the
     Controller poll loop vs the Scheduler on the card."""
     from repro_torch.core.controller import Controller
     from repro_torch.core.scheduler import Scheduler, build_engine
@@ -752,10 +791,17 @@ def reference_phase(dev) -> None:
     from repro_torch.data.synthetic import make_federated_dataset
     from repro_torch.faas.hardware import paper_fleet
     from repro_torch.models.convert import params_from_numpy, params_to_numpy
-    from repro_torch.models.proxy_models import ProxyCNN
+    from repro_torch.models.proxy_models import ProxyCNN, ProxyLSTM
 
     data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
     init = params_to_numpy(ProxyCNN(10).init(torch.Generator().manual_seed(1)))
+    # the sweep's shakespeare cell: ProxyLSTM on 20-character sequences,
+    # SGD 0.5, batch 8 (sweep/runner.py)
+    lstm = ProxyLSTM(vocab=82, seq_len=20)
+    lstm_data = make_federated_dataset("shakespeare", n_clients=10,
+                                       scale=0.05, seed=0)
+    lstm_init = params_to_numpy(lstm.init(torch.Generator().manual_seed(1)))
+    lstm_case = dict(optimizer="sgd", lr=0.5, batch_size=8)
     base = dict(n_clients=10, clients_per_round=4, rounds=3, local_epochs=1,
                 batch_size=5, base_step_time=0.5, round_timeout=200.0, seed=0)
     # the reference's smoke_hedge setting, on its straggler hardware mix
@@ -766,25 +812,31 @@ def reference_phase(dev) -> None:
                  eval_every=0, keep_warm=1e9, megastep="fused")
     cases = {"fedavg": {}, "apodotiko": {}, "apodotiko-topk": {},
              "apodotiko-hedge": hedge, "scaffold": {},
-             "apodotiko-topk[fused]": fused}
+             "apodotiko-topk[fused]": fused,
+             "apodotiko[shakespeare]": lstm_case}
     out = {}
     for name, over in cases.items():
         strategy = name.split("[")[0]
         kw = {**base, "strategy": strategy, **over}
+        model, case_data, case_init = ((lstm, lstm_data, lstm_init)
+                                       if over is lstm_case
+                                       else (ProxyCNN(10), data, init))
+        kernels = path_kernels(strategy, kw.get("optimizer", "adam"))
         runs = {}
         for where in (dev, "cpu"):
             fleet = (straggler_fleet(10) if strategy == "apodotiko-hedge"
                      else det_fleet(10) if over is fused
                      else list(paper_fleet(10)))
-            eng = build_engine(FLConfig(**kw), ProxyCNN(10), data, fleet,
+            eng = build_engine(FLConfig(**kw), model, case_data, fleet,
                                device=where,
-                               init_params=params_from_numpy(init, where))
-            eng.trainer.batch_indices = NumpyBatchIndices(7, 5)
+                               init_params=params_from_numpy(case_init,
+                                                             where))
+            eng.trainer.batch_indices = NumpyBatchIndices(7, kw["batch_size"])
             before = read_counts()
             m = eng.run()
             after = read_counts()
             runs[str(where)] = (eng, m, tuple(after[k] - before[k]
-                                              for k in path_kernels(strategy)))
+                                              for k in kernels))
         (card, m_card, card_launches) = runs[str(dev)]
         (cpu, m_cpu, cpu_launches) = runs["cpu"]
         if host_trace(card) != host_trace(cpu):
@@ -825,8 +877,7 @@ def reference_phase(dev) -> None:
                      "acc_cpu": acc_cpu, "rounds": len(card.history),
                      "engine": m_card["engine"],
                      "n_hedges": m_card["n_hedges"], **mega,
-                     "card_launches": dict(zip(path_kernels(strategy),
-                                               card_launches))}
+                     "card_launches": dict(zip(kernels, card_launches))}
 
     # the poll loop against the Scheduler, both on the card
     cfg = FLConfig(**base, strategy="apodotiko")
@@ -883,6 +934,223 @@ def profile_round(data, dev, unprofiled_wall_s: float) -> None:
          idle_share_vs_unprofiled=((1 - busy / unprofiled_wall_s)
                                    if busy else None),
          top=[{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top])
+
+
+# ------------------------------------------------------------- paper models
+# The paper's IV-A settings of the other three models
+# (src/repro/configs/paper_{femnist,speech,shakespeare}.py: E, B, optimizer,
+# learning rate), each on the MNIST run's fleet: 200 clients on the 65/25/10
+# mix, 100 a round, apodotiko, CR 0.3. Only the rounds are cut.
+PAPER_RUNS = {
+    "femnist": dict(rounds=1, local_epochs=5, batch_size=10,
+                    optimizer="adam", lr=1e-3, n_params=6_603_710),
+    "speech": dict(rounds=1, local_epochs=5, batch_size=5,
+                   optimizer="adam", lr=1e-3, n_params=67_267),
+    "shakespeare": dict(rounds=2, local_epochs=1, batch_size=32,
+                        optimizer="sgd", lr=0.8, n_params=818_402),
+}
+PAPER_DATA_SCALE = 1.0   # the datasets' own scale (no cut)
+
+
+def paper_model_run(name: str, dev, n_clients: int = 200,
+                    clients_per_round: int = 100,
+                    data_scale: float = PAPER_DATA_SCALE) -> dict:
+    """One paper-width ``build_engine`` run of ``paper-<name>`` on the
+    paper's data shapes, every kernel count zeroed just before and read just
+    after. Fails unless the params are finite and of the model's shapes, the
+    count is the paper's, every round ran, and the launches are the path's:
+    ``staleness_agg`` once a round, ``fused_adam`` once a local step of each
+    cohort's largest budget (Adam) or never (SGD). Returns the record the
+    kernel entries read."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.core.services import FLConfig
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.paper_models import build_paper_model
+
+    run = dict(PAPER_RUNS[name])
+    n_params = run.pop("n_params")
+    t0 = time.perf_counter()
+    data = make_federated_dataset(name, n_clients=n_clients,
+                                  scale=data_scale, seed=SEED,
+                                  fidelity="paper")
+    data_s = time.perf_counter() - t0
+    model = build_paper_model(f"paper-{name}")
+    cfg = FLConfig(n_clients=n_clients, clients_per_round=clients_per_round,
+                   strategy="apodotiko", concurrency_ratio=0.3, seed=SEED,
+                   **run)
+    eng = build_engine(cfg, model, data, list(paper_fleet(n_clients)),
+                       device=dev)
+    rounds_log, clock = [], [0.0]
+
+    def progress(log):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        rounds_log.append({
+            "round": log.round, "wall_s": now - clock[0],
+            "accuracy": log.accuracy, "n_aggregated": log.n_aggregated,
+            "n_stale": log.n_stale, "store_capacity": eng.store.capacity,
+            "agg_route": aggregation.last_path()})
+        clock[0] = now
+
+    zero_counts()
+    torch.cuda.synchronize()
+    clock[0] = time.perf_counter()
+    metrics = eng.run(progress=progress)
+    torch.cuda.synchronize()
+    launches = read_counts()
+
+    # one trainer call a cohort: the invocations of one (round, instant)
+    cohorts = collections.defaultdict(list)
+    for r in eng.platform.invocations:
+        cohorts[(r.round, r.t_invoked)].append(step_budget(
+            data, r.client_id, cfg.batch_size, cfg.local_epochs))
+    budgets = [max(v) for _, v in sorted(cohorts.items())]
+    want = {"staleness_agg": cfg.rounds,
+            "fused_adam": sum(budgets) if cfg.optimizer == "adam" else 0}
+    finite = all(bool(torch.isfinite(p).all()) for p in eng.params.values())
+    per_round = collections.Counter(r.round for r in eng.platform.invocations)
+    record = {"model": f"paper-{name}", "strategy": cfg.strategy,
+              "optimizer": cfg.optimizer, "data_scale": data_scale,
+              "data_s": data_s, "X": list(data.X.shape),
+              "X_dtype": str(data.X.dtype), "n_params": eng.spec.n_params,
+              "row_width": eng.store.row_width, "rounds": rounds_log,
+              "cohort_sizes": [per_round[r] for r in sorted(per_round)],
+              "cohort_step_budgets": budgets,
+              "largest_step_budget": max(budgets),
+              "launches": launches, "launches_wanted": want,
+              "final_accuracy": metrics["final_accuracy"],
+              "total_sim_time_s": metrics["total_time"],
+              "megastep_fallback_reason": metrics["megastep_fallback_reason"],
+              "params_finite": finite}
+    emit("paper_model", **record)
+
+    if metrics["engine"] != "scheduler":
+        raise AssertionError(f"build_engine ran {metrics['engine']}")
+    if eng.spec.n_params != n_params:
+        raise AssertionError(f"paper-{name} has {eng.spec.n_params} params, "
+                             f"want {n_params}")
+    if len(eng.history) != cfg.rounds:
+        raise AssertionError(f"paper-{name}: {len(eng.history)} of "
+                             f"{cfg.rounds} rounds ran")
+    template = model.init(torch.Generator().manual_seed(0))
+    for leaf_name, leaf in eng.params.items():
+        if tuple(leaf.shape) != tuple(template[leaf_name].shape):
+            raise AssertionError(f"paper-{name} {leaf_name}: shape "
+                                 f"{tuple(leaf.shape)}")
+    if not finite or any(p.device.type != dev.type
+                         for p in eng.params.values()):
+        raise AssertionError(f"paper-{name}: params not finite on {dev}")
+    if not all(0.0 <= r["accuracy"] <= 1.0 for r in rounds_log):
+        raise AssertionError(f"paper-{name}: accuracy out of [0, 1]")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"paper-{name}: {k} launched {launches[k]} "
+                                 f"times, want {n}")
+    return record
+
+
+def paper_models_phase(dev, **size) -> dict:
+    """The paper's other three models at published width, one run each
+    (``paper_model_run``; ``size`` cuts clients or data for a rehearsal);
+    the engine and its data are let go after each."""
+    records = {}
+    for name in PAPER_RUNS:
+        records[name] = paper_model_run(name, dev, **size)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return records
+
+
+# -------------------------------------------------------------------- sweep
+# the sweep's columns that the host decides (numpy RNG and simulated time);
+# the others follow the accuracies, which card and CPU draw differently
+SWEEP_HOST_COLUMNS = (
+    "sweep", "dataset", "scenario", "strategy", "seed", "concurrency_ratio",
+    "rounds", "sim_time_s", "cold_starts", "cold_start_ratio",
+    "cold_start_reduction_vs_fedavg", "cost_usd", "cost_vs_fedavg",
+    "p50_round_latency_s", "p99_round_latency_s", "cost_per_round_usd",
+    "n_invocations", "n_failures", "n_retries", "n_quarantined", "error")
+SWEEP_ACC_COLUMNS = ("target_acc", "time_to_target_s", "speedup_vs_fedavg",
+                     "final_acc", "best_acc")
+
+
+def timed_sweep(spec, dev, workers: int = 1) -> tuple:
+    """``run_sweep(spec)`` on ``dev`` with the kernel counts zeroed just
+    before and read just after. Returns (table, wall s, launches)."""
+    from repro_torch.sweep import run_sweep
+    zero_counts()
+    t0 = time.perf_counter()
+    table = run_sweep(spec, max_workers=workers, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return table, time.perf_counter() - t0, read_counts()
+
+
+def sweep_phase(dev) -> dict:
+    """The sweep engine on the card against the same sweep on the CPU: the
+    ``smoke`` preset, and ``paper_tables`` (all four datasets on their
+    proxies) at ``SMOKE_SCALE`` with ``fedavg`` and ``apodotiko``. The
+    host columns (rounds, invocations, cold starts, cost, simulated time)
+    must be equal card against CPU; the accuracies are printed side by
+    side, not held (the card's generator draws other minibatches). Under
+    deterministic algorithms the ``smoke`` table on the card must be the
+    same to the byte for one and two workers. No cell may fail, every
+    card sweep must launch ``staleness_agg`` and ``fused_adam``, and the
+    CPU sweeps none."""
+    from dataclasses import replace
+
+    from repro_torch.sweep import SMOKE_SCALE, get_preset
+
+    specs = {"smoke": get_preset("smoke"),
+             "paper_tables": replace(get_preset("paper_tables"),
+                                     strategies=("fedavg", "apodotiko"),
+                                     scale=SMOKE_SCALE)}
+    out = {}
+    for name, spec in specs.items():
+        rec = {"cells": spec.n_runs}
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(name == "smoke")
+        try:
+            card, rec["card_wall_s"], rec["card_launches"] = timed_sweep(
+                spec, dev)
+            if name == "smoke":
+                pair, rec["card_2_workers_wall_s"], _ = timed_sweep(
+                    spec, dev, workers=2)
+                rec["serial_equals_2_workers"] = (
+                    card.to_markdown() == pair.to_markdown())
+        finally:
+            torch.use_deterministic_algorithms(was)
+        cpu, rec["cpu_wall_s"], cpu_launches = timed_sweep(
+            spec, torch.device("cpu"))
+        rows = []
+        for a, b in zip(card.rows, cpu.rows):
+            rows.append({**{c: a[c] for c in SWEEP_HOST_COLUMNS},
+                         **{f"{c}_card": a[c] for c in SWEEP_ACC_COLUMNS},
+                         **{f"{c}_cpu": b[c] for c in SWEEP_ACC_COLUMNS}})
+        rec["host_columns_equal"] = all(
+            {c: a[c] for c in SWEEP_HOST_COLUMNS}
+            == {c: b[c] for c in SWEEP_HOST_COLUMNS}
+            for a, b in zip(card.rows, cpu.rows))
+        emit("sweep_rows", preset=name, rows=rows)
+        emit("sweep", preset=name, **rec)
+        errors = [r["error"] for r in card.rows + cpu.rows if r["error"]]
+        if errors:
+            raise AssertionError(f"sweep {name}: cells failed: {errors}")
+        if not rec["host_columns_equal"]:
+            raise AssertionError(f"sweep {name}: host columns differ card "
+                                 "vs cpu")
+        if rec.get("serial_equals_2_workers") is False:
+            raise AssertionError(f"sweep {name}: the table differs for 1 "
+                                 "and 2 workers")
+        if min(rec["card_launches"][k]
+               for k in ("staleness_agg", "fused_adam")) <= 0 or any(
+                   cpu_launches.values()):
+            raise AssertionError(f"sweep {name}: launches card "
+                                 f"{rec['card_launches']} cpu {cpu_launches}")
+        out[name] = rec
+    return out
 
 
 # ----------------------------------------------------------------- compress
@@ -1173,8 +1441,11 @@ def check(name: str, got, want, rtol: float = KERNEL_RTOL,
 
 
 def main_run(record: dict) -> str:
-    """Names the main-path run whose launch counts an entry reports."""
-    return f"main path: {record['strategy']}, {len(record['rounds'])} rounds"
+    """Names the run whose launch counts an entry reports: a main-path run,
+    or a paper_models run (its record names its model)."""
+    where = (f"paper_models phase: {record['model']}" if "model" in record
+             else "main path")
+    return f"{where}: {record['strategy']}, {len(record['rounds'])} rounds"
 
 
 def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
@@ -1250,9 +1521,10 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
     return entry
 
 
-def adam_kernel_entry(record: dict, dev) -> dict:
-    """``fused_adam`` at the main path's largest cohort: Kp lanes (the
-    cohort padded to a power of two), the pad lanes inactive."""
+def adam_kernel_entry(record: dict, dev, name: str = "fused_adam") -> dict:
+    """``fused_adam`` at the run's largest cohort: Kp lanes (the cohort
+    padded to a power of two) of its row width, the pad lanes inactive;
+    event time and the kernel's own profiler time."""
     from repro_torch.core.client import DEFAULT_COHORT_FLOOR, _bucket
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_adam import fused_adam
@@ -1274,15 +1546,18 @@ def adam_kernel_entry(record: dict, dev) -> dict:
     fused_adam(*mine, g, steps, s, **hyper)
     ref.fused_adam(*plain, g, steps, s, **hyper)
     torch.cuda.synchronize()
-    errs = [check("fused_adam", a, b) for a, b in zip(mine, plain)]
-    entry = {"name": "fused_adam", "route": "cuda",
+    errs = [check(name, a, b) for a, b in zip(mine, plain)]
+    entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
              "replaces": "src/repro/kernels/fused_adam.py:52",
              "launches": record["launches"]["fused_adam"],
              "launches_run": main_run(record),
              "shape": {"Kp": kp, "W": W, "active_lanes": k},
              **{k: max(e[k] for e in errs) for k in errs[0]}}
-    entry["ms"] = time_ms(lambda: fused_adam(*mine, g, steps, s, **hyper))
+    call = lambda: fused_adam(*mine, g, steps, s, **hyper)
+    entry["ms"] = time_ms(call)
+    put_device_ms(entry, "device_ms",
+                  device_ms({"fused_adam": call})["fused_adam"])
     entry["plain_ms"] = time_ms(
         lambda: ref.fused_adam(*plain, g, steps, s, **hyper))
 
@@ -1301,6 +1576,22 @@ def adam_kernel_entry(record: dict, dev) -> dict:
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, k * W * 14)
     entry["bytes"] = nbytes
     return entry
+
+
+def paper_kernel_entries(records: dict, dev) -> list:
+    """The main-path kernels at each paper_models run's own shapes:
+    ``fused_adam[<model>]`` for the Adam models, and
+    ``staleness_agg[<model>]`` in rows form at every run's last K (the
+    column split follows the row width)."""
+    entries = []
+    for name, record in records.items():
+        if PAPER_RUNS[name]["optimizer"] == "adam":
+            entries.append(adam_kernel_entry(record, dev,
+                                             name=f"fused_adam[{name}]"))
+        entries.append(agg_kernel_entry(f"staleness_agg[{name}]", record,
+                                        dev, rows_form=True))
+        torch.cuda.empty_cache()
+    return entries
 
 
 def topk_scores(m: int, dev) -> torch.Tensor:
@@ -1699,6 +1990,7 @@ def report_lines(kernels: list, kind: str, count: int) -> list:
 
 # --------------------------------------------------------------------- main
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         return fail("no CUDA card is available; this script runs only on one")
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1749,6 +2041,8 @@ def main() -> int:
     update = mnist_update(apo_engine, dev)
     compress = compress_phase(update, main_run(apo))
     attention, attn_inputs = attention_phase(dev)
+    paper = paper_models_phase(dev)
+    sweep_phase(dev)
 
     n_topk = top["launches"]["block_topk"]
     fleet_run = f"fleet phase: {FLEET_ROUNDS} select_topk calls at M = 1e6"
@@ -1784,8 +2078,11 @@ def main() -> int:
             attention["launches_long"],
             "attention phase: causal [1,16,32768,128] in bf16",
             attention["long_rows"], reps=5)]
+    torch.cuda.empty_cache()
+    kernels += paper_kernel_entries(paper, dev)
     for e in kernels:
         emit("kernel", **e)
+    emit("total", seconds=time.perf_counter() - t_start)
     for line in report_lines(kernels, kind, torch.cuda.device_count()):
         print(line, flush=True)
     return 0

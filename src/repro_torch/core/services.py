@@ -59,6 +59,7 @@ from repro_torch.faas.events import EventLoop
 from repro_torch.faas.hardware import HardwareProfile
 from repro_torch.faas.platform import FaaSPlatform, InvocationRecord
 from repro_torch.kernels.ops import RavelSpec, tree_leaves, tree_map
+from repro_torch.traffic.slo import slo_summary
 
 Params = Any
 
@@ -690,6 +691,12 @@ class FLRuntime:
             "n_hedge_wins": self.n_hedge_wins,
             "n_cancelled": self.n_cancelled,
             "fault_profile": self.fault_profile,
+            # the SLO layer (DESIGN.md §13) over the closed-loop history
+            **slo_summary(
+                self.history, self.platform.cold_start_ratio(), cost,
+                time_to_accuracy=(
+                    self.time_to_accuracy(self.cfg.target_accuracy)
+                    if self.cfg.target_accuracy else None)),
             "n_failures": sum(1 for r in inv if r.failed),
             "n_timeouts": self.n_timeouts,
             "n_retries": self.n_retries,
@@ -700,6 +707,14 @@ class FLRuntime:
             "invocation_counts": count_arr,
             "history": [(l.t_end, l.round, l.accuracy) for l in self.history],
         }
+
+    def time_to_accuracy(self, target: float) -> Optional[float]:
+        """Simulated time at which an evaluation first reached ``target``
+        (None if none did)."""
+        for l in self.history:
+            if l.accuracy >= target:
+                return l.t_end
+        return None
 
     @staticmethod
     def _failures_by_phase(inv) -> dict:

@@ -50,6 +50,11 @@ def _initialize(gen: torch.Generator, shape, dtype, init: str,
         x = torch.empty(shape, dtype=torch.float32)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
         return (x * std).to(dtype)
+    if init == "embed":
+        # a plain (not truncated) normal, as the reference's embeddings
+        std = scale if scale is not None else 0.02
+        x = torch.randn(shape, generator=gen, dtype=torch.float32)
+        return (x * std).to(dtype)
     raise ValueError(f"unknown init {init}")
 
 

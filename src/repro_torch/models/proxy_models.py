@@ -1,8 +1,10 @@
-"""Bench-scale proxy client model (twin of ``repro.models.proxy_models``).
+"""Bench-scale proxy client models (twin of ``repro.models.proxy_models``).
 
-``ProxyCNN`` keeps the paper models' API on 8x8x1 inputs at ~100x less
-compute; the port's CPU tests run on it. ``ProxyLSTM`` comes with a later
-slice of the port.
+The paper's exact models (``repro_torch.models.paper_models``) are what a
+paper-width run trains; these proxies keep the same API and loss surface
+and the non-IID learning dynamics at ~100x less compute, for the sweep's
+proxy fidelity and the CPU tests: ``ProxyCNN`` on 8x8x1 inputs,
+``ProxyLSTM`` on 20-character sequences.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import ParamFactory
 from repro_torch.models.paper_models import (_ClassifierBase, _apply_conv,
-                                             _conv, _flatten_nhwc, _maxpool,
+                                             _conv, _embed, _flatten_nhwc,
+                                             _lstm, _maxpool,
                                              build_paper_model)
 
 
@@ -42,12 +45,37 @@ class ProxyCNN(_ClassifierBase):
         return x @ p["fc2_w"] + p["fc2_b"]
 
 
+class ProxyLSTM(_ClassifierBase):
+    """Next-char model on short sequences: embed -> LSTM(h) -> dense(vocab)."""
+
+    def __init__(self, vocab: int = 82, seq_len: int = 20, emb: int = 8,
+                 hidden: int = 64):
+        self.vocab = vocab
+        self.n_classes = vocab
+        self.seq_len = seq_len
+        self.emb = emb
+        self.hidden = hidden
+
+    def init(self, generator: torch.Generator) -> dict:
+        pf = ParamFactory(generator)
+        pf.param("embed", (self.vocab, self.emb), init="embed")
+        pf.param("wx", (self.emb, 4 * self.hidden))
+        pf.param("wh", (self.hidden, 4 * self.hidden))
+        pf.param("b", (4 * self.hidden,), init="zeros")
+        pf.param("out_w", (self.hidden, self.vocab))
+        pf.param("out_b", (self.vocab,), init="zeros")
+        return pf.params
+
+    def predict(self, p, x):
+        h = _lstm(p["wx"], p["wh"], p["b"], _embed(p["embed"], x))[-1]
+        return h @ p["out_w"] + p["out_b"]
+
+
 def build_bench_model(dataset: str, fidelity: str = "proxy"):
     """Model for a (paper) dataset at the requested fidelity."""
     if fidelity == "paper":
         return build_paper_model(f"paper-{dataset}")
-    if dataset == "shakespeare":
-        raise NotImplementedError(
-            "ProxyLSTM comes with a later slice of the port")
     n_classes = {"mnist": 10, "femnist": 62, "speech": 35}
+    if dataset == "shakespeare":
+        return ProxyLSTM(vocab=82, seq_len=20)
     return ProxyCNN(n_classes[dataset])

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_client_store import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPT = ROOT / "chip_smoke.py"
 
@@ -241,6 +243,49 @@ def test_agg_entry_reports_flushed_and_device_times(monkeypatch, rows_form):
     line = json.loads(cs.report_lines([e], "x", 1)[0])["kernels"][0]
     assert set(line) == set(cs.KERNEL_KEYS) | {
         "device_ms", "flushed_ms", "flushed_device_ms", "bound_share"}
+
+
+def test_paper_kernel_entries_take_each_runs_own_shapes(monkeypatch):
+    """CPU rehearsal of the paper_models runs' entries: ``fused_adam`` at
+    each Adam run's [Kp, W] (none for Shakespeare's SGD) and
+    ``staleness_agg`` in rows form at every run's width and last K, each
+    held to its plain version, with that run's launches."""
+    import types
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.5)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(cs, "l2_flush", lambda dev: lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    shapes = {"femnist": (1, 5, 2304, [3]), "speech": (1, 7, 640, [3]),
+              "shakespeare": (2, 6, 896, [3, 3])}
+    records = {
+        name: {"model": f"paper-{name}", "strategy": "apodotiko",
+               "row_width": W, "cohort_sizes": sizes,
+               "rounds": [{"store_capacity": 16, "n_aggregated": k}] * rounds,
+               "launches": {"staleness_agg": rounds,
+                            "fused_adam": 0 if name == "shakespeare" else 40}}
+        for name, (rounds, k, W, sizes) in shapes.items()}
+    entries = cs.paper_kernel_entries(records, torch.device("cpu"))
+    assert [e["name"] for e in entries] == [
+        "fused_adam[femnist]", "staleness_agg[femnist]", "fused_adam[speech]",
+        "staleness_agg[speech]", "staleness_agg[shakespeare]"]
+    by_name = {e["name"]: e for e in entries}
+    for name, (rounds, k, W, sizes) in shapes.items():
+        agg = by_name[f"staleness_agg[{name}]"]
+        assert agg["shape"]["rows_form"] and agg["max_abs_err"] < 1e-6
+        assert (agg["shape"]["W"], agg["shape"]["K"]) == (W, k)
+        assert agg["launches"] == rounds
+        assert agg["launches_run"] == \
+            f"paper_models phase: paper-{name}: apodotiko, {rounds} rounds"
+        if name != "shakespeare":
+            adam = by_name[f"fused_adam[{name}]"]
+            assert adam["shape"] == {"Kp": 4, "W": W,
+                                     "active_lanes": max(sizes)}
+            assert adam["launches"] == 40 and adam["max_abs_err"] < 1e-6
+            assert set(cs.KERNEL_KEYS) <= set(adam)
 
 
 def test_every_kernel_wrapper_counts_its_launches():
@@ -729,3 +774,115 @@ def test_fails_alone_outside_a_checkout(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_path_kernels_follow_the_optimizer():
+    cs = _load()
+    assert cs.path_kernels("apodotiko") == ("staleness_agg", "fused_adam")
+    assert cs.path_kernels("apodotiko", "sgd") == ("staleness_agg",)
+    assert cs.path_kernels("apodotiko-topk", "sgd") == ("staleness_agg",
+                                                        "block_topk")
+    assert cs.main_run({"model": "paper-femnist", "strategy": "apodotiko",
+                        "rounds": [{}]}) == \
+        "paper_models phase: paper-femnist: apodotiko, 1 rounds"
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_paper_models_phase_on_the_cpu(monkeypatch, capsys):
+    """The phase's contract at 4 clients (2 a round) and a twentieth of the
+    data: the paper's param counts and row widths, every round run, each
+    Adam cohort's largest step budget as its ``fused_adam`` launches, none
+    for Shakespeare's SGD, ``staleness_agg`` once a round, finite params;
+    one JSON line per model."""
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _count_plain_calls(monkeypatch)
+    recs = cs.paper_models_phase(torch.device("cpu"), n_clients=4,
+                                 clients_per_round=2, data_scale=0.05)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["model"] for l in lines] == [
+        "paper-femnist", "paper-speech", "paper-shakespeare"]
+    assert {k: r["n_params"] for k, r in recs.items()} == {
+        "femnist": 6_603_710, "speech": 67_267, "shakespeare": 818_402}
+    assert recs["femnist"]["row_width"] == 6_603_776
+    for name, r in recs.items():
+        run = cs.PAPER_RUNS[name]
+        assert len(r["rounds"]) == run["rounds"] and r["params_finite"]
+        assert r["launches"]["staleness_agg"] == run["rounds"]
+        adam = r["launches"]["fused_adam"]
+        assert adam == (sum(r["cohort_step_budgets"])
+                        if run["optimizer"] == "adam" else 0)
+        assert r["largest_step_budget"] == max(r["cohort_step_budgets"])
+        assert r["launches"] == {**r["launches"], **r["launches_wanted"]}
+    assert recs["shakespeare"]["X_dtype"] == "int32"
+    assert recs["femnist"]["X"][2:] == [28, 28, 1]
+    assert recs["speech"]["X"][2:] == [32, 32, 1]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_paper_model_run_fails_without_its_launches(monkeypatch):
+    """On the CPU no kernel launches: uncounted, the Adam path's missing
+    ``fused_adam`` launches fail the run."""
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    with pytest.raises(AssertionError, match="launched 0 times"):
+        cs.paper_model_run("speech", torch.device("cpu"), n_clients=4,
+                           clients_per_round=2, data_scale=0.05)
+
+
+def _sweep_rehearsal(cs, monkeypatch, plant=None):
+    """chip_smoke's sweep phase with both its "card" and CPU sweeps on the
+    CPU: the card sweeps (the first two of ``smoke`` and the first of
+    ``paper_tables``) report launches, the CPU ones none; ``plant`` may
+    alter a sweep's table by its call index."""
+    orig, calls = cs.timed_sweep, []
+
+    def timed(spec, dev, workers=1):
+        table, wall, launches = orig(spec, dev, workers)
+        i = len(calls)
+        calls.append(i)
+        if plant:
+            plant(i, table)
+        card = i in (0, 1, 3)
+        return table, wall, {k: int(card) for k in launches}
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "timed_sweep", timed)
+    return cs.sweep_phase(torch.device("cpu"))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_sweep_phase_on_the_cpu(capsys):
+    cs = _load()
+    with pytest.MonkeyPatch.context() as mp:
+        rec = _sweep_rehearsal(cs, mp)
+    assert rec["smoke"]["serial_equals_2_workers"]
+    assert rec["smoke"]["cells"] == 2 and rec["paper_tables"]["cells"] == 8
+    assert all(r["host_columns_equal"] for r in rec.values())
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    rows = {l["preset"]: l["rows"] for l in lines
+            if l["phase"] == "sweep_rows"}
+    assert {r["dataset"] for r in rows["paper_tables"]} == {
+        "mnist", "femnist", "shakespeare", "speech"}
+    for r in rows["paper_tables"]:
+        assert r["error"] is None and r["rounds"] > 0
+        assert {"final_acc_card", "final_acc_cpu"} <= set(r)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("call, column, match", [
+    (2, "cost_usd", "host columns differ"),        # the smoke CPU sweep
+    (1, "final_acc", "1 and 2 workers"),           # the 2-worker sweep
+    (0, "error", "cells failed"),
+])
+def test_sweep_phase_fails_on_a_planted_difference(call, column, match):
+    cs = _load()
+
+    def plant(i, table):
+        if i == call:
+            table.rows[0][column] = ("boom" if column == "error"
+                                     else table.rows[0][column] + 1)
+
+    with pytest.MonkeyPatch.context() as mp, \
+            pytest.raises(AssertionError, match=match):
+        _sweep_rehearsal(cs, mp, plant)

@@ -25,6 +25,17 @@ from repro_torch.models.proxy_models import ProxyCNN
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One torch intra-op thread for the test: under pytest-xdist each
+    worker's OpenMP pool spins on every core, and six such pools on eight
+    cores slow a CPU-bound test some hundredfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class JaxBatchIndices:
     """The reference trainer's minibatch draws as an index table: per
     cohort ``key, sub = split(key); keys = split(sub, Kp)`` (its

@@ -782,3 +782,135 @@ def test_scaffold_on_the_card_matches_the_cpu(card):
     # tolerance is the params' over lr
     torch.testing.assert_close(on_card.c_global.cpu(), on_cpu.c_global,
                                rtol=1e-4, atol=1e-5 / kw["lr"])
+
+
+@pytest.fixture
+def no_tf32(card):
+    """TF32 off for cuDNN and cuBLAS (cuDNN's defaults to on): the card
+    computes in fp32, as the CPU does."""
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield card
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def _model_inputs(model, batch, seed):
+    rng = np.random.default_rng(seed)
+    if hasattr(model, "seq_len"):
+        x = rng.integers(0, model.vocab, (batch, model.seq_len)).astype(np.int32)
+    else:
+        x = rng.normal(size=(batch,) + model.input_shape).astype(np.float32)
+    return x, rng.integers(0, model.n_classes, batch).astype(np.int64)
+
+
+# The filter gradient of FemnistCNN's first layer (5x5, one input channel,
+# 28x28, SAME) sums 6,272 products a weight at batch 8, with cancellation
+# (c1_w's largest value is 0.07): unbatched, cuDNN's strays from an fp64
+# computation by about 1e-4 on the H100, and an fp32 CPU's may stray as
+# far, so the two fp32 results are not held to each other. The unbatched
+# case holds that one grad, from the card, to fp64 at this atol; under
+# vmap (the trainer's path) the card is held to the CPU at 1e-5.
+CUDNN_FIRST_FILTER_ATOL = 2e-4
+
+
+def _new_model(name):
+    from repro_torch.models.paper_models import build_paper_model
+    from repro_torch.models.proxy_models import ProxyLSTM
+    return ProxyLSTM() if name == "proxy-lstm" else build_paper_model(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paper-femnist", "paper-speech",
+                                  "paper-shakespeare", "proxy-lstm"])
+def test_new_models_vmapped_grads_card_equal_cpu(no_tf32, name):
+    """Each model of this slice as the trainer runs it: per-lane loss and
+    grads under ``torch.func.vmap(grad_and_value)``, two lanes of batch 8
+    from one set of params, on the card within rtol 1e-4 / atol 1e-5 of
+    the CPU."""
+    model = _new_model(name)
+    params = model.init(torch.Generator().manual_seed(0))
+    (x0, y0), (x1, y1) = (_model_inputs(model, 8, seed=s) for s in (1, 2))
+    out = []
+    for dev in (no_tf32, torch.device("cpu")):
+        lanes = {k: torch.stack([v, v]).to(dev) for k, v in params.items()}
+        x = torch.as_tensor(np.stack([x0, x1]), device=dev)
+        y = torch.as_tensor(np.stack([y0, y1]), device=dev)
+        out.append(torch.func.vmap(torch.func.grad_and_value(
+            lambda p, xb, yb: model.loss(p, {"x": xb, "y": yb})[0]))(
+                lanes, x, y))
+    (gc, lc), (gh, lh) = out
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5)
+    for k in gh:
+        torch.testing.assert_close(gc[k].cpu(), gh[k], rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["paper-femnist", "paper-speech",
+                                  "paper-shakespeare", "proxy-lstm"])
+def test_new_models_forward_and_grads_card_equal_cpu(no_tf32, name):
+    """Logits, loss and every grad of each model of this slice, unbatched
+    at batch 8, on the card within rtol 1e-4 / atol 1e-5 of the CPU's,
+    from one set of params; FemnistCNN's first filter gradient from the
+    card against an fp64 one on the CPU (``CUDNN_FIRST_FILTER_ATOL``, see
+    there)."""
+    model = _new_model(name)
+    params = model.init(torch.Generator().manual_seed(0))
+    x, y = _model_inputs(model, 8, seed=1)
+    cpu = torch.device("cpu")
+    out = []
+    for dev, dtype in ((no_tf32, torch.float32), (cpu, torch.float32),
+                       (cpu, torch.float64)):
+        p = {k: v.to(dev, dtype) for k, v in params.items()}
+        xb = torch.as_tensor(x, device=dev)
+        batch = {"x": xb if xb.dtype == torch.int32 else xb.to(dtype),
+                 "y": torch.as_tensor(y, device=dev)}
+        logits = model.predict(p, batch["x"])
+        grads, loss = torch.func.grad_and_value(
+            lambda q: model.loss(q, batch)[0])(p)
+        out.append((logits, loss, grads))
+    (lc, sc, gc), (lh, sh, gh), (_, _, g64) = out
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sc.cpu(), sh, rtol=1e-4, atol=1e-5)
+    for k in gh:
+        if (name, k) == ("paper-femnist", "c1_w"):
+            torch.testing.assert_close(gc[k].cpu().double(), g64[k],
+                                       rtol=1e-4, atol=CUDNN_FIRST_FILTER_ATOL)
+            continue
+        torch.testing.assert_close(gc[k].cpu(), gh[k], rtol=1e-4, atol=1e-5,
+                                   msg=lambda m, k=k: f"{k}: {m}")
+
+
+@pytest.mark.cuda
+def test_shakespeare_lstm_cohort_step_on_the_card(no_tf32):
+    """One cohort of the paper's LSTM (80-character sequences, SGD 0.8,
+    ragged budgets, one pad lane) through the trainer on the card and on
+    the CPU from one index table: rows within rtol 1e-4 / atol 1e-5, no
+    ``fused_adam`` launch (SGD), losses finite."""
+    from repro_torch.core.client import CohortTrainer
+    from repro_torch.core.data_plane import DatasetStore
+    from repro_torch.core.update_store import UpdateStore
+    from repro_torch.models.paper_models import ShakespeareLSTM
+    from repro_torch.models.common import count_params
+
+    data = make_federated_dataset("shakespeare", n_clients=4, scale=0.05,
+                                  seed=0, fidelity="paper")
+    model = ShakespeareLSTM()
+    init = model.init(torch.Generator().manual_seed(2))
+    sel, steps = [3, 0, 2], np.array([2, 3, 1])
+    rows = []
+    for dev in (no_tf32, torch.device("cpu")):
+        t = CohortTrainer(model, optimizer="sgd", lr=0.8, batch_size=4,
+                          device=dev, batch_indices=TableIndices(5, 4))
+        store = UpdateStore(count_params(init), capacity=4, device=dev)
+        before = fa.fused_adam.launches
+        ids, _, loss = t.train_cohort_indexed(
+            {k: v.to(dev) for k, v in init.items()}, DatasetStore(data, dev),
+            sel, data.n[sel], steps, update_sink=store)
+        assert fa.fused_adam.launches == before
+        assert np.isfinite(loss).all()
+        rows.append(store.gather(ids).cpu())
+    torch.testing.assert_close(rows[0], rows[1], rtol=1e-4, atol=1e-5)

@@ -17,7 +17,7 @@ from repro.models.proxy_models import ProxyCNN as JaxProxyCNN
 from repro_torch import optim
 from repro_torch.models.common import count_params
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
-from repro_torch.models.paper_models import MnistCNN, build_paper_model
+from repro_torch.models.paper_models import MnistCNN
 from repro_torch.models.proxy_models import ProxyCNN, build_bench_model
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -59,13 +59,6 @@ def test_mnist_cnn_has_the_paper_param_count():
         {k: tuple(v.shape) for k, v in jparams.items()}
     assert isinstance(build_bench_model("mnist", "paper"), MnistCNN)
     assert isinstance(build_bench_model("femnist"), ProxyCNN)
-
-
-@pytest.mark.parametrize("name", ["paper-femnist", "paper-speech",
-                                  "paper-shakespeare"])
-def test_unported_paper_models_raise(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_paper_model(name)
 
 
 def _quadratic_grads(params, target):

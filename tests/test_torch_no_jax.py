@@ -38,6 +38,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert "repro_torch.kernels.topk" in mods
     assert "repro_torch.kernels.quant8" in mods
     assert "repro_torch.kernels.flash_attention" in mods
+    assert "repro_torch.models.paper_models" in mods
+    assert "repro_torch.models.proxy_models" in mods
+    assert {"repro_torch.sweep", "repro_torch.sweep.engine",
+            "repro_torch.sweep.grid", "repro_torch.sweep.presets",
+            "repro_torch.sweep.results", "repro_torch.sweep.runner",
+            "repro_torch.traffic.slo"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"

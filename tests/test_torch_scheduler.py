@@ -25,6 +25,7 @@ from repro.data.synthetic import make_federated_dataset as jax_dataset
 from repro.faas.hardware import HARDWARE_PROFILES as JAX_PROFILES
 from repro.faas.hardware import paper_fleet as jax_fleet
 from repro.models.proxy_models import ProxyCNN as JaxProxyCNN
+from repro.models.proxy_models import ProxyLSTM as JaxProxyLSTM
 from repro_torch.core.controller import Controller
 from repro_torch.core.scheduler import Scheduler, build_engine
 from repro_torch.core.services import FLConfig, resolve_engine
@@ -32,8 +33,8 @@ from repro_torch.data.synthetic import make_federated_dataset
 from repro_torch.faas.hardware import HARDWARE_PROFILES, paper_fleet
 from repro_torch.kernels.topk import block_topk
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.proxy_models import ProxyCNN
-from test_torch_client_store import JaxBatchIndices
+from repro_torch.models.proxy_models import ProxyCNN, ProxyLSTM
+from test_torch_client_store import JaxBatchIndices, one_torch_thread  # noqa: F401
 from trace_harness import N_CLIENTS, base_cfg_kw
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -81,19 +82,43 @@ def datasets():
     return jdata, data
 
 
-def _run_both(datasets, kw, straggler=False):
+# the two other proxies the sweep trains: its shakespeare cells (SGD 0.5,
+# batch 8: sweep/runner.py) and a speech cell's 35-class CNN
+OTHER_PROXIES = {
+    "shakespeare": (lambda: (JaxProxyLSTM(vocab=82, seq_len=20),
+                             ProxyLSTM(vocab=82, seq_len=20)),
+                    dict(optimizer="sgd", lr=0.5, batch_size=8)),
+    "speech": (lambda: (JaxProxyCNN(35), ProxyCNN(35)), {}),
+}
+
+
+@pytest.fixture(scope="module")
+def other_datasets():
+    out = {}
+    for name in OTHER_PROXIES:
+        jdata = jax_dataset(name, n_clients=N_CLIENTS, scale=0.05, seed=0)
+        data = make_federated_dataset(name, n_clients=N_CLIENTS, scale=0.05,
+                                      seed=0)
+        for f in ("X", "y", "n", "eval_x", "eval_y"):
+            np.testing.assert_array_equal(getattr(data, f),
+                                          getattr(jdata, f))
+        out[name] = (jdata, data)
+    return out
+
+
+def _run_both(datasets, kw, straggler=False, models=None):
     jdata, data = datasets
     if straggler:
         jfleet = straggler_fleet(JAX_PROFILES, N_CLIENTS)
         fleet = straggler_fleet(HARDWARE_PROFILES, N_CLIENTS)
     else:
         jfleet, fleet = jax_fleet(N_CLIENTS), paper_fleet(N_CLIENTS)
-    jmodel = JaxProxyCNN(10)
+    jmodel, model = models or (JaxProxyCNN(10), ProxyCNN(10))
     ref = JaxScheduler(JaxFLConfig(**kw, megastep="stepwise"), jmodel, jdata,
                        list(jfleet))
     m_ref = ref.run()
     init = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0))[0])
-    port = build_engine(FLConfig(**kw), ProxyCNN(10), data, list(fleet),
+    port = build_engine(FLConfig(**kw), model, data, list(fleet),
                         device="cpu", init_params=params_from_numpy(init, "cpu"))
     assert isinstance(port, Scheduler)
     port.trainer.batch_indices = JaxBatchIndices(kw["seed"], kw["batch_size"])
@@ -124,6 +149,21 @@ def test_scheduler_matches_reference(datasets, strategy):
     assert block_topk.launches == launches      # the CPU takes the plain route
     if strategy == "apodotiko-topk":
         assert port.db.columnar and port.db.fleet._dev is not None
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("dataset", list(OTHER_PROXIES))
+def test_scheduler_matches_reference_on_the_other_proxies(other_datasets,
+                                                          dataset):
+    """ProxyLSTM on the shakespeare proxy (int32 token ids through the
+    resident store, SGD) and ProxyCNN(35) on the speech proxy (Adam)."""
+    make_models, over = OTHER_PROXIES[dataset]
+    port, m = _run_both(other_datasets[dataset],
+                        base_cfg_kw(strategy="apodotiko", rounds=3, **over),
+                        models=make_models())
+    assert m["rounds"] == 3 and m["n_invocations"] > 0
+    assert port.dataset.X.dtype == (torch.int32 if dataset == "shakespeare"
+                                    else torch.float32)
 
 
 def test_scheduler_matches_reference_with_hedges_firing(datasets):
