@@ -8,7 +8,9 @@ and ``nvidia-smi``; imports neither ``jax`` nor the JAX package ``repro``.
 Phases, each printed as one JSON line; any failure exits non-zero:
 
   1. card: name and power limit (``nvidia-smi``), torch/CUDA versions, the
-     TF32 flags (both set False: convolutions would otherwise run in TF32);
+     TF32 flags as torch sets them (untouched: the trainer and the
+     evaluation hold fp32 in their own scope, ``device.fp32_exact``, and
+     the flags must read the same after every phase);
   2. build: the five kernel sources compiled from
      ``src/repro_torch/kernels/csrc`` into ``build/kernels/`` (one ``nvcc``
      per source, all started together), with ptxas's register, spill and
@@ -34,6 +36,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      across all four, the same launches in each (``block_topk`` and
      ``staleness_agg`` once a round, ``fused_adam`` once a local step),
      wall time a round for each run, bootstrap rounds apart;
+     then the profiles, at the same width, 2 rounds a run, at step
+     times that place each profile's events inside the run
+     (``PROFILE_STEP_TIMES``): each fault profile (``crash-heavy``,
+     ``outage-window``, ``lossy-network``) on the Scheduler with the
+     ``chaos`` preset's recovery layer, and each fault and traffic profile
+     (``steady-churn``, ``diurnal``, ``flash-crowd``, ``trace-demo``, and
+     ``trace-demo`` under ``scaffold``) on the ``Controller`` and the
+     ``Scheduler`` under deterministic algorithms: chaos traces (with each
+     invocation's fault phase) equal, params (and variates) bit-equal;
+     every fault run striking in its profile's phases (the recovery runs
+     retrying or timing out), every traffic run applying joins and
+     leaves, the SCAFFOLD run zeroing departed clients' variate rows;
+     ``trace-demo`` fused against stepwise on the megastep config (6
+     rounds at 0.5 s a step, its joins and leaves between fused rounds):
+     bit-equal, at least 3 rounds fused; and the oracle planes
+     (``update_plane="blob"``, ``data_plane="host"``) against the device
+     planes: host traces equal, params within 1e-5, the byte counters
+     non-zero only on the oracle planes. Each run's wall a round, fault
+     counts by phase, traffic joins, leaves, drops and cancellations and
+     the megastep fallback reason are printed;
   4. fleet: the control plane at a million clients: ``select_topk(100,
      1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
      on a CPU copy of the same state; selections and the device booster
@@ -93,13 +115,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      paper's count, the round wall, the cohort's largest step budget, and
      the launches (``staleness_agg`` once a round, ``fused_adam`` once a
      local step of each cohort's largest budget for Adam, never for SGD);
- 10. sweep: the ``smoke`` preset and ``paper_tables`` at ``SMOKE_SCALE``
+ 10. sweep: the ``smoke`` preset, ``paper_tables`` at ``SMOKE_SCALE``
      with ``fedavg`` and ``apodotiko`` (all four datasets on their
-     proxies) through ``run_sweep`` on the card and on the CPU: host
-     columns (rounds, invocations, cold starts, cost, simulated time)
+     proxies), and ``chaos``, ``production_load`` and
+     ``dataplane_ablation`` at their own scales, through ``run_sweep`` on
+     the card and on the CPU: no ``error`` row, host columns (rounds,
+     invocations, cold starts, cost, simulated time, failures, retries)
      equal, accuracies side by side; the ``smoke`` table under
      deterministic algorithms the same to the byte for one and two
-     workers; every row printed;
+     workers; each host-plane cell of ``dataplane_ablation`` equal to its
+     device twin; every row printed;
  11. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
@@ -136,7 +161,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      6,603,776]) and at SpeechCNN's (``fused_adam[speech]``), from those
      runs, each with its device time; ``staleness_agg[femnist]``,
      ``[speech]`` and ``[shakespeare]`` are the rows form at each paper
-     run's own width and last K.
+     run's own width and last K; ``staleness_agg[pytree]`` is the blob
+     plane's launch (``ops.aggregate_pytree``) over K MnistCNN-shaped
+     trees, K the plane run's last pending count, the stack timed apart.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -150,6 +177,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import asdict
 from pathlib import Path
 
 # deterministic algorithms (the megastep phase) need a fixed cuBLAS
@@ -287,6 +315,12 @@ def bound(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tf32_flags() -> tuple:
+    """(cudnn.allow_tf32, cuda.matmul.allow_tf32), as the process has them."""
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
 
 
 def kernel_wrappers() -> dict:
@@ -478,7 +512,8 @@ MEGA_ORDER = ("stepwise", "fused", "fused", "stepwise")   # ABBA
 
 
 def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
-                   order: tuple = MEGA_ORDER, **cfg_over) -> dict:
+                   order: tuple = MEGA_ORDER, emit_as: str = "megastep",
+                   **cfg_over) -> dict:
     """The fused-round megastep at paper width: the same run (``megastep_cfg``,
     MnistCNN unless ``model`` is given) once per entry of ``order``, the
     modes alternated so that neither gains from running later, all under
@@ -553,6 +588,7 @@ def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
             "mode": mode, "megastep_rounds": m["megastep_rounds"],
             "megastep_scans": m["megastep_scans"],
             "megastep_fallback_reason": m["megastep_fallback_reason"],
+            **{k: m[k] for k in TRAFFIC_KEYS},
             "bootstrap_wall_s_per_round": segs[0][0] / boot,
             "wall_s_per_round": segs[1][0] / n_steady,
             "launches": {k: sum(c[k] for _, c in segs) for k in want}})
@@ -576,7 +612,7 @@ def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
         "launches_wanted": want,
         "launches_per_round": {k: v / rounds for k, v in want.items()},
         "bit_equal": equal}
-    emit("megastep", **record)
+    emit(emit_as, **record)
     for r in report:
         fused = r["mode"] == "fused"
         if fused and r["megastep_rounds"] < min(3, n_steady) or \
@@ -1068,7 +1104,8 @@ def paper_models_phase(dev, **size) -> dict:
 # the others follow the accuracies, which card and CPU draw differently
 SWEEP_HOST_COLUMNS = (
     "sweep", "dataset", "scenario", "strategy", "seed", "concurrency_ratio",
-    "rounds", "sim_time_s", "cold_starts", "cold_start_ratio",
+    "data_plane", "fault_profile", "traffic_profile", "rounds",
+    "sim_time_s", "cold_starts", "cold_start_ratio",
     "cold_start_reduction_vs_fedavg", "cost_usd", "cost_vs_fedavg",
     "p50_round_latency_s", "p99_round_latency_s", "cost_per_round_usd",
     "n_invocations", "n_failures", "n_retries", "n_quarantined", "error")
@@ -1078,43 +1115,81 @@ SWEEP_ACC_COLUMNS = ("target_acc", "time_to_target_s", "speedup_vs_fedavg",
 
 def timed_sweep(spec, dev, workers: int = 1) -> tuple:
     """``run_sweep(spec)`` on ``dev`` with the kernel counts zeroed just
-    before and read just after. Returns (table, wall s, launches)."""
+    before and read just after. On the CPU with more than one worker each
+    op takes one thread (restored after), so that the cells, not the ops,
+    share the cores. Returns (table, wall s, launches)."""
     from repro_torch.sweep import run_sweep
+    threads = torch.get_num_threads()
+    if dev.type == "cpu" and workers > 1:
+        torch.set_num_threads(1)
     zero_counts()
     t0 = time.perf_counter()
-    table = run_sweep(spec, max_workers=workers, device=dev)
+    try:
+        table = run_sweep(spec, max_workers=workers, device=dev)
+    finally:
+        torch.set_num_threads(threads)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return table, time.perf_counter() - t0, read_counts()
 
 
-def sweep_phase(dev) -> dict:
-    """The sweep engine on the card against the same sweep on the CPU: the
-    ``smoke`` preset, and ``paper_tables`` (all four datasets on their
-    proxies) at ``SMOKE_SCALE`` with ``fedavg`` and ``apodotiko``. The
-    host columns (rounds, invocations, cold starts, cost, simulated time)
-    must be equal card against CPU; the accuracies are printed side by
-    side, not held (the card's generator draws other minibatches). Under
-    deterministic algorithms the ``smoke`` table on the card must be the
-    same to the byte for one and two workers. No cell may fail, every
-    card sweep must launch ``staleness_agg`` and ``fused_adam``, and the
-    CPU sweeps none."""
+# cells run on this many threads: the bench-scale ablation's four cells
+# side by side (1 and 2 workers give the same table; the smoke check)
+SWEEP_WORKERS = {"dataplane_ablation": 4}
+
+
+def sweep_specs() -> dict:
+    """The presets the sweep phase runs: ``smoke``; ``paper_tables`` (all
+    four datasets on their proxies) at ``SMOKE_SCALE`` with ``fedavg`` and
+    ``apodotiko``; and at their own scales ``chaos`` (fault profiles,
+    recovery armed; ``SMOKE_SCALE``), ``production_load`` (traffic
+    profiles; ``PROD_SCALE``) and ``dataplane_ablation`` (device and host
+    data planes; ``BENCH_SCALE``)."""
     from dataclasses import replace
 
     from repro_torch.sweep import SMOKE_SCALE, get_preset
 
-    specs = {"smoke": get_preset("smoke"),
-             "paper_tables": replace(get_preset("paper_tables"),
-                                     strategies=("fedavg", "apodotiko"),
-                                     scale=SMOKE_SCALE)}
+    return {"smoke": get_preset("smoke"),
+            "paper_tables": replace(get_preset("paper_tables"),
+                                    strategies=("fedavg", "apodotiko"),
+                                    scale=SMOKE_SCALE),
+            "chaos": get_preset("chaos"),
+            "production_load": get_preset("production_load"),
+            "dataplane_ablation": get_preset("dataplane_ablation")}
+
+
+def plane_twins_equal(table) -> bool:
+    """The data-plane ablation's own claim: each host-plane cell's host
+    columns (all but ``data_plane``) equal its device-plane twin's."""
+    cols = [c for c in SWEEP_HOST_COLUMNS if c != "data_plane"]
+    by_plane = collections.defaultdict(list)
+    for r in table.rows:
+        by_plane[r["data_plane"]].append([r[c] for c in cols])
+    return len(by_plane) == 2 and by_plane["device"] == by_plane["host"]
+
+
+def sweep_phase(dev) -> dict:
+    """The sweep engine on the card against the same sweep on the CPU, for
+    each of ``sweep_specs``. The host columns (rounds, invocations, cold
+    starts, cost, simulated time, failures, retries) must be equal card
+    against CPU; the accuracies are printed side by side, not held (the
+    card's generator draws other minibatches). Under deterministic
+    algorithms the ``smoke`` table on the card must be the same to the byte
+    for one and two workers. In ``dataplane_ablation`` each host-plane
+    cell's host columns must equal its device-plane twin's, on both sides.
+    No cell may fail (no ``error`` row), every card sweep must launch
+    ``staleness_agg`` and ``fused_adam``, and the CPU sweeps none."""
+    specs = sweep_specs()
     out = {}
     for name, spec in specs.items():
-        rec = {"cells": spec.n_runs}
+        workers = SWEEP_WORKERS.get(name, 1)
+        rec = {"cells": spec.n_runs, "scale": asdict(spec.scale),
+               "workers": workers}
         was = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(name == "smoke")
         try:
             card, rec["card_wall_s"], rec["card_launches"] = timed_sweep(
-                spec, dev)
+                spec, dev, workers)
             if name == "smoke":
                 pair, rec["card_2_workers_wall_s"], _ = timed_sweep(
                     spec, dev, workers=2)
@@ -1123,7 +1198,10 @@ def sweep_phase(dev) -> dict:
         finally:
             torch.use_deterministic_algorithms(was)
         cpu, rec["cpu_wall_s"], cpu_launches = timed_sweep(
-            spec, torch.device("cpu"))
+            spec, torch.device("cpu"), workers)
+        if len(spec.data_planes) > 1:
+            rec["planes_equal"] = all(plane_twins_equal(t)
+                                      for t in (card, cpu))
         rows = []
         for a, b in zip(card.rows, cpu.rows):
             rows.append({**{c: a[c] for c in SWEEP_HOST_COLUMNS},
@@ -1141,6 +1219,9 @@ def sweep_phase(dev) -> dict:
         if not rec["host_columns_equal"]:
             raise AssertionError(f"sweep {name}: host columns differ card "
                                  "vs cpu")
+        if rec.get("planes_equal") is False:
+            raise AssertionError(f"sweep {name}: a host-plane cell's host "
+                                 "columns differ from its device twin's")
         if rec.get("serial_equals_2_workers") is False:
             raise AssertionError(f"sweep {name}: the table differs for 1 "
                                  "and 2 workers")
@@ -1151,6 +1232,328 @@ def sweep_phase(dev) -> dict:
                                  f"{rec['card_launches']} cpu {cpu_launches}")
         out[name] = rec
     return out
+
+
+# ----------------------------------------------------------------- profiles
+# the chaos preset's recovery layer (sweep/presets.py), armed on the
+# Scheduler's fault runs; it is Scheduler-only, so the cross-engine pairs
+# run without it, as the reference's chaos harness does
+CHAOS_RECOVERY = dict(retry_budget=8, invocation_timeout=300.0,
+                      quarantine_threshold=3)
+FAULT_RUNS = ("crash-heavy", "outage-window", "lossy-network")
+TRAFFIC_RUNS = ("steady-churn", "diurnal", "flash-crowd", "trace-demo")
+# the phases each fault profile strikes in (failures_by_phase keys)
+FAULT_PHASES = {"crash-heavy": ("startup", "train", "upload"),
+                "outage-window": ("outage",), "lossy-network": ("loss",)}
+# a traffic profile under SCAFFOLD whose leaves (its trace's oldest
+# members) take clients that trained, so that their variate rows are zeroed
+SCAFFOLD_TRAFFIC = "trace-demo"
+PROFILE_ROUNDS = 2
+# Simulated seconds cost no wall time, so the step time places the
+# profiles' events inside 2 paper-width rounds. At 4.0 s a step (5x the
+# sweep's MNIST calibration, 0.8 s) the pairs' 2 rounds span about 550 s:
+# outage-window's first window (150-400 s) strikes, steady-churn's first
+# departure and trace-demo's leaves (210 s) land, the flash crowd (60 s)
+# leaves again. The recovery runs take 2.0 s a step: at 4.0 the preset's
+# 300 s invocation timeout would kill nearly every invocation, at 2.0 it
+# kills the slowest, so timeouts, retries and the outage all fire. The
+# trace-demo megastep run takes 0.5 s a step: a round of the megastep
+# config is then about 80 s, so its segments (joins at 90 s, leaves at
+# 210 s, joins at 300 s) fall between its fused rounds.
+PROFILE_STEP_TIMES = {"recovery": 2.0, "faults": 4.0, "traffic": 4.0,
+                      "trace_megastep": 0.5}
+TRACE_MEGA = dict(rounds=6, traffic_profile="trace-demo")
+TRAFFIC_KEYS = ("n_traffic_joins", "n_traffic_leaves", "n_traffic_dropped",
+                "traffic_segments_applied")
+PLANE_ATOL = 1e-5            # tests/test_update_plane.py:231-234
+
+
+def chaos_trace(engine):
+    """``host_trace`` plus each invocation's fault attribution (phase,
+    lost, timed out, cancelled): the reference chaos harness's trace."""
+    hist, inv = host_trace(engine)
+    return hist, inv, [(r.client_id, r.round, r.failed_phase, r.lost,
+                        r.timed_out, r.cancelled)
+                       for r in engine.platform.invocations]
+
+
+def profile_cfg(rounds: int = PROFILE_ROUNDS, **over):
+    """``paper_engine``'s config (the paper's MNIST setup at published
+    width) at the sweep's calibrated MNIST step time
+    (``sweep/runner.py`` ``BASE_STEP_TIME``, 0.8 s) unless ``over`` sets
+    another, with ``over`` on top."""
+    from repro_torch.core.services import FLConfig
+    from repro_torch.sweep.runner import BASE_STEP_TIME
+    return FLConfig(**{**dict(n_clients=200, clients_per_round=100,
+                              rounds=rounds, strategy="apodotiko",
+                              concurrency_ratio=0.3, local_epochs=5,
+                              batch_size=10, optimizer="adam", lr=1e-3,
+                              base_step_time=BASE_STEP_TIME["mnist"],
+                              seed=SEED), **over})
+
+
+def timed_run(eng) -> tuple:
+    """``eng.run()`` with the kernel counts zeroed just before and read
+    just after, and its wall time with the card drained. Returns (metrics,
+    wall s per round, launches)."""
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = eng.run()
+    torch.cuda.synchronize()
+    return m, (time.perf_counter() - t0) / max(len(eng.history), 1), \
+        read_counts()
+
+
+def profile_summary(eng, m: dict, wall_s: float, launches: dict) -> dict:
+    return {"rounds": m["rounds"], "wall_s_per_round": wall_s,
+            "n_invocations": m["n_invocations"],
+            "n_failures": m["n_failures"],
+            "failures_by_phase": m["failures_by_phase"],
+            "n_retries": m["n_retries"], "n_timeouts": m["n_timeouts"],
+            "n_quarantined": m["n_quarantined"],
+            "n_cancelled": sum(bool(r.cancelled)
+                               for r in eng.platform.invocations),
+            **{k: m[k] for k in TRAFFIC_KEYS},
+            "total_sim_time_s": m["total_time"],
+            "megastep_fallback_reason": m["megastep_fallback_reason"],
+            "launches": {k: launches[k]
+                         for k in path_kernels(eng.cfg.strategy)}}
+
+
+def check_struck(name: str, s: dict, recovered: bool = False) -> None:
+    """A fault run must fail invocations in its profile's own phases, and
+    with the recovery layer, retry or time out some."""
+    if not any(s["failures_by_phase"].get(p, 0) > 0
+               for p in FAULT_PHASES[name]) or \
+            recovered and s["n_retries"] + s["n_timeouts"] <= 0:
+        raise AssertionError(f"{name}: struck nothing in "
+                             f"{FAULT_PHASES[name]}: "
+                             f"{s['failures_by_phase']}, "
+                             f"{s['n_retries']} retries, "
+                             f"{s['n_timeouts']} timeouts")
+
+
+def check_moved(name: str, counts: dict) -> None:
+    """A traffic run must apply a segment with joins and with leaves (and
+    flash-crowd drop arrivals past capacity)."""
+    want = ["n_traffic_joins", "n_traffic_leaves",
+            "traffic_segments_applied"]
+    if name == "flash-crowd":
+        want.append("n_traffic_dropped")
+    if min(counts[k] for k in want) <= 0:
+        raise AssertionError(f"{name}: traffic applied "
+                             f"{ {k: counts[k] for k in TRAFFIC_KEYS} }")
+
+
+def watch_variates(eng) -> dict:
+    """Under SCAFFOLD, wrap ``eng._apply_traffic_segment``: after each
+    segment the variate rows of the clients it removed must be zero.
+    Returns a dict whose ``"zeroed"`` counts the removed clients whose row
+    was not zero before (they had trained); a non-zero row left behind
+    fails."""
+    seen = {"zeroed": 0}
+    apply = eng._apply_traffic_segment
+
+    def wrapped(seg):
+        idx = torch.as_tensor(
+            [int(c) for c in seg.leaves
+             if eng.db.has_client(int(c)) and int(c) < eng._c_cap],
+            dtype=torch.long, device=eng.c_buf.device)
+        trained = int(eng.c_buf[idx].ne(0).any(dim=1).sum())
+        apply(seg)
+        if bool(eng.c_buf[idx].ne(0).any()):
+            raise AssertionError("a departed client's variate row is not "
+                                 "zero")
+        seen["zeroed"] += trained
+
+    eng._apply_traffic_segment = wrapped
+    return seen
+
+
+def engine_pair(data, dev, model=None, **over) -> dict:
+    """The poll-loop ``Controller`` and the ``Scheduler`` on one config at
+    paper width under deterministic algorithms (restored after): chaos
+    traces equal, params (and SCAFFOLD's variates) bit-equal, the counters
+    equal, each run launching the path's kernels. Returns the Scheduler's
+    summary and both walls."""
+    from repro_torch.core.controller import Controller
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.paper_models import MnistCNN
+
+    runs, zeroed = {}, {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for cls in (Controller, Scheduler):
+            cfg = profile_cfg(**over)
+            eng = cls(cfg, model or MnistCNN(), data,
+                      list(paper_fleet(cfg.n_clients)), device=dev)
+            if eng.c_buf is not None:
+                zeroed[cls.__name__] = watch_variates(eng)
+            runs[cls.__name__] = (eng, *timed_run(eng))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (legacy, m_l, wall_l, n_l), (sched, m_s, wall_s, n_s) = \
+        runs["Controller"], runs["Scheduler"]
+    name = over.get("fault_profile") or over.get("traffic_profile")
+    if chaos_trace(legacy) != chaos_trace(sched):
+        raise AssertionError(f"{name}: Controller and Scheduler traces "
+                             "differ")
+    for key in ("total_time", "n_failures", "failures_by_phase",
+                *TRAFFIC_KEYS):
+        if m_l[key] != m_s[key]:
+            raise AssertionError(f"{name}: {key} differs across engines")
+    pairs = [(leaf, p, legacy.params[leaf])
+             for leaf, p in sched.params.items()]
+    if sched.c_buf is not None:
+        pairs += [("c_global", sched.c_global, legacy.c_global),
+                  ("c_buf", sched.c_buf, legacy.c_buf)]
+    for leaf, a, b in pairs:
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{name}: {leaf} differs across engines")
+    kernels = path_kernels(sched.cfg.strategy)
+    for launches in (n_l, n_s):
+        if min(launches[k] for k in kernels) <= 0:
+            raise AssertionError(f"{name}: launches {launches}")
+    summary = {**profile_summary(sched, m_s, wall_s, n_s),
+               "step_time_s": sched.cfg.base_step_time,
+               "strategy": sched.cfg.strategy,
+               "controller_wall_s_per_round": wall_l,
+               "engines_bit_equal": True}
+    if zeroed:
+        n = {k: v["zeroed"] for k, v in zeroed.items()}
+        if min(n.values()) <= 0 or len(set(n.values())) > 1:
+            raise AssertionError(f"{name}: trained clients whose variate "
+                                 f"rows a leave zeroed: {n}")
+        summary["departed_variates_zeroed"] = n["Scheduler"]
+    return summary
+
+
+def plane_runs(data, dev, model=None, **size) -> tuple[dict, dict]:
+    """``update_plane="blob"`` with ``data_plane="host"`` (the reference's
+    equivalence oracles) against the device planes at paper width: host
+    traces equal, params within ``PLANE_ATOL`` (the blob route sums the
+    updates in pending order, the rows route in row order), and the byte
+    counters non-zero on the oracle planes, 0 on the device planes.
+    Returns (record, the oracle run's summary)."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.paper_models import MnistCNN
+
+    runs = {}
+    for name, over in (("device", {}),
+                       ("oracle", dict(update_plane="blob",
+                                       data_plane="host"))):
+        cfg = profile_cfg(**size, **over)
+        eng = build_engine(cfg, model or MnistCNN(), data,
+                           list(paper_fleet(cfg.n_clients)), device=dev)
+        runs[name] = (eng, *timed_run(eng))
+    (dev_eng, m_d, wall_d, n_d), (orc, m_o, wall_o, n_o) = \
+        runs["device"], runs["oracle"]
+    err = max(float((p - orc.params[k]).abs().max())
+              for k, p in dev_eng.params.items())
+    record = {
+        "host_traces_equal": chaos_trace(dev_eng) == chaos_trace(orc),
+        "params_max_abs_diff": err, "atol": PLANE_ATOL,
+        **{f"{plane}_{key}": m[key] for plane, m in (("device", m_d),
+                                                      ("oracle", m_o))
+           for key in ("update_plane", "data_plane", "update_host_bytes",
+                       "data_host_bytes", "data_resident_bytes")},
+        "device_wall_s_per_round": wall_d, "oracle_wall_s_per_round": wall_o,
+        "device_launches": n_d, "oracle_launches": n_o,
+        "last_pending": orc.history[-1].n_aggregated,
+        "oracle": profile_summary(orc, m_o, wall_o, n_o)}
+    if not record["host_traces_equal"]:
+        raise AssertionError("planes: host traces differ")
+    if err > PLANE_ATOL:
+        raise AssertionError(f"planes: params differ by {err}")
+    if (m_d["update_host_bytes"], m_d["data_host_bytes"]) != (0, 0) or \
+            min(m_o["update_host_bytes"], m_o["data_host_bytes"]) <= 0:
+        raise AssertionError("planes: byte counters "
+                             f"{m_d['update_host_bytes']} "
+                             f"{m_d['data_host_bytes']} "
+                             f"{m_o['update_host_bytes']} "
+                             f"{m_o['data_host_bytes']}")
+    for launches in (n_d, n_o):
+        if min(launches[k] for k in path_kernels("apodotiko")) <= 0:
+            raise AssertionError(f"planes: launches {launches}")
+    return record, {"rounds": [{"n_aggregated": l.n_aggregated}
+                               for l in orc.history],
+                    "launches": n_o, "n_params": orc.spec.n_params,
+                    "strategy": "apodotiko"}
+
+
+def profiles_phase(data, dev, model=None, step_times=None, **size) -> dict:
+    """Fault and traffic profiles and the oracle planes at the paper's
+    MNIST width (``profile_cfg``), 2 rounds a run, at the step times of
+    ``step_times`` (``PROFILE_STEP_TIMES`` by default): each fault profile
+    on the Scheduler with the ``chaos`` preset's recovery layer, then the
+    ``Controller`` against the ``Scheduler`` without it (``engine_pair``);
+    each traffic profile through ``engine_pair``, and ``SCAFFOLD_TRAFFIC``
+    once more under ``scaffold``; ``trace-demo`` fused against stepwise on
+    the megastep config (``megastep_phase``); and ``plane_runs``. Every
+    fault run must strike in its profile's phases (the recovery runs must
+    also retry or time out), every traffic run and both trace-demo
+    megastep runs must apply joins and leaves, and the SCAFFOLD run must
+    zero departed clients' variate rows; in-flight invocations that
+    leaves cancelled are counted. Any mismatch fails the phase. ``model``
+    (MnistCNN by default), ``step_times`` and ``size`` (config fields) cut
+    the runs for a rehearsal. Returns the record, with the plane run's
+    numbers for the ``staleness_agg[pytree]`` entry under
+    ``pytree_run``."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.paper_models import MnistCNN
+
+    steps = step_times or PROFILE_STEP_TIMES
+    t_phase = time.perf_counter()
+    record = {"rounds": PROFILE_ROUNDS, "recovery": CHAOS_RECOVERY,
+              "step_times_s": steps, "faults": {}, "traffic": {}}
+    for profile in FAULT_RUNS:
+        cfg = profile_cfg(fault_profile=profile, **CHAOS_RECOVERY,
+                          base_step_time=steps["recovery"], **size)
+        eng = build_engine(cfg, model or MnistCNN(), data,
+                           list(paper_fleet(cfg.n_clients)), device=dev)
+        m, wall, launches = timed_run(eng)
+        if m["fault_profile"] != profile or len(eng.history) != \
+                PROFILE_ROUNDS:
+            raise AssertionError(f"{profile}: {m['fault_profile']}, "
+                                 f"{len(eng.history)} rounds")
+        rec = {"recovery": profile_summary(eng, m, wall, launches),
+               "engines": engine_pair(data, dev, model,
+                                      fault_profile=profile,
+                                      base_step_time=steps["faults"],
+                                      **size)}
+        check_struck(profile, rec["recovery"], recovered=True)
+        check_struck(profile, rec["engines"])
+        record["faults"][profile] = rec
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    for profile, strategy in [(p, "apodotiko") for p in TRAFFIC_RUNS] + [
+            (SCAFFOLD_TRAFFIC, "scaffold")]:
+        key = profile if strategy == "apodotiko" else \
+            f"{profile}[{strategy}]"
+        rec = engine_pair(data, dev, model, traffic_profile=profile,
+                          strategy=strategy,
+                          base_step_time=steps["traffic"], **size)
+        check_moved(key, rec)
+        record["traffic"][key] = rec
+    mega = megastep_phase(data, dev, model=model, order=("stepwise", "fused"),
+                          emit_as="profiles_trace_demo",
+                          base_step_time=steps["trace_megastep"],
+                          **{**TRACE_MEGA, **size})
+    record["trace_demo_megastep"] = {
+        "fused_rounds": [r["megastep_rounds"] for r in mega["runs"]],
+        "traffic": [{k: r[k] for k in TRAFFIC_KEYS} for r in mega["runs"]],
+        "bit_equal": all(all(e.values()) for e in mega["bit_equal"].values())}
+    for counts in record["trace_demo_megastep"]["traffic"]:
+        check_moved("trace-demo megastep", counts)
+    record["planes"], pytree_run = plane_runs(data, dev, model, **size)
+    record["seconds"] = time.perf_counter() - t_phase
+    emit("profiles", **record)
+    return {**record, "pytree_run": pytree_run}
 
 
 # ----------------------------------------------------------------- compress
@@ -1516,6 +1919,71 @@ def agg_kernel_entry(name: str, record: dict, dev, rows_form: bool) -> dict:
     entry["plain_ms"] = time_ms(lambda: ref.staleness_agg(*args))
     entry["library_ms"] = time_ms(library)
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, flops)
+    entry["bound_share"] = entry["bound_ms"] / flushed if flushed else None
+    entry["bytes"] = nbytes
+    return entry
+
+
+def pytree_agg_entry(run: dict, dev) -> dict:
+    """``staleness_agg`` as the blob update plane launches it
+    (``ops.aggregate_pytree`` over K parameter trees): K MnistCNN-shaped
+    trees on the card, K the plane run's last pending count, raveled and
+    stacked to ``[K, N]`` and padded to ``[Kp, N4]`` (K to ``SUBLANE``
+    rows of weight 0, N to the kernel's vector width), then one launch.
+    The stack is the wrapper's, not the kernel's: ``stack_ms`` times it
+    apart. Times as ``agg_kernel_entry``'s; the bound counts the K trees
+    read, the weights and the [N] result, not the zero padding."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ops import SUBLANE, RavelSpec
+    from repro_torch.kernels.staleness_agg import VEC, staleness_agg
+    from repro_torch.models.paper_models import MnistCNN
+
+    k = run["rounds"][-1]["n_aggregated"]
+    template = MnistCNN().init(torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    trees = [{name: torch.randn(p.shape, device=dev, generator=gen) * 0.05
+              for name, p in template.items()} for _ in range(k)]
+    w = torch.rand(k, device=dev, generator=gen)
+    w = w / w.sum()
+    spec = RavelSpec(trees[0])
+    n = spec.n_params
+    kp, n4 = k + (-k) % SUBLANE, n + (-n) % VEC
+
+    def stack():
+        flat = torch.stack([spec.ravel(t) for t in trees], 0)
+        return torch.nn.functional.pad(flat, (0, n4 - n, 0, kp - k))
+
+    stacked = stack()
+    wp = torch.nn.functional.pad(w, (0, kp - k))
+    got = staleness_agg(stacked, wp)
+    whole = ops.aggregate_pytree(trees, w, restore_dtype=False)
+    torch.cuda.synchronize()
+    entry = {"name": "staleness_agg[pytree]", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/staleness_agg.cu",
+             "replaces": "src/repro/kernels/staleness_agg.py:38",
+             "launches": run["launches"]["staleness_agg"],
+             "launches_run": ("profiles phase: update_plane=blob, "
+                              f"data_plane=host, {len(run['rounds'])} rounds"),
+             "shape": {"K": k, "K_padded": kp, "N": n, "N_padded": n4},
+             **check("staleness_agg[pytree]", got,
+                     ref.staleness_agg(stacked, wp))}
+    flat = spec.ravel(whole)
+    entry["aggregate_pytree_max_abs_err"] = check(
+        "aggregate_pytree", flat, got[:n])["max_abs_err"]
+    call = lambda: staleness_agg(stacked, wp)
+    flush = l2_flush(dev)
+    entry["stack_ms"] = time_ms(stack)
+    entry["ms"] = time_ms(call)
+    entry["flushed_ms"] = time_ms(call, before=flush)
+    warm, flushed = (device_ms({"staleness_agg": fn})["staleness_agg"]
+                     for fn in (call, lambda: (flush(), call())))
+    put_device_ms(entry, "device_ms", warm)
+    put_device_ms(entry, "flushed_device_ms", flushed)
+    entry["plain_ms"] = time_ms(lambda: ref.staleness_agg(stacked, wp))
+    entry["library_ms"] = time_ms(lambda: wp @ stacked)
+    entry["library_max_abs_diff"] = float((wp @ stacked - got).abs().max())
+    nbytes = (k * n + k + n) * 4
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes, 2 * k * n)
     entry["bound_share"] = entry["bound_ms"] / flushed if flushed else None
     entry["bytes"] = nbytes
     return entry
@@ -1912,14 +2380,22 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
 
+    from repro_torch.device import fp32_exact
+
     q, k, v = qkv
     B, H, S, D = q.shape
     got = flash_attention(q, k, v)
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, is_causal=True)
+    fp32 = q.dtype == torch.float32
+
+    def library():
+        # fp32 SDPA with TF32 off: the fp32 function, as the plain version
+        # and the kernel compute it
+        with fp32_exact():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True)
+
     lib = library()
     torch.cuda.synchronize()
-    fp32 = q.dtype == torch.float32
     entry = {"name": name, "route": "cuda",
              "design": "cuda-mma-3xtf32" if fp32 else "cuda-wgmma-tma",
              "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1929,7 +2405,7 @@ def attention_kernel_entry(name: str, qkv: tuple, launches: int, run: str,
                        "dtype": str(q.dtype), "causal": True},
              "library_max_abs_diff": float((lib.float() - got.float())
                                            .abs().max()),
-             **checked}
+             "library_tf32": False, **checked}
     if S <= ATTN_SHORT:
         plain = lambda: ref.flash_attention(q, k, v)
     else:
@@ -1999,19 +2475,22 @@ def main() -> int:
     for mod in ("jax", "repro"):          # the port must not need either
         sys.modules[mod] = None
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    tf32 = tf32_flags()
     emit("card", nvidia_smi=smi, kind=kind, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-         matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+         cudnn_allow_tf32=tf32[0], matmul_allow_tf32=tf32[1],
+         tf32_note=("torch's own defaults, untouched: the trainer and the "
+                    "evaluation turn TF32 off in their own scope "
+                    "(repro_torch.device.fp32_exact), as do the fp32 "
+                    "attention library and plain calls"))
 
+    from repro_torch.device import fp32_exact
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build()
@@ -2027,25 +2506,41 @@ def main() -> int:
                                   fidelity="paper")
     emit("data", seconds=time.perf_counter() - t0, X=list(data.X.shape),
          eval_n=len(data.eval_y))
+    phase_s = {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
     apo_engine, apo = run_main_path("apodotiko", 3, data, dev)
     _, avg = run_main_path("fedavg", 1, data, dev)
     topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
     run_main_path("scaffold", 2, data, dev)
-    megastep_phase(data, dev)
+    phase_s["main_path"] = time.perf_counter() - t0
+    timed("megastep", megastep_phase, data, dev)
+    profiles = timed("profiles", profiles_phase, data, dev)
     main_m = topk_engine.db.fleet.capacity
     main_selection = main_path_selection(topk_engine)
-    fleet, fleet_state = fleet_phase(dev)
-    topk_sort_route_phase(fleet_state, dev)
-    reference_phase(dev)
-    profile_round(data, dev, avg["rounds"][0]["wall_s"])
+    fleet, fleet_state = timed("fleet", fleet_phase, dev)
+    timed("topk_sort_route", topk_sort_route_phase, fleet_state, dev)
+    timed("reference", reference_phase, dev)
+    timed("profile", profile_round, data, dev, avg["rounds"][0]["wall_s"])
     update = mnist_update(apo_engine, dev)
-    compress = compress_phase(update, main_run(apo))
-    attention, attn_inputs = attention_phase(dev)
-    paper = paper_models_phase(dev)
-    sweep_phase(dev)
+    compress = timed("compress", compress_phase, update, main_run(apo))
+    with fp32_exact():
+        attention, attn_inputs = timed("attention", attention_phase, dev)
+    paper = timed("paper_models", paper_models_phase, dev)
+    timed("sweep", sweep_phase, dev)
+    if tf32_flags() != tf32:
+        raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
+                             f"{tf32} before: a scope leaked")
 
     n_topk = top["launches"]["block_topk"]
     fleet_run = f"fleet phase: {FLEET_ROUNDS} select_topk calls at M = 1e6"
+    t0 = time.perf_counter()
     kernels = [agg_kernel_entry("staleness_agg", avg, dev, rows_form=False),
                agg_kernel_entry("staleness_agg[rows]", apo, dev,
                                 rows_form=True),
@@ -2080,9 +2575,11 @@ def main() -> int:
             attention["long_rows"], reps=5)]
     torch.cuda.empty_cache()
     kernels += paper_kernel_entries(paper, dev)
+    kernels.append(pytree_agg_entry(profiles["pytree_run"], dev))
+    phase_s["kernel_entries"] = time.perf_counter() - t0
     for e in kernels:
         emit("kernel", **e)
-    emit("total", seconds=time.perf_counter() - t_start)
+    emit("total", seconds=time.perf_counter() - t_start, phases=phase_s)
     for line in report_lines(kernels, kind, torch.cuda.device_count()):
         print(line, flush=True)
     return 0

@@ -1,5 +1,5 @@
 """Staleness-weighted asynchronous aggregation (paper §III-B), the twin of
-``repro.core.aggregation`` over the device-resident update plane.
+``repro.core.aggregation``.
 
     w_{T+1} = sum_i s(t_i, T) * (n_i / n) * w^i  /  sum_i s(t_i, T) * (n_i / n)
 
@@ -17,7 +17,14 @@ row id. It keeps the reference's two routes and their rule:
     as the exact recompute when the sweep's result is not finite
     (0 * inf = nan from garbage in a freed row).
 
-Both routes run the ``staleness_agg`` kernel on the card. ``rows_dispatch``
+``weighted_aggregate`` reduces a list of K parameter trees (the blob
+update plane's transport, the reference's equivalence oracle) through
+``kernels.ops.aggregate_pytree``: ravel, stack to ``[K, N]``, one
+``staleness_agg`` launch on the card. Unlike the reference it has no
+``path`` argument, no self-check and no fallback: the tensors' device
+picks the kernel or its plain version.
+
+Every route runs the ``staleness_agg`` kernel on the card. ``rows_dispatch``
 is the route's one predicate, shared with the fused-round megastep, whose
 aggregation (``kernels.ops.aggregate_rows_traced``) takes the same route
 on row ids and weights that are already on the card. ``last_path()`` names
@@ -70,6 +77,20 @@ def staleness_weights(rounds: Sequence[int], cardinalities: Sequence[int],
         w = np.full(len(w), 1.0 / max(len(w), 1))
         total = 1.0
     return (w / total).astype(np.float32)
+
+
+def weighted_aggregate(updates: Sequence[Params], weights,
+                       out_dtype=None) -> Params:
+    """``updates``, a list of K parameter trees -> their ``weights``-weighted
+    sum, fp32 leaves unless ``out_dtype`` is given: one ``staleness_agg``
+    over the ``[K, N]`` stack (K padded to ``SUBLANE`` with zero-weight
+    rows, N to the kernel's vector width)."""
+    if len(updates) != len(weights) or len(updates) == 0:
+        raise ValueError(f"{len(updates)} updates for {len(weights)} weights")
+    out = kernel_ops.aggregate_pytree(updates, weights, restore_dtype=False)
+    if out_dtype is not None:
+        out = kernel_ops.tree_map(lambda x: x.to(out_dtype), out)
+    return out
 
 
 def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,

@@ -28,10 +28,19 @@ The draw is one ``[Kp, max_steps, B]`` block a cohort, ``max_steps`` the
 cohort's largest step budget, so the values and the generator's position
 depend on it: both entries below draw with the same ``max_steps``.
 
-Two entries share the step loop (``_train_lanes``):
+Three entries share the step loop (``_train_lanes``), which runs with
+TF32 off (``device.fp32_exact``) as the reference computes in fp32:
 
-  * ``train_cohort_indexed``: the stepwise engine's, the cohort as host
-    client ids; trained models land in freshly allocated update-store rows;
+  * ``train_cohort_indexed``: the stepwise engine's on the device data
+    plane, the cohort as host client ids into the resident
+    ``DatasetStore``; trained models land in freshly allocated update-store
+    rows (or come back stacked);
+  * ``train_cohort``: the host data plane's (the reference's equivalence
+    oracle): the cohort's ``X[selection]`` / ``y[selection]``, padded, is
+    uploaded every dispatch (``data_h2d_bytes``) and trained by the same
+    loop as lanes ``0..Kp-1`` of that transient buffer, so the draws and
+    every product are ``train_cohort_indexed``'s and the two planes are
+    bit-equal;
   * ``train_cohort_rows``: the fused-round megastep's (``core.megastep``,
     the counterpart of the reference's ``cohort_fn_indexed`` program), the
     cohort as device tensors and the rows already allocated.
@@ -45,13 +54,14 @@ flat ``[W]`` rows in ``RavelSpec`` order, pad lanes zero.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.core.update_store import _round_up, scatter_rows
-from repro_torch.device import resolve_device
+from repro_torch.device import fp32_exact, resolve_device
 from repro_torch.kernels.ops import BLOCK_N, RavelSpec, tree_leaves
 from repro_torch.optim import build_optimizer
 
@@ -92,6 +102,7 @@ class CohortTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.batch_indices = batch_indices or self._draw_indices
         self._grad_fn = self._make_grad_fn()
+        self.data_h2d_bytes = 0   # training-input bytes uploaded (host plane)
 
     def _make_grad_fn(self):
         model, mu = self.model, self.prox_mu
@@ -141,17 +152,19 @@ class CohortTrainer:
         bidx = self.batch_indices(Kp, max_steps, n_t)
         sel_c = sel_t[:, None]
         losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
-        for s in range(max_steps):
-            idx = bidx[:, s]
-            g, loss = self._grad_fn(params, store.X[sel_c, idx],
-                                    store.y[sel_c, idx], global_params)
-            for view, leaf in zip(tree_leaves(grad_views), tree_leaves(g)):
-                view.copy_(leaf)
-            if c_global is not None:
-                # (g - c_i) + c, the reference's order of roundings
-                grads.sub_(c_lanes).add_(c_global)
-            self.opt.cohort_step(flat, opt_state, grads, steps_t, s)
-            losses += torch.where(steps_t > s, loss, 0.0)
+        with fp32_exact():
+            for s in range(max_steps):
+                idx = bidx[:, s]
+                g, loss = self._grad_fn(params, store.X[sel_c, idx],
+                                        store.y[sel_c, idx], global_params)
+                for view, leaf in zip(tree_leaves(grad_views),
+                                      tree_leaves(g)):
+                    view.copy_(leaf)
+                if c_global is not None:
+                    # (g - c_i) + c, the reference's order of roundings
+                    grads.sub_(c_lanes).add_(c_global)
+                self.opt.cohort_step(flat, opt_state, grads, steps_t, s)
+                losses += torch.where(steps_t > s, loss, 0.0)
         mean_loss = losses / torch.clamp(steps_t, min=1)
         ci_new = None
         if c_global is not None:
@@ -173,12 +186,44 @@ class CohortTrainer:
         Returns ``(that, c_i' [K, W] or None, mean losses [K] numpy)``;
         ``c_global`` [W] and ``c_clients`` [K, W] are SCAFFOLD's variates."""
         sel = np.asarray(selection, np.int64)
-        n_i = np.asarray(n_i, np.int64)
-        steps = np.asarray(steps, np.int64)
         K = len(sel)
         Kp = self.cohort_bucket(K)
         if Kp != K:
             sel = np.concatenate([sel, np.repeat(sel[-1:], Kp - K)])
+        return self._train_padded(global_params, store, sel, n_i, steps,
+                                  c_global, c_clients, update_sink)
+
+    def train_cohort(self, global_params: Params, X: np.ndarray,
+                     y: np.ndarray, n_i: np.ndarray, steps: np.ndarray,
+                     c_global=None, c_clients=None, *, update_sink=None):
+        """Host data plane: the cohort's ``X [K, N_max, ...]`` / ``y [K,
+        N_max]``, padded to ``Kp`` lanes by repeating the last client, is
+        uploaded for this dispatch (counted in ``data_h2d_bytes``) and
+        trained as lanes ``0..Kp-1`` of that transient buffer. Arguments
+        and returns are ``train_cohort_indexed``'s, whose values these are
+        to the bit."""
+        X, y = np.asarray(X), np.asarray(y)
+        K = X.shape[0]
+        Kp = self.cohort_bucket(K)
+        if Kp != K:
+            X = np.concatenate([X, np.repeat(X[-1:], Kp - K, axis=0)])
+            y = np.concatenate([y, np.repeat(y[-1:], Kp - K, axis=0)])
+        self.data_h2d_bytes += X.nbytes + y.nbytes
+        cohort = SimpleNamespace(X=torch.as_tensor(X).to(self.device),
+                                 y=torch.as_tensor(y).to(self.device).long())
+        return self._train_padded(global_params, cohort,
+                                  np.arange(Kp, dtype=np.int64), n_i, steps,
+                                  c_global, c_clients, update_sink)
+
+    def _train_padded(self, global_params: Params, store, sel: np.ndarray,
+                      n_i, steps, c_global, c_clients, update_sink):
+        """Both host-side entries past their gather: ``sel`` [Kp] indexes
+        ``store``'s ``X`` / ``y``; ``n_i`` and ``steps`` are the [K] real
+        lanes', padded here (the last client's count, 0 steps)."""
+        n_i = np.asarray(n_i, np.int64)
+        steps = np.asarray(steps, np.int64)
+        K, Kp = len(n_i), len(sel)
+        if Kp != K:
             n_i = np.concatenate([n_i, np.repeat(n_i[-1:], Kp - K)])
             steps = np.concatenate([steps, np.zeros(Kp - K, steps.dtype)])
         dev = self.device

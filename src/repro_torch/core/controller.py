@@ -14,8 +14,12 @@ Train_Global_Model loop:
   4. Aggregate with cardinality x staleness weights (Eq. 2), evaluate, and
      start the next round immediately.
 
-The loop is passive: failed invocations simply never produce results,
-and the recovery layer (timeouts, retries, quarantine) is Scheduler-only.
+The loop is passive: failed invocations (the Bernoulli ``failure_rate``
+coin or any seeded ``fault_profile`` schedule, ``faas/faults.py``) simply
+never produce results, and the recovery layer (timeouts, retries,
+quarantine) is Scheduler-only, so recovery knobs stay off for
+cross-engine runs. Open-loop traffic is applied once a round, at its
+first poll, as the Scheduler applies it at round open.
 
 Usage: ``Controller(cfg, model, data, fleet, device=None).run()``; the
 device defaults to the CUDA card.
@@ -36,13 +40,24 @@ class Controller(FLRuntime):
     def run(self, progress: Optional[Callable[[RoundLog], None]] = None):
         cfg, strat = self.cfg, self.strategy
         round_ = self.db.round
+        traffic_round = -1
         while round_ < cfg.rounds and self.loop.now < cfg.max_sim_time:
             t0 = self.loop.now
+            self._t0 = t0
+            if round_ != traffic_round:
+                # fresh-round open only: mid-round re-polls must not shift
+                # membership, mirroring the Scheduler (which applies
+                # traffic in _open_round, never on adapter re-selects)
+                self._apply_due_traffic()
+                traffic_round = round_
             selection = strat.select(self.db, round_)
             if not selection:
-                # every client busy: advance until something completes
+                # every client busy: advance until something completes, or,
+                # when the fleet is empty under open-loop traffic, jump to
+                # the next arrival boundary
                 if not self.loop.run_until(self.db.any_idle):
-                    break
+                    if not self._traffic_fast_forward():
+                        break
                 continue
             self.invoke_round(round_, selection)
 

@@ -131,7 +131,7 @@ def _plan(sched) -> tuple[Optional[MegastepPlan], str]:
         return None, "target-accuracy early stop enabled"
     if cfg.failure_rate != 0.0:
         return None, "nonzero failure rate"
-    faults = getattr(sched.platform, "faults", None)
+    faults = sched.platform.faults
     if faults is not None and faults.active and faults.stochastic:
         # stochastic faults perturb any round; outage windows are handled
         # below by shrinking the horizon to stop short of the window
@@ -236,7 +236,7 @@ def _plan(sched) -> tuple[Optional[MegastepPlan], str]:
                 R = 0
         if R < 1:
             return None, "fault window overlaps horizon"
-    traffic = getattr(sched, "traffic", None)
+    traffic = sched.traffic
     if traffic is not None:
         if traffic.stochastic:
             return None, "stochastic traffic profile active"

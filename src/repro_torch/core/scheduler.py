@@ -25,9 +25,11 @@ future events, exactly like a drained ``run_until`` that never reached its
 Before every round the Scheduler tries the fused-round megastep
 (``core.megastep``; ``megastep="fused"``, the default, as in the
 reference): a run of provably quiescent rounds runs as one fused loop, and
-``megastep_fallback_reason`` says why a round did not. The reference's
-open-loop traffic and durability hooks are not part of the port yet:
-traffic and durability stay off.
+``megastep_fallback_reason`` says why a round did not. Open-loop traffic
+(``FLConfig.traffic_profile``) shifts membership only at fresh-round open,
+as in the poll loop, and a run stalled for lack of clients jumps to the
+next arrival boundary. The reference's durability hooks are not part of
+the port yet: durability stays off.
 
 Entry points::
 
@@ -117,6 +119,18 @@ class Scheduler(FLRuntime):
         drained = 0
         while not self._done:
             if self._pump_one():
+                drained = 0
+                continue
+            if (not self._invoked_this_round and not self.inflight
+                    and not self.db.any_idle()
+                    and self._traffic_fast_forward()):
+                # stalled for lack of clients (not policy inaction): under
+                # open-loop traffic the clock jumps to the next arrival
+                # boundary and the round re-opens against the new fleet,
+                # the poll loop's drained re-poll, not an EndRun
+                self._t0 = self.loop.now
+                self._dispatch(RoundStarted(t=self.loop.now,
+                                            round=self.db.round))
                 drained = 0
                 continue
             drained += 1
@@ -295,12 +309,19 @@ class Scheduler(FLRuntime):
         # completions it replays extend keep-warm windows, which can make
         # further rounds eligible. Any ineligibility falls through to the
         # event-driven engine — the bit-exact oracle — for this round.
+        # Fresh-round open is the only point where traffic shifts
+        # membership (the poll loop mirrors this at its loop top), so
+        # mid-round adapter re-selects see a stable fleet on both engines.
+        self._apply_due_traffic()
         if self.megastep == "fused":
             while try_megastep(self):
                 if (self.db.round >= self.cfg.rounds
                         or self.loop.now >= self.cfg.max_sim_time):
                     self._done = True
                     return
+                # the fused horizon may have crossed segment boundaries
+                # (it stops short of the next unapplied one: megastep._plan)
+                self._apply_due_traffic()
         self._t0 = self.loop.now
         self._invoked_this_round = False
         self._dispatch(RoundStarted(t=self.loop.now, round=self.db.round))

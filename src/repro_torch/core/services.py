@@ -12,26 +12,31 @@ and the three round services both drivers share:
     update payloads (hedge siblings share one trained row; the row is freed
     exactly once, by whichever invocation ends last without landing it);
   * **aggregation** (``aggregate_round``): staleness x cardinality weights
-    (Eq. 2) over the update store's rows, stale pruning;
+    (Eq. 2) over the update store's rows (or the blob plane's host trees),
+    stale pruning;
   * **evaluation** (``evaluate``).
 
 It also keeps SCAFFOLD's state (``c_global`` and the per-client variate
 buffer ``c_buf``, flat ``[W]`` / ``[capacity, W]`` fp32 rows on the card in
-``RavelSpec`` order) and elastic membership (``add_clients`` /
-``remove_clients``).
+``RavelSpec`` order), elastic membership (``add_clients`` /
+``remove_clients``), seeded fault injection (``faas.faults``: the platform
+evaluates ``FLConfig.fault_profile`` once an invocation) and the open-loop
+traffic plane (``traffic``: a compiled schedule of bulk joins and leaves,
+applied at fresh-round open by both engines).
 
 Drivers differ only in *when* they call the services: ``Controller`` keeps
 the poll loop (Algorithm 1 verbatim); ``Scheduler`` dispatches typed
 protocol events to a reactive policy through the ``_emit`` hook, a no-op
 for the poll loop.
 
-The port runs both engines with the device update and data planes, on the
-``object`` or ``columnar`` control plane, and the Scheduler's fused-round
-megastep (``megastep="fused"``, the default, as in the reference). Settings
-that need a later slice raise ``NotImplementedError`` naming it
-(``_check_supported``): the blob update plane and host data plane, fault
-and traffic profiles, durability and checkpointing, and meshes other than
-``1x1``.
+The port runs both engines on either update plane (``device`` rows, or
+``blob``: host trees, the reference's equivalence oracle) and either data
+plane (``device`` resident, or ``host``: per-dispatch upload), on the
+``object`` or ``columnar`` control plane, with any fault or traffic
+profile, and the Scheduler's fused-round megastep (``megastep="fused"``,
+the default, as in the reference). Settings that need a later slice raise
+``NotImplementedError`` naming it (``_check_supported``): durability and
+checkpointing, and meshes other than ``1x1``.
 """
 from __future__ import annotations
 
@@ -41,25 +46,30 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.aggregation import weighted_aggregate_rows
+from repro_torch.core.aggregation import (weighted_aggregate,
+                                          weighted_aggregate_rows)
 from repro_torch.core.client import CohortTrainer
-from repro_torch.core.data_plane import DatasetStore
+from repro_torch.core.data_plane import DatasetStore, resolve_data_plane
 from repro_torch.core.database import ClientRecord, Database, ResultRecord
-from repro_torch.core.protocol import (ClientJoined, ClientLeft, Event,
+from repro_torch.core.protocol import (ClientJoined, ClientLeft,
+                                       ClientsJoined, ClientsLeft, Event,
                                        InvocationFailed, InvocationTimedOut,
                                        ResultLanded)
 from repro_torch.core.scoring import decay_rate
 from repro_torch.core.strategies.base import (Strategy, StrategyConfig,
                                               build_strategy)
-from repro_torch.core.update_store import (UpdateStore, gather_stacked,
-                                          grow_stacked, scatter_stacked_tree)
-from repro_torch.device import resolve_device
+from repro_torch.core.update_store import (UpdateStore, _round_up,
+                                          gather_stacked, grow_stacked,
+                                          scatter_stacked_tree)
+from repro_torch.device import fp32_exact, resolve_device
 from repro_torch.faas.cost import CostModel
 from repro_torch.faas.events import EventLoop
+from repro_torch.faas.faults import build_fault_model, resolve_fault_profile
 from repro_torch.faas.hardware import HardwareProfile
 from repro_torch.faas.platform import FaaSPlatform, InvocationRecord
-from repro_torch.kernels.ops import RavelSpec, tree_leaves, tree_map
-from repro_torch.traffic.slo import slo_summary
+from repro_torch.kernels.ops import BLOCK_N, RavelSpec, tree_leaves, tree_map
+from repro_torch.traffic import (build_traffic_schedule,
+                                 resolve_traffic_profile, slo_summary)
 
 Params = Any
 
@@ -76,6 +86,17 @@ def resolve_engine(mode: str) -> str:
     if mode not in ("scheduler", "legacy"):
         raise ValueError(f"unknown engine {mode!r} "
                          "(expected 'scheduler', 'legacy', or 'auto')")
+    return mode
+
+
+def resolve_update_plane(mode: str) -> str:
+    """'device' (= 'auto': updates stay rows of one card-resident buffer) |
+    'blob' (host parameter trees, the reference's equivalence oracle).
+    Unlike the reference, no environment variable is read."""
+    mode = _resolve(mode, "device")
+    if mode not in ("device", "blob"):
+        raise ValueError(f"unknown update plane {mode!r} "
+                         "(expected 'device', 'blob', or 'auto')")
     return mode
 
 
@@ -96,19 +117,10 @@ def _check_supported(cfg: "FLConfig") -> None:
     later = "comes with a later slice of the port"
     resolve_engine(cfg.engine)
     resolve_megastep(cfg.megastep)
-    if _resolve(cfg.update_plane, "device") != "device":
-        raise NotImplementedError(f"update_plane={cfg.update_plane!r} {later}")
-    if _resolve(cfg.data_plane, "device") != "device":
-        raise NotImplementedError(f"data_plane={cfg.data_plane!r} {later}")
     if _resolve(cfg.control_plane, "columnar") not in ("columnar", "object"):
         raise ValueError(f"unknown control plane {cfg.control_plane!r}")
     if _resolve(cfg.mesh, "1x1") != "1x1":
         raise NotImplementedError(f"mesh={cfg.mesh!r} {later}")
-    if _resolve(cfg.fault_profile, "off") not in ("off", "none"):
-        raise NotImplementedError(f"fault_profile={cfg.fault_profile!r} {later}")
-    if _resolve(cfg.traffic_profile, "off") not in ("off", "none"):
-        raise NotImplementedError(
-            f"traffic_profile={cfg.traffic_profile!r} {later}")
     if _resolve(cfg.durability, "off") != "off":
         raise NotImplementedError(f"durability={cfg.durability!r} {later}")
     if cfg.checkpoint_every and cfg.checkpoint_dir:
@@ -127,7 +139,8 @@ class FLConfig:
     knobs of durability (journal sync policy and snapshot cadence), which
     comes with a later slice. In the port an ``"auto"`` value resolves to
     the default the comment names without reading any ``REPRO_*``
-    environment variable, and a value this slice does not run raises
+    environment variable. Every setting runs except durability,
+    checkpointing and meshes other than ``1x1``, which raise
     (``_check_supported``)."""
 
     # -- population & schedule -------------------------------------------------
@@ -160,10 +173,16 @@ class FLConfig:
     base_step_time: float = 0.05   # 1vCPU-seconds per optimizer step
     #                                 (hardware profiles scale this, Fig. 1/3)
     failure_rate: float = 0.0      # P(invocation crash) — fault tolerance
-    fault_profile: str = "auto"    # fault injection: "auto"/"off" only in
-    #                                 this slice (no extra RNG draws)
-    traffic_profile: str = "auto"  # open-loop traffic: "auto"/"off" only in
-    #                                 this slice (fixed fleet)
+    fault_profile: str = "auto"    # fault injection (DESIGN.md §12): a
+    #                                 FAULT_PROFILES name ("crash-heavy",
+    #                                 "outage-window", "lossy-network") or a
+    #                                 raw faults.parse_faults spec string;
+    #                                 "auto" = off (no extra RNG draws)
+    traffic_profile: str = "auto"  # open-loop traffic (DESIGN.md §13): a
+    #                                 TRAFFIC_PROFILES name ("steady-churn",
+    #                                 "diurnal", "flash-crowd", "trace-demo")
+    #                                 or a raw traffic.parse_traffic spec;
+    #                                 "auto" = off (fixed fleet)
     # -- recovery layer (Scheduler engine only) --------------------------------
     invocation_timeout: float = 0.0  # per-invocation kill timer, sim-seconds
     #                                 (distinct from round_timeout; 0 = off)
@@ -184,7 +203,8 @@ class FLConfig:
     #                                 Apodotiko) | "eq1" = t_i/T (FedLesScan)
     update_plane: str = "auto"     # client-update transport: "device"
     #                                 (= "auto"): updates stay rows of one
-    #                                 card-resident [capacity, W] buffer
+    #                                 card-resident [capacity, W] buffer;
+    #                                 "blob": host parameter trees (oracle)
     engine: str = "auto"           # round driver: "scheduler" (= "auto"),
     #                                 the event-driven reactive protocol, or
     #                                 "legacy", the Controller poll loop
@@ -194,7 +214,9 @@ class FLConfig:
     #                                 oracle; both are host numpy
     data_plane: str = "auto"       # training-input transport: "device"
     #                                 (= "auto"): the dataset stays resident
-    #                                 on the card, minibatches gathered there
+    #                                 on the card, minibatches gathered there;
+    #                                 "host": the cohort's arrays uploaded
+    #                                 every dispatch (oracle)
     megastep: str = "auto"         # fused rounds (Scheduler only): "fused"
     #                                 (= "auto"): runs of quiescent rounds as
     #                                 one fused loop (core.megastep), or
@@ -243,7 +265,8 @@ class _Payload:
     siblings. Freed exactly once: either ownership passes to the landed
     ``ResultRecord`` (``landed``) or the last reference releases it."""
 
-    row: int = -1          # UpdateStore row handle
+    row: int = -1          # UpdateStore row handle (device plane)
+    blob: Any = None       # host parameter tree (blob plane)
     refs: int = 1
     landed: bool = False
 
@@ -283,11 +306,24 @@ class FLRuntime:
         self.data = data        # FederatedDataset (repro_torch.data)
         self.fleet = fleet
         self.loop = EventLoop()
-        self.fault_profile = "off"
+        # fault injection (faas.faults): off by default; the model owns its
+        # own RNG stream, so the platform's draw order is untouched either way
+        self.fault_profile = resolve_fault_profile(cfg.fault_profile)
         self.platform = FaaSPlatform(
             keep_warm=cfg.keep_warm, cold_start_s=cfg.cold_start_s,
-            seed=cfg.seed, failure_rate=cfg.failure_rate)
+            seed=cfg.seed, failure_rate=cfg.failure_rate,
+            faults=build_fault_model(self.fault_profile, cfg.seed))
         self.cost_model = CostModel()
+        # open-loop traffic (traffic, DESIGN.md §13): off by default. The
+        # arrival process is compiled once, ahead of the run, from its own
+        # numpy RNG stream; the off path compiles nothing
+        self.traffic_profile = resolve_traffic_profile(cfg.traffic_profile)
+        self.traffic = build_traffic_schedule(
+            self.traffic_profile, cfg.n_clients, seed=cfg.seed,
+            horizon_cap=cfg.max_sim_time)
+        self._traffic_pos = 0       # next unapplied schedule segment
+        self.n_traffic_joins = 0
+        self.n_traffic_leaves = 0
         self.strategy: Strategy = (
             strategy if strategy is not None
             else build_strategy(cfg.strategy, strategy_config(cfg)))
@@ -303,12 +339,20 @@ class FLRuntime:
         if self.db.columnar:
             # incremental-EMA decay (lambda = 1 - rho)
             self.db.fleet.decay = decay_rate(cfg.adjustment_rate)
-        for cid in range(cfg.n_clients):
-            self.db.register_client(ClientRecord(
-                client_id=cid, hardware=fleet[cid].name,
-                data_cardinality=int(data.n[cid]),
-                batch_size=cfg.batch_size,
-                local_epochs=cfg.local_epochs))
+        if self.traffic is not None:
+            # open-loop: only the schedule's initial membership exists at
+            # t=0; later arrivals land via bulk traffic segments
+            init = self.traffic.initial
+            self.db.register_clients_bulk(
+                init, data.n[init], cfg.batch_size, cfg.local_epochs,
+                hardware=[fleet[int(c)].name for c in init])
+        else:
+            for cid in range(cfg.n_clients):
+                self.db.register_client(ClientRecord(
+                    client_id=cid, hardware=fleet[cid].name,
+                    data_cardinality=int(data.n[cid]),
+                    batch_size=cfg.batch_size,
+                    local_epochs=cfg.local_epochs))
         self.hw = {cid: fleet[cid] for cid in range(len(fleet))}
         # never pruned: cost/metrics must resolve hardware for historical
         # invocations of since-removed clients
@@ -338,15 +382,22 @@ class FLRuntime:
         self.n_quarantined = 0      # circuit-breaker quarantines issued
         self.retry_latency_s = 0.0  # total failure->retry delay, sim-seconds
 
-        # update plane: trained models stay rows of one card-resident buffer
-        self.update_plane = "device"
+        # update plane: trained models stay rows of one card-resident
+        # buffer, or (blob) travel as host trees through the database
+        self.update_plane = resolve_update_plane(cfg.update_plane)
         self.spec = RavelSpec(self.params)
-        self.store = UpdateStore(self.spec.n_params,
-                                 capacity=max(cfg.clients_per_round, 1),
-                                 device=self.device)
-        # data plane: the federated dataset is resident on the card
-        self.data_plane = "device"
-        self.dataset = DatasetStore(data, device=self.device)
+        self.store: Optional[UpdateStore] = None
+        self.update_host_bytes = 0  # bytes moved host<->card for updates
+        if self.update_plane == "device":
+            self.store = UpdateStore(self.spec.n_params,
+                                     capacity=max(cfg.clients_per_round, 1),
+                                     device=self.device)
+        # data plane: the federated dataset is resident on the card, or
+        # (host) each cohort's arrays are uploaded per dispatch
+        self.data_plane = resolve_data_plane(cfg.data_plane)
+        self.dataset: Optional[DatasetStore] = None
+        if self.data_plane == "device":
+            self.dataset = DatasetStore(data, device=self.device)
         # SCAFFOLD state: c_global plus a persistent card-resident buffer of
         # per-client control variates indexed by client id, both flat rows
         # of the update store's width
@@ -354,7 +405,7 @@ class FLRuntime:
         self.c_buf: Optional[torch.Tensor] = None
         self._c_cap = 0
         if self.strategy.needs_scaffold:
-            self.c_global = torch.zeros(self.store.row_width,
+            self.c_global = torch.zeros(self._row_width(),
                                         dtype=torch.float32,
                                         device=self.device)
             self._ensure_c_capacity(max(cfg.n_clients, 1))
@@ -368,6 +419,13 @@ class FLRuntime:
     def round_start(self) -> float:
         return getattr(self, "_t0", 0.0)
 
+    def _row_width(self) -> int:
+        """The flat row width of an update or a SCAFFOLD variate: the
+        update store's, or on the blob plane the same rounding of N."""
+        if self.store is not None:
+            return self.store.row_width
+        return _round_up(self.spec.n_params, BLOCK_N)
+
     # ------------------------------------------------------- SCAFFOLD buffer
     def _ensure_c_capacity(self, n: int) -> None:
         """Grow the control-variate buffer to hold client ids < ``n``
@@ -376,7 +434,7 @@ class FLRuntime:
             return
         cap = max(n, 2 * self._c_cap)
         if self.c_buf is None:
-            self.c_buf = torch.zeros((cap, self.store.row_width),
+            self.c_buf = torch.zeros((cap, self._row_width()),
                                      dtype=torch.float32, device=self.device)
         else:
             self.c_buf = grow_stacked(self.c_buf, self._c_cap, cap)
@@ -421,6 +479,81 @@ class FLRuntime:
                         self._fleet_pos[c] = p - 1
             self._emit(ClientLeft(t=self.loop.now, client_id=cid))
 
+    # ------------------------------------------------------------- traffic
+    def _traffic_boundary(self) -> Optional[float]:
+        """Start time of the next unapplied traffic segment (None when
+        traffic is off or the schedule is exhausted)."""
+        if (self.traffic is None
+                or self._traffic_pos >= len(self.traffic.segments)):
+            return None
+        return self.traffic.segments[self._traffic_pos].start
+
+    def _apply_due_traffic(self) -> bool:
+        """Apply every compiled traffic segment with start <= now (both
+        engines call this at fresh-round open). Returns True if fleet
+        membership changed."""
+        applied = False
+        while True:
+            nb = self._traffic_boundary()
+            if nb is None or nb > self.loop.now:
+                return applied
+            seg = self.traffic.segments[self._traffic_pos]
+            self._traffic_pos += 1
+            self._apply_traffic_segment(seg)
+            applied = True
+
+    def _apply_traffic_segment(self, seg) -> None:
+        """One bulk membership delta: leaves first (cancelling their
+        in-flight work, reclaiming their platform instances and zeroing
+        their SCAFFOLD variate rows), then joins: one columnar scatter and
+        one append instead of per-event Python. The hardware universe
+        (``fleet``/``hw``/``_fleet_pos``) is untouched: traffic ids live in
+        the fixed [0, n_clients) universe, so a departed id keeps its
+        profile for its eventual re-join (unlike ``remove_clients``, which
+        retires an id for good)."""
+        now = self.loop.now
+        leaves = [int(c) for c in seg.leaves if self.db.has_client(int(c))]
+        if leaves:
+            for cid in leaves:
+                for inv in list(self.inflight.get(cid, ())):
+                    self._cancel_inflight(inv)
+                self.inflight.pop(cid, None)
+            self.db.unregister_clients_bulk(leaves)
+            # departed containers scale to zero: a re-join under the same
+            # id pays a fresh cold start (cold-start-rate SLO accounting)
+            self.platform.scale_down(leaves)
+            if self.c_buf is not None:
+                idx = [c for c in leaves if c < self._c_cap]
+                if idx:
+                    self.c_buf[torch.as_tensor(idx, device=self.device)] = 0.0
+            self.n_traffic_leaves += len(leaves)
+            self._emit(ClientsLeft(t=now, client_ids=tuple(leaves)))
+        joins = [int(c) for c in seg.joins
+                 if not self.db.has_client(int(c))]
+        if joins:
+            self.db.register_clients_bulk(
+                joins, self.data.n[joins], self.cfg.batch_size,
+                self.cfg.local_epochs,
+                hardware=[self.fleet[c].name for c in joins])
+            if self.c_buf is not None:
+                self._ensure_c_capacity(max(joins) + 1)
+            self.n_traffic_joins += len(joins)
+            self._emit(ClientsJoined(t=now, client_ids=tuple(joins)))
+
+    def _traffic_fast_forward(self) -> bool:
+        """The run is stalled: no pending events and no idle client. Under
+        a fixed fleet that ends the run; under open-loop traffic the clock
+        jumps to the next arrival boundary instead and applies it. Returns
+        True when the jump changed membership (so the caller re-opens
+        selection)."""
+        nb = self._traffic_boundary()
+        if nb is None or nb >= self.cfg.max_sim_time:
+            return False
+        if self.loop.peek() is not None:
+            return False
+        self.loop.now = max(self.loop.now, nb)
+        return self._apply_due_traffic()
+
     # -------------------------------------------------- protocol emit hook
     def _emit(self, event: Event) -> None:
         """Protocol dispatch hook: a no-op for the poll loop; the
@@ -444,14 +577,25 @@ class FLRuntime:
             # card gather out of the persistent variate buffer
             self._ensure_c_capacity(max(selection) + 1)
             ci = gather_stacked(self.c_buf, selection)
-        row_ids, ci_new, losses = self.trainer.train_cohort_indexed(
-            self.params, self.dataset, selection, n_i, steps, cg, ci,
-            update_sink=self.store)
+        device = self.update_plane == "device"
+        if self.data_plane == "device":
+            out, ci_new, losses = self.trainer.train_cohort_indexed(
+                self.params, self.dataset, selection, n_i, steps, cg, ci,
+                update_sink=self.store)
+        else:
+            out, ci_new, losses = self.trainer.train_cohort(
+                self.params, self.data.X[selection], self.data.y[selection],
+                n_i, steps, cg, ci, update_sink=self.store)
+        if not device:
+            # blob plane: the trained models come back as host trees
+            out = tree_map(lambda x: x.cpu().numpy(), out)
+            self.update_host_bytes += sum(l.nbytes for l in tree_leaves(out))
         if self.strategy.needs_scaffold:
             self._apply_scaffold_updates(selection, ci_new)
         for k, cid in enumerate(selection):
-            self._launch(cid, round_, float(steps[k]),
-                         _Payload(row=int(row_ids[k])), int(n_i[k]),
+            payload = (_Payload(row=int(out[k])) if device
+                       else _Payload(blob=tree_map(lambda x: x[k], out)))
+            self._launch(cid, round_, float(steps[k]), payload, int(n_i[k]),
                          float(losses[k]))
 
     def _launch(self, cid: int, round_: int, steps: float, payload: _Payload,
@@ -495,7 +639,10 @@ class FLRuntime:
                               n_samples=inv.n_samples,
                               train_duration=train_dur,
                               t_available=self.loop.now)
-        self.db.put_update_row(result, pay.row)
+        if self.update_plane == "device":
+            self.db.put_update_row(result, pay.row)
+        else:
+            self.db.put_update(result, pay.blob)
         pay.landed = True
         pay.refs -= 1
         self._completed_this_round.add(inv.client_id)
@@ -563,8 +710,9 @@ class FLRuntime:
                                       client_id=inv.client_id))
 
     def _free_payload(self, pay: _Payload) -> None:
-        if pay.row >= 0:
+        if self.update_plane == "device" and pay.row >= 0:
             self.store.free([pay.row])
+        pay.blob = None
 
     def cancel_client(self, cid: int) -> None:
         """Cancel every live invocation of ``cid`` and return the client
@@ -627,20 +775,33 @@ class FLRuntime:
         # cast THEN normalize in f32, as the reference does
         weights = weights.astype(np.float32)
         weights = weights / weights.sum()
-        rows = [r.update_row for r in pending]
-        if any(r < 0 for r in rows):
-            raise RuntimeError("pending result without a row handle")
-        self.params = weighted_aggregate_rows(
-            self.store.buffer, rows, weights, self.spec,
-            out_dtype=tree_leaves(self.params)[0].dtype)
-        self.store.free(rows)
+        out_dtype = tree_leaves(self.params)[0].dtype
+        if self.update_plane == "device":
+            rows = [r.update_row for r in pending]
+            if any(r < 0 for r in rows):
+                raise RuntimeError("pending result without a row handle")
+            self.params = weighted_aggregate_rows(
+                self.store.buffer, rows, weights, self.spec,
+                out_dtype=out_dtype)
+            self.store.free(rows)
+        else:
+            updates = [tree_map(lambda x: torch.as_tensor(x).to(self.device),
+                                self.db.blobs[r.update_key])
+                       for r in pending]
+            self.update_host_bytes += sum(
+                l.nbytes for r in pending
+                for l in tree_leaves(self.db.blobs[r.update_key]))
+            self.params = weighted_aggregate(updates, weights,
+                                             out_dtype=out_dtype)
         n_stale = sum(1 for r in pending if r.round < round_)
         mean_dur = float(np.mean([r.train_duration for r in pending]))
         self.db.mark_aggregated(pending)
         # prune: results too stale to ever be usable again
         drop = [r for r in self.db.results
                 if not r.aggregated and round_ - r.round >= self.cfg.max_staleness]
-        self.store.free([r.update_row for r in drop if r.update_row >= 0])
+        if self.update_plane == "device":
+            self.store.free([r.update_row for r in drop
+                             if r.update_row >= 0])
         self.db.mark_aggregated(drop)
         return len(pending), n_stale, mean_dur
 
@@ -652,16 +813,18 @@ class FLRuntime:
         jitted ``correct.astype(f32) / n`` runs: XLA folds the division by
         the constant n into a multiply by its fp32 reciprocal. So
         accuracies (and a ``target_accuracy`` stop) are the reference's to
-        the bit."""
+        the bit. TF32 is off for the pass (``device.fp32_exact``)."""
         xs = torch.as_tensor(np.asarray(self.data.eval_x))
         ys = torch.as_tensor(np.asarray(self.data.eval_y)).long()
         n, bs = len(xs), 256
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
-        for i in range(0, n, bs):
-            xb = xs[i:i + bs].to(self.device)
-            yb = ys[i:i + bs].to(self.device)
-            pred = torch.argmax(self.model.predict(self.params, xb), dim=-1)
-            correct += (pred == yb).sum()
+        with fp32_exact():
+            for i in range(0, n, bs):
+                xb = xs[i:i + bs].to(self.device)
+                yb = ys[i:i + bs].to(self.device)
+                pred = torch.argmax(self.model.predict(self.params, xb),
+                                    dim=-1)
+                correct += (pred == yb).sum()
         recip = float(np.float32(1.0) / np.float32(max(n, 1)))
         return float((correct.to(torch.float32) * recip).item())
 
@@ -679,8 +842,13 @@ class FLRuntime:
             "control_plane": self.control_plane,
             "mesh": self.mesh_spec,
             "update_plane": self.update_plane,
+            "update_host_bytes": int(self.update_host_bytes),
             "data_plane": self.data_plane,
-            "data_resident_bytes": self.dataset.resident_bytes,
+            # per-dispatch training-input uploads (0 on the device plane:
+            # the dataset is resident, see data_resident_bytes)
+            "data_host_bytes": int(self.trainer.data_h2d_bytes),
+            "data_resident_bytes": (self.dataset.resident_bytes
+                                    if self.dataset is not None else 0),
             "rounds": len(self.history),
             "final_accuracy": self.history[-1].accuracy if self.history else 0.0,
             "total_time": self.loop.now,
@@ -691,7 +859,13 @@ class FLRuntime:
             "n_hedge_wins": self.n_hedge_wins,
             "n_cancelled": self.n_cancelled,
             "fault_profile": self.fault_profile,
-            # the SLO layer (DESIGN.md §13) over the closed-loop history
+            # open-loop traffic and the SLO layer (DESIGN.md §13)
+            "traffic_profile": self.traffic_profile,
+            "n_traffic_joins": self.n_traffic_joins,
+            "n_traffic_leaves": self.n_traffic_leaves,
+            "n_traffic_dropped": (self.traffic.n_dropped
+                                  if self.traffic is not None else 0),
+            "traffic_segments_applied": self._traffic_pos,
             **slo_summary(
                 self.history, self.platform.cold_start_ratio(), cost,
                 time_to_accuracy=(

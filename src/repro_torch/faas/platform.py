@@ -10,14 +10,14 @@ Models the serverless client lifecycle the paper measures (IV-A5):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
 
 from repro_torch.faas.hardware import HardwareProfile
 
-# ``faults`` takes a fault model (``faas/faults.py`` of the reference); the
-# port has none yet, so the runtime always passes None (fault injection off).
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.faas.faults import FaultModel
 
 
 @dataclass

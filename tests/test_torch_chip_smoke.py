@@ -832,10 +832,13 @@ def test_paper_model_run_fails_without_its_launches(monkeypatch):
 
 def _sweep_rehearsal(cs, monkeypatch, plant=None):
     """chip_smoke's sweep phase with both its "card" and CPU sweeps on the
-    CPU: the card sweeps (the first two of ``smoke`` and the first of
-    ``paper_tables``) report launches, the CPU ones none; ``plant`` may
-    alter a sweep's table by its call index."""
+    CPU, ``chaos``, ``production_load`` and ``dataplane_ablation`` cut to
+    2 rounds of 2 clients: the card sweeps (the first two of ``smoke``,
+    then the first of each other preset) report launches, the CPU ones
+    none; ``plant`` may alter a sweep's table by its call index."""
+    import dataclasses
     orig, calls = cs.timed_sweep, []
+    specs = cs.sweep_specs()
 
     def timed(spec, dev, workers=1):
         table, wall, launches = orig(spec, dev, workers)
@@ -843,11 +846,19 @@ def _sweep_rehearsal(cs, monkeypatch, plant=None):
         calls.append(i)
         if plant:
             plant(i, table)
-        card = i in (0, 1, 3)
+        card = i in (0, 1) or (i >= 3 and i % 2 == 1)
         return table, wall, {k: int(card) for k in launches}
+
+    def cut(spec):
+        return dataclasses.replace(spec, scale=dataclasses.replace(
+            spec.scale, n_clients=4, clients_per_round=2, rounds=2,
+            data_scale=0.05))
 
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "timed_sweep", timed)
+    monkeypatch.setattr(cs, "sweep_specs", lambda: {
+        name: (spec if name in ("smoke", "paper_tables") else cut(spec))
+        for name, spec in specs.items()})
     return cs.sweep_phase(torch.device("cpu"))
 
 
@@ -857,14 +868,20 @@ def test_sweep_phase_on_the_cpu(capsys):
     with pytest.MonkeyPatch.context() as mp:
         rec = _sweep_rehearsal(cs, mp)
     assert rec["smoke"]["serial_equals_2_workers"]
-    assert rec["smoke"]["cells"] == 2 and rec["paper_tables"]["cells"] == 8
+    assert {k: r["cells"] for k, r in rec.items()} == {
+        "smoke": 2, "paper_tables": 8, "chaos": 8, "production_load": 12,
+        "dataplane_ablation": 4}
     assert all(r["host_columns_equal"] for r in rec.values())
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     rows = {l["preset"]: l["rows"] for l in lines
             if l["phase"] == "sweep_rows"}
     assert {r["dataset"] for r in rows["paper_tables"]} == {
         "mnist", "femnist", "shakespeare", "speech"}
-    for r in rows["paper_tables"]:
+    for preset, axis in (("chaos", "fault_profile"),
+                         ("production_load", "traffic_profile"),
+                         ("dataplane_ablation", "data_plane")):
+        assert len({r[axis] for r in rows[preset]}) > 1
+    for r in sum(rows.values(), []):
         assert r["error"] is None and r["rounds"] > 0
         assert {"final_acc_card", "final_acc_cpu"} <= set(r)
 
@@ -874,6 +891,7 @@ def test_sweep_phase_on_the_cpu(capsys):
     (2, "cost_usd", "host columns differ"),        # the smoke CPU sweep
     (1, "final_acc", "1 and 2 workers"),           # the 2-worker sweep
     (0, "error", "cells failed"),
+    (6, "n_failures", "host columns differ"),      # the chaos CPU sweep
 ])
 def test_sweep_phase_fails_on_a_planted_difference(call, column, match):
     cs = _load()
@@ -886,3 +904,178 @@ def test_sweep_phase_fails_on_a_planted_difference(call, column, match):
     with pytest.MonkeyPatch.context() as mp, \
             pytest.raises(AssertionError, match=match):
         _sweep_rehearsal(cs, mp, plant)
+
+
+# the rehearsal size's rounds are short in simulated time (a few local
+# steps each), so longer steps place the profiles' events inside its runs
+REHEARSAL_STEP_TIMES = {"recovery": 64.0, "faults": 64.0, "traffic": 128.0,
+                        "trace_megastep": 32.0}
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_sweep_phase_fails_when_a_plane_twin_differs():
+    """The same change to a host-plane cell on the card and on the CPU
+    keeps the two sides equal and breaks the ablation's own claim."""
+    cs = _load()
+    last = len(cs.sweep_specs()) * 2 + 1     # smoke runs 3 sweeps
+
+    def plant(i, table):
+        if i in (last - 2, last - 1):        # dataplane_ablation's pair
+            table.rows[-1]["cost_usd"] += 1
+
+    with pytest.MonkeyPatch.context() as mp, \
+            pytest.raises(AssertionError, match="device twin"):
+        _sweep_rehearsal(cs, mp, plant)
+
+
+def _profiles_rehearsal(cs, monkeypatch):
+    """chip_smoke's profiles phase on the CPU at the reference's test size
+    (ProxyCNN, 10 clients, 4 a round, E=1, B=5), plain calls counted."""
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _count_plain_calls(monkeypatch)
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    return cs.profiles_phase(data, torch.device("cpu"), model=ProxyCNN(10),
+                             step_times=REHEARSAL_STEP_TIMES,
+                             n_clients=10, clients_per_round=4,
+                             local_epochs=1, batch_size=5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_profiles_phase_on_the_cpu(monkeypatch, capsys):
+    """The phase's contract: every fault profile with the recovery layer
+    and on both engines, every traffic profile on both engines (bit-equal
+    params, equal chaos traces), trace-demo fused against stepwise, the
+    oracle planes against the device planes with their byte counters, one
+    JSON line; and what the pytree entry needs from the plane run."""
+    cs = _load()
+    rec = _profiles_rehearsal(cs, monkeypatch)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == ["profiles_trace_demo", "profiles"]
+    assert set(rec["faults"]) == set(cs.FAULT_RUNS)
+    assert set(rec["traffic"]) == set(cs.TRAFFIC_RUNS) | {"trace-demo[scaffold]"}
+    assert rec["step_times_s"] == REHEARSAL_STEP_TIMES
+    for name, f in rec["faults"].items():
+        assert f["engines"]["engines_bit_equal"]
+        assert f["recovery"]["rounds"] == cs.PROFILE_ROUNDS
+        assert set(f["recovery"]["launches"]) == {"staleness_agg",
+                                                  "fused_adam"}
+        for run in f.values():
+            assert sum(run["failures_by_phase"].get(p, 0)
+                       for p in cs.FAULT_PHASES[name]) > 0
+        assert f["recovery"]["n_retries"] + f["recovery"]["n_timeouts"] > 0
+    for name, t in rec["traffic"].items():
+        assert t["engines_bit_equal"]
+        assert min(t["n_traffic_joins"], t["n_traffic_leaves"],
+                   t["traffic_segments_applied"]) > 0
+        assert "n_cancelled" in t
+    assert rec["traffic"]["flash-crowd"]["n_traffic_dropped"] > 0
+    scaffold = rec["traffic"]["trace-demo[scaffold]"]
+    assert scaffold["strategy"] == "scaffold"
+    assert scaffold["departed_variates_zeroed"] > 0
+    assert rec["trace_demo_megastep"]["bit_equal"]
+    assert rec["trace_demo_megastep"]["fused_rounds"][0] == 0
+    assert rec["trace_demo_megastep"]["fused_rounds"][1] >= 3
+    mega = rec["trace_demo_megastep"]["traffic"]
+    assert mega[0] == mega[1] and mega[0]["n_traffic_leaves"] > 0
+    planes = rec["planes"]
+    assert planes["host_traces_equal"]
+    assert planes["params_max_abs_diff"] <= planes["atol"]
+    assert (planes["oracle_update_plane"], planes["oracle_data_plane"]) == (
+        "blob", "host")
+    assert planes["device_update_host_bytes"] == 0
+    assert planes["oracle_update_host_bytes"] > 0
+    run = rec["pytree_run"]
+    assert run["rounds"][-1]["n_aggregated"] == planes["last_pending"]
+    assert run["launches"]["staleness_agg"] == cs.PROFILE_ROUNDS
+    assert lines[-1]["planes"] == json.loads(json.dumps(planes))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_profiles_phase_fails_on_a_planted_difference(monkeypatch):
+    """One ulp-scale change to the poll loop's params fails the engine
+    pair."""
+    from repro_torch.core.controller import Controller
+
+    cs = _load()
+    timed = cs.timed_run
+
+    def plant(eng):
+        out = timed(eng)
+        if isinstance(eng, Controller):
+            leaf = next(iter(eng.params))
+            eng.params[leaf] = eng.params[leaf] * (1 + 2 ** -20)
+        return out
+
+    monkeypatch.setattr(cs, "timed_run", plant)
+    with pytest.raises(AssertionError, match="differs across engines"):
+        _profiles_rehearsal(cs, monkeypatch)
+
+
+def _fault_free(monkeypatch):
+    from repro_torch.faas.faults import FaultModel, FaultOutcome
+    monkeypatch.setattr(FaultModel, "evaluate",
+                        lambda self, *a, **kw: FaultOutcome())
+
+
+def _traffic_free(monkeypatch):
+    from repro_torch.core.services import FLRuntime
+    monkeypatch.setattr(FLRuntime, "_apply_traffic_segment",
+                        lambda self, seg: None)
+
+
+def _variates_kept(monkeypatch):
+    """Leaves go on, but the departed clients' variate rows survive."""
+    from repro_torch.core.services import FLRuntime
+    apply = FLRuntime._apply_traffic_segment
+
+    def keep(self, seg):
+        kept = None if self.c_buf is None else self.c_buf.clone()
+        apply(self, seg)
+        if kept is not None:
+            self.c_buf.copy_(kept)
+
+    monkeypatch.setattr(FLRuntime, "_apply_traffic_segment", keep)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("plant, match", [
+    (_fault_free, "struck nothing"),
+    (_traffic_free, "traffic applied"),
+    (_variates_kept, "variate row is not zero"),
+], ids=["faults", "traffic", "variates"])
+def test_profiles_phase_fails_when_a_mechanism_does_nothing(
+        monkeypatch, plant, match):
+    """Fault injection, traffic application or the SCAFFOLD rows' zeroing
+    wired to nothing: both engines still agree, and the phase still
+    fails."""
+    cs = _load()
+    plant(monkeypatch)
+    with pytest.raises(AssertionError, match=match):
+        _profiles_rehearsal(cs, monkeypatch)
+
+
+def test_pytree_entry_takes_the_plane_runs_k(monkeypatch):
+    """CPU rehearsal of ``staleness_agg[pytree]``: K MnistCNN-shaped trees
+    (K the plane run's last pending count), the stack padded to [Kp, N4]
+    and timed apart, held to the plain version and to ``aggregate_pytree``,
+    the bound over the K trees read and the result written."""
+    cs = _load()
+    monkeypatch.setattr(cs, "time_ms", lambda fn, before=None, **kw: (
+        before and before(), fn(), 0.5)[2])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(cs, "l2_flush", lambda dev: lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    run = {"rounds": [{"n_aggregated": 4}, {"n_aggregated": 3}],
+           "launches": {"staleness_agg": 2}, "strategy": "apodotiko"}
+    e = cs.pytree_agg_entry(run, torch.device("cpu"))
+    assert e["name"] == "staleness_agg[pytree]"
+    assert e["shape"] == {"K": 3, "K_padded": 8, "N": 582_026,
+                          "N_padded": 582_028}
+    assert e["launches"] == 2 and e["max_abs_err"] < 1e-6
+    assert e["aggregate_pytree_max_abs_err"] < 1e-6
+    assert e["bytes"] == (3 * 582_026 + 3 + 582_026) * 4
+    assert e["bound_by"] == "bytes" and e["stack_ms"] == 0.5
+    assert set(cs.KERNEL_KEYS) <= set(e)

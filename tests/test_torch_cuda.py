@@ -17,6 +17,13 @@ and fp16 (one bf16 ulp is at most 2^-7 of a value, one fp16 ulp 2^-10):
 an attention row's values shrink with the keys it sees, so the limit
 follows them.
 
+The profile cases run ``build_engine(...).run()`` on the card against the
+same run on the CPU, with torch's TF32 flags as they are (the trainer and
+the evaluation hold fp32 in ``device.fp32_exact``), under a fault profile
+of every kind, an open-loop traffic profile and the oracle planes (blob
+updates, host data): identical chaos trace and counters, params within
+rtol 1e-4 / atol 1e-5, the flags unchanged after the run.
+
 The engine cases run the fused-round megastep against the stepwise engine
 on the card under ``torch.use_deterministic_algorithms(True)``, bit for
 bit, and a SCAFFOLD run on the card against the same run on the CPU
@@ -914,3 +921,99 @@ def test_shakespeare_lstm_cohort_step_on_the_card(no_tf32):
         assert np.isfinite(loss).all()
         rows.append(store.gather(ids).cpu())
     torch.testing.assert_close(rows[0], rows[1], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------ profiles, planes and precision
+# a fault spec of every kind, its outage window open from t = 0, and an
+# early-boundary traffic spec (tests/test_traffic.py's ENGINE_SPECS[0])
+ALL_FAULTS = ("crash:train:0.2,slow:2.5:0.2,loss:0.15:0.2:45,oom:2.0:0.3,"
+              "crash:startup:0.1,crash:upload:0.1,outage:0-40:mod3=1")
+CARD_CASES = {
+    "untouched_tf32": dict(strategy="apodotiko"),
+    "faults": dict(strategy="apodotiko", fault_profile=ALL_FAULTS,
+                   retry_budget=8, invocation_timeout=300.0,
+                   quarantine_threshold=3),
+    "traffic": dict(strategy="apodotiko",
+                    traffic_profile="init:0.5,window:10,poisson:0.15:80"),
+    "planes": dict(strategy="apodotiko", update_plane="blob",
+                   data_plane="host"),
+}
+
+
+def _chaos_trace(eng):
+    hist, inv = _trace(eng)
+    return hist, inv, [(r.client_id, r.round, r.failed_phase, r.lost,
+                        r.timed_out, r.cancelled)
+                       for r in eng.platform.invocations]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CARD_CASES))
+def test_build_engine_on_the_card_matches_the_cpu(card, case):
+    """``build_engine(...).run()`` with torch's TF32 flags as they are (no
+    fixture: the trainer and the evaluation hold fp32 in their own scope)
+    on the card against the same run on the CPU, on one table of minibatch
+    indices: identical chaos trace and counters, params within rtol 1e-4 /
+    atol 1e-5, and the flags the same after the run as before."""
+    from repro_torch.core.scheduler import build_engine
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    init = ProxyCNN(10).init(torch.Generator().manual_seed(1))
+    kw = dict(n_clients=10, clients_per_round=4, rounds=3, local_epochs=1,
+              batch_size=5, base_step_time=0.5, round_timeout=200.0, seed=0,
+              **CARD_CASES[case])
+    runs = {}
+    for where in (card, torch.device("cpu")):
+        eng = build_engine(FLConfig(**kw), ProxyCNN(10), data,
+                           list(paper_fleet(10)), device=where,
+                           init_params={k: v.to(where)
+                                        for k, v in init.items()})
+        eng.trainer.batch_indices = TableIndices(7, 5)
+        runs[where.type] = (eng, eng.run())
+    (on_card, m_card), (on_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == flags
+    assert _chaos_trace(on_card) == _chaos_trace(on_cpu)
+    for key in ("failures_by_phase", "n_retries", "n_traffic_joins",
+                "n_traffic_leaves", "update_host_bytes", "data_host_bytes",
+                "megastep_fallback_reason"):
+        assert m_card[key] == m_cpu[key], key
+    for name, leaf in on_card.params.items():
+        assert leaf.is_cuda
+        torch.testing.assert_close(leaf.cpu(), on_cpu.params[name],
+                                   rtol=1e-4, atol=1e-5)
+    if case == "faults":
+        assert m_card["n_failures"] > 0
+    if case == "traffic":
+        assert m_card["n_traffic_joins"] > 0
+    if case == "planes":
+        assert on_card.store is None and on_card.dataset is None
+        assert min(m_card["update_host_bytes"],
+                   m_card["data_host_bytes"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 30, 100])
+def test_aggregate_pytree_at_mnist_width_equals_plain(card, k):
+    """The blob plane's launch: K MnistCNN-shaped trees (582,026 params, N
+    padded to 4), one ``staleness_agg`` over the stack, against the plain
+    version on the same stack on the card."""
+    from repro_torch.models.paper_models import MnistCNN
+
+    template = MnistCNN().init(torch.Generator().manual_seed(0))
+    gen = torch.Generator(device=card).manual_seed(k)
+    trees = [{n: torch.randn(p.shape, device=card, generator=gen)
+              for n, p in template.items()} for _ in range(k)]
+    w = torch.rand(k, device=card, generator=gen)
+    before = sa.staleness_agg.launches
+    got = ops.aggregate_pytree(trees, w, restore_dtype=False)
+    torch.cuda.synchronize()
+    assert sa.staleness_agg.launches == before + 1
+    spec = ops.RavelSpec(trees[0])
+    want = ref.staleness_agg(torch.stack([spec.ravel(t) for t in trees]), w)
+    # sums of K unit-normal terms in another order, as
+    # test_staleness_agg_kernel_matches_plain holds them
+    torch.testing.assert_close(spec.ravel(got), want, rtol=RTOL,
+                               atol=ATOL * k)

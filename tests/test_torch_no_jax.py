@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert {"repro_torch.sweep", "repro_torch.sweep.engine",
             "repro_torch.sweep.grid", "repro_torch.sweep.presets",
             "repro_torch.sweep.results", "repro_torch.sweep.runner",
-            "repro_torch.traffic.slo"} <= set(mods)
+            "repro_torch.traffic.slo", "repro_torch.traffic.model",
+            "repro_torch.traffic.schedule", "repro_torch.faas.faults",
+            "repro_torch.core.data_plane"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -97,11 +99,124 @@ def test_default_device_is_the_card_and_never_falls_back(monkeypatch):
     assert np.isfinite(ctl.run()["total_time"])
 
 
+def test_fp32_scope_is_reentrant_thread_safe_and_restores():
+    """``fp32_exact`` sets only the two TF32 flags, the first entry saves
+    and the last exit restores the caller's values, and while any thread
+    is inside, no other thread's exit turns TF32 back on."""
+    import threading
+
+    from repro_torch.device import fp32_exact
+
+    flags = lambda: (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    others = lambda: (torch.backends.cudnn.enabled,
+                      torch.backends.cudnn.benchmark,
+                      torch.backends.cudnn.deterministic)
+    was, was_others = flags(), others()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with fp32_exact():
+            assert flags() == (False, False) and others() == was_others
+            with fp32_exact():
+                assert flags() == (False, False)
+            assert flags() == (False, False)
+        assert flags() == (True, True)
+        inside, leave, seen = threading.Event(), threading.Event(), []
+
+        def worker():
+            with fp32_exact():
+                inside.set()
+                leave.wait(10)
+                seen.append(flags())
+
+        t = threading.Thread(target=worker)
+        t.start()
+        inside.wait(10)
+        with fp32_exact():
+            pass                   # this exit must not restore the flags
+        seen.append(flags())
+        leave.set()
+        t.join(10)
+        assert seen == [(False, False), (False, False)]
+        assert flags() == (True, True)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def test_fp32_scope_holds_under_many_threads():
+    """More threads than cores entering and leaving the scope with the
+    interpreter switching often: inside, every thread always sees TF32 off
+    (a lost update of the count would let one exit restore it under
+    another); after, the caller's flags are back."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.device import fp32_exact
+
+    was = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    bad, threads = [], []
+    try:
+        def worker():
+            for _ in range(300):
+                with fp32_exact():
+                    if torch.backends.cudnn.allow_tf32 or \
+                            torch.backends.cuda.matmul.allow_tf32:
+                        bad.append(1)
+
+        threads = [threading.Thread(target=worker)
+                   for _ in range(2 * (os.cpu_count() or 4))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad
+        assert (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        sys.setswitchinterval(switch)
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = was
+
+
+def test_training_and_evaluation_run_inside_the_fp32_scope():
+    """The trainer's step loop and the runtime's evaluation see TF32 off;
+    the caller's flags are back after the run."""
+    data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
+    seen = []
+
+    class Recording(ProxyCNN):
+        def loss(self, params, batch):
+            seen.append(("loss", torch.backends.cudnn.allow_tf32))
+            return super().loss(params, batch)
+
+        def predict(self, params, x):
+            seen.append(("predict", torch.backends.cudnn.allow_tf32))
+            return super().predict(params, x)
+
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1,
+                       local_epochs=1, batch_size=5)
+        Controller(cfg, Recording(10), data, list(paper_fleet(4)),
+                   device="cpu").run()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert {k for k, _ in seen} == {"loss", "predict"}
+    assert not any(flag for _, flag in seen)
+
+
 @pytest.mark.parametrize("kw, match", [
-    (dict(update_plane="blob"), "update_plane"),
-    (dict(data_plane="host"), "data_plane"),
-    (dict(fault_profile="crash-heavy"), "fault_profile"),
-    (dict(traffic_profile="diurnal"), "traffic_profile"),
     (dict(durability="journal"), "durability"),
     (dict(mesh="2x1"), "mesh"),
     (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpointing"),
@@ -114,6 +229,23 @@ def test_left_out_settings_raise_naming_a_later_slice(kw, match):
         Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
                    device="cpu")
     assert "slice" in str(err.value)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(update_plane="blob"), dict(data_plane="host"),
+    dict(fault_profile="crash-heavy"), dict(traffic_profile="diurnal"),
+])
+def test_settings_of_the_profiles_and_planes_slice_run(kw):
+    """The oracle planes and the fault and traffic profiles run on the
+    port's entry point (on the CPU here) and report themselves."""
+    data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
+    cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1,
+                   local_epochs=1, batch_size=5, **kw)
+    m = Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
+                   device="cpu").run()
+    for key, value in kw.items():
+        assert m[key] == value
+    assert np.isfinite(m["total_time"])
 
 
 @pytest.mark.parametrize("field", ["durability_sync"])

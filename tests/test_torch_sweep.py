@@ -7,7 +7,9 @@ source apart from imports (and the presets' module docstring); one set of
 metrics renders to byte-identical tables in both packages; and the
 ``smoke`` preset run through both ``run_sweep``s, the port's cells started
 from the reference's params with its minibatch draws replayed
-(``JaxBatchIndices``), gives the same table to the byte."""
+(``JaxBatchIndices``), gives the same table to the byte; and the
+``chaos``, ``production_load`` and ``dataplane_ablation`` presets, cut to a
+few rounds, give the reference's host columns in every cell."""
 import copy
 import dataclasses
 import json
@@ -381,21 +383,38 @@ def test_smoke_table_is_byte_identical_for_one_and_two_workers():
     assert serial.rows == pair.rows
 
 
-def test_chaos_cells_are_error_rows_naming_the_later_slice():
-    """Fault profiles come with a later slice: those cells keep their row
-    with the error; the fault-free cells run."""
-    spec = dataclasses.replace(get_preset("chaos"),
-                               scale=SweepScale(n_clients=6,
-                                                clients_per_round=3, rounds=1,
-                                                data_scale=0.05,
-                                                local_epochs=1))
-    table = run_sweep(spec, device="cpu")
-    assert len(table.rows) == spec.n_runs == 8
-    for row in table.rows:
-        if row["fault_profile"] == "none":
-            assert row["error"] is None and row["rounds"] == 1
-        else:
-            assert row["error"].startswith("NotImplementedError: "
-                                           "fault_profile=")
-            assert "later slice" in row["error"]
-            assert row["rounds"] is None
+# the three presets of the profiles and planes slice, each at its own
+# scale cut to 3 rounds (production_load to 5: its flash crowd lands at
+# 60 s of simulated time), on one shared seed
+SLICE_PRESETS = {
+    "chaos": SweepScale(n_clients=8, clients_per_round=4, rounds=3,
+                        data_scale=0.06, local_epochs=1, sim_budget=400.0),
+    "production_load": SweepScale(n_clients=8, clients_per_round=4,
+                                  rounds=5, data_scale=0.06, local_epochs=1,
+                                  sim_budget=900.0),
+    "dataplane_ablation": SweepScale(n_clients=8, clients_per_round=4,
+                                     rounds=3, data_scale=0.06,
+                                     local_epochs=1, sim_budget=400.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE_PRESETS))
+def test_profile_and_plane_tables_equal_the_references_host_columns(name):
+    """Every cell of ``chaos`` (fault profiles, recovery armed),
+    ``production_load`` (traffic profiles) and ``dataplane_ablation``
+    (device and host data planes) runs in the port, and its host columns
+    equal the reference's run of the same cells."""
+    spec = dataclasses.replace(get_preset(name), scale=SLICE_PRESETS[name])
+    jspec = dataclasses.replace(jsweep.get_preset(name),
+                                scale=jsweep.SweepScale(
+                                    **dataclasses.asdict(spec.scale)))
+    mine = run_sweep(spec, device="cpu")
+    ref = jsweep.run_sweep(jspec)
+    assert len(mine.rows) == len(ref.rows) == spec.n_runs
+    for a, b in zip(mine.rows, ref.rows):
+        assert a["error"] is None and a["rounds"] > 0
+        assert {c: a[c] for c in HOST_COLUMNS} == \
+            {c: b[c] for c in HOST_COLUMNS}
+    axis = {"chaos": "fault_profile", "production_load": "traffic_profile",
+            "dataplane_ablation": "data_plane"}[name]
+    assert len({r[axis] for r in mine.rows}) > 1
