@@ -56,6 +56,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      non-zero only on the oracle planes. Each run's wall a round, fault
      counts by phase, traffic joins, leaves, drops and cancellations and
      the megastep fallback reason are printed;
+     then durability, at the same width under deterministic algorithms, in
+     a temporary directory (``durability_phase``): an ``apodotiko`` run of
+     3 rounds with ``durability="journal"`` (a snapshot every round) is
+     killed at three journal boundaries (a ``ResultLanded`` mid-round 2,
+     the record after the first round close, ``n_records - 1``) and
+     resumed with ``resume_durable``, and an ``apodotiko-topk`` run of 2
+     rounds once mid-round 2: journal bytes, history, clock, params, free
+     list, live rows, generator (and the fleet's booster and score state)
+     bit-equal to the golden run, ``staleness_agg`` (and ``block_topk``)
+     launched once a re-executed round and ``fused_adam`` once a local
+     step of each re-executed cohort's largest budget; the journal's
+     overhead against the same run with durability off (informational,
+     beside the reference's 5 % CI limit), its records, bytes and fsyncs,
+     snapshot ms and bytes, resume ms; a real SIGKILL of
+     ``scripts/torch_durable_crash_child.py`` on the card (ProxyCNN, 10
+     clients), resumed here bit-equal to an in-process golden run; and
+     the ``Controller``'s database checkpoints (``checkpoint_every=1``, 2
+     rounds, then ``Controller.resume`` to 3): round, client records,
+     results, params and live rows equal to the checkpoint's;
   4. fleet: the control plane at a million clients: ``select_topk(100,
      1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
      on a CPU copy of the same state; selections and the device booster
@@ -69,8 +88,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      state, bit-equal to the plain versions on the card and on the CPU,
      one sort a call and no kernel launch, each timed beside its byte
      bound and ``torch.topk`` at the same k;
-  5. profile: one more fedavg round under ``torch.profiler`` (device busy
-     time, idle share, kernel time by name; informational, no limit);
+  5. profile: one more fedavg round, at one local epoch (30 local steps),
+     under ``torch.profiler`` (device busy time, idle share, kernel time by
+     name, and each per local step; informational, no limit);
   6. reference: small ProxyCNN runs on the card against the same runs on
      the CPU (the kernels' plain versions), on one shared minibatch-index
      table, for ``fedavg``, ``apodotiko``, ``apodotiko-topk``,
@@ -171,6 +191,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import statistics
@@ -367,22 +388,38 @@ def step_budget(data, cid: int, batch_size: int, local_epochs: int) -> int:
     return max(-(-int(data.n[cid]) // batch_size) * local_epochs, 1)
 
 
+def same(a, b) -> bool:
+    """Deep equality, tensors by value (bits where the caller viewed them
+    as integers)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
 # ---------------------------------------------------------------- main path
-def paper_engine(strategy: str, rounds: int, data, dev):
-    """The paper's MNIST setup (IV-A) at published width: MnistCNN, 200
-    clients on the 65/25/10 fleet, 100 per round, E=5, B=10, Adam 1e-3,
-    CR=0.3, through ``build_engine`` (the Scheduler). Only the number of
-    rounds is cut."""
-    from repro_torch.core.scheduler import build_engine
+def paper_cfg(strategy: str, rounds: int, **over):
+    """The paper's MNIST setup (IV-A): 200 clients, 100 per round, E=5,
+    B=10, Adam 1e-3, CR=0.3; ``over`` sets other fields."""
     from repro_torch.core.services import FLConfig
+
+    kw = dict(n_clients=200, clients_per_round=100, rounds=rounds,
+              strategy=strategy, concurrency_ratio=0.3, local_epochs=5,
+              batch_size=10, optimizer="adam", lr=1e-3, seed=SEED)
+    return FLConfig(**{**kw, **over})
+
+
+def paper_engine(strategy: str, rounds: int, data, dev, **over):
+    """``paper_cfg`` at published width (MnistCNN on the 65/25/10 fleet)
+    through ``build_engine`` (the Scheduler). Only the number of rounds is
+    cut (and what ``over`` sets)."""
+    from repro_torch.core.scheduler import build_engine
     from repro_torch.faas.hardware import paper_fleet
     from repro_torch.models.paper_models import MnistCNN
 
-    cfg = FLConfig(n_clients=200, clients_per_round=100, rounds=rounds,
-                   strategy=strategy, concurrency_ratio=0.3, local_epochs=5,
-                   batch_size=10, optimizer="adam", lr=1e-3, seed=SEED)
-    return build_engine(cfg, MnistCNN(), data, list(paper_fleet(200)),
-                        device=dev)
+    return build_engine(paper_cfg(strategy, rounds, **over), MnistCNN(),
+                        data, list(paper_fleet(200)), device=dev)
 
 
 def run_main_path(strategy: str, rounds: int, data, dev):
@@ -430,6 +467,10 @@ def run_main_path(strategy: str, rounds: int, data, dev):
     record = {"strategy": strategy, "engine": metrics["engine"],
               "rounds": rounds_log,
               "cohort_sizes": [cohorts[r] for r in sorted(cohorts)],
+              "largest_step_budget": max(
+                  step_budget(data, r.client_id, ctl.cfg.batch_size,
+                              ctl.cfg.local_epochs)
+                  for r in ctl.platform.invocations),
               "launches": launches, "select_topk_ms": select_ms,
               "last_path": aggregation.last_path(),
               "guard_recomputes": aggregation.guard_recomputes() - guard0,
@@ -572,11 +613,6 @@ def megastep_phase(data, dev, model=None, boot: int = MEGA_BOOT,
                 "generator": eng.trainer.generator.get_state().cpu(),
                 "params": {n: p.view(torch.int32)
                            for n, p in eng.params.items()}}
-
-    def same(a, b):
-        if isinstance(a, dict):
-            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
-        return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
     ref_state = state(first)
     report, equal = [], {}
@@ -934,15 +970,25 @@ def reference_phase(dev) -> None:
     emit("reference", rtol=PARAM_RTOL, atol=PARAM_ATOL, **out)
 
 
-def profile_round(data, dev, unprofiled_wall_s: float) -> None:
-    """One more fedavg round of the main-path setup under torch.profiler
+PROFILE_EPOCHS = 1     # the profiled round's E: 30 local steps, not 150
+
+
+def profile_round(data, dev, unprofiled_wall_s: float,
+                  unprofiled_steps: int) -> None:
+    """One more fedavg round of the main-path setup at ``PROFILE_EPOCHS``
+    local epochs (a fifth of the main path's 150 local steps: the profiler's
+    host-side parsing grows with the device events) under torch.profiler
     (device activity only, to keep the host-side overhead small): device
     busy time as the union of kernel intervals, the idle share, and kernel
-    time by name. The idle share is also given against the unprofiled
-    wall time of the main path's fedavg round."""
+    time by name. Per local step (of the cohort's largest budget), the
+    profiled wall, the busy time and the events, beside the unprofiled
+    wall of a local step of the main path's fedavg round
+    (``unprofiled_wall_s`` over its ``unprofiled_steps``; that round's
+    fixed costs, the evaluation among them, spread over five times the
+    steps, so no idle share is taken against it)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ctl = paper_engine("fedavg", 1, data, dev)
+    ctl = paper_engine("fedavg", 1, data, dev, local_epochs=PROFILE_EPOCHS)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         ctl.run()
@@ -964,11 +1010,18 @@ def profile_round(data, dev, unprofiled_wall_s: float) -> None:
             entry[0] += 1
             entry[1] += (e.time_range.end - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
-    emit("profile", strategy="fedavg", rounds=1, profiled_wall_s=wall,
-         device_busy_s=busy, n_device_events=len(spans),
+    steps = max(step_budget(data, r.client_id, ctl.cfg.batch_size,
+                            PROFILE_EPOCHS) for r in ctl.platform.invocations)
+    emit("profile", strategy="fedavg", rounds=1,
+         local_epochs=PROFILE_EPOCHS, local_steps=steps,
+         profiled_wall_s=wall, device_busy_s=busy,
+         n_device_events=len(spans),
          idle_share=(1 - busy / wall) if busy else None,
-         idle_share_vs_unprofiled=((1 - busy / unprofiled_wall_s)
-                                   if busy else None),
+         wall_ms_per_local_step=wall / steps * 1e3,
+         busy_ms_per_local_step=busy / steps * 1e3,
+         events_per_local_step=len(spans) / steps,
+         unprofiled_wall_ms_per_local_step=(unprofiled_wall_s
+                                            / unprofiled_steps * 1e3),
          top=[{"name": n, "calls": c, "ms": ms} for n, (c, ms) in top])
 
 
@@ -1554,6 +1607,413 @@ def profiles_phase(data, dev, model=None, step_times=None, **size) -> dict:
     record["seconds"] = time.perf_counter() - t_phase
     emit("profiles", **record)
     return {**record, "pytree_run": pytree_run}
+
+
+# --------------------------------------------------------------- durability
+DUR_ROUNDS = 3                # the apodotiko golden run and its crashes
+DUR_TOPK_ROUNDS = 2           # the apodotiko-topk golden run
+DUR_CHILD = ROOT / "scripts" / "torch_durable_crash_child.py"
+DUR_CHILD_CRASH = 6           # the SIGKILL child's crash point (records)
+DUR_CI_LIMIT = 0.05           # the reference's journal overhead limit in
+#                               CI (benchmarks/bench_round.py:1297-1300)
+
+
+def durable_state(eng) -> dict:
+    """What a resumed run must give back bit for bit: host trace, round
+    log, clock, params (their bits), the store's free list and live rows
+    (ids and bits), the generator, and on the columnar plane the fleet's
+    host columns and device score state (booster included)."""
+    live = [int(i) for i in eng.store.live_rows()]
+    out = {"trace": host_trace(eng), "history": list(eng.history),
+           "total_time": eng.loop.now,
+           "params": {n: p.view(torch.int32).cpu()
+                      for n, p in eng.params.items()},
+           "free_list": list(eng.store._free), "live_rows": live,
+           "rows": eng.store.gather(live).view(torch.int32).cpu(),
+           "generator": eng.trainer.generator.get_state()}
+    if eng.db.columnar:
+        fs = eng.db.fleet
+        out["fleet_host"] = {k: torch.from_numpy(np.ascontiguousarray(v))
+                             for k, v in fs.state_dict().items()}
+        if fs._dev is not None:
+            fs._flush_device()
+            out["fleet_device"] = {
+                c: getattr(fs._dev, c).cpu()
+                for c in ("num", "den", "booster", "eligible", "ever")}
+    return out
+
+
+def unequal(got: dict, want: dict) -> list:
+    """The keys of two ``durable_state`` dicts that differ."""
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or not same(got[k], want[k]))
+
+
+def read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def crash_points(records: list) -> dict:
+    """Three boundaries of a golden journal, as ``crash_after`` values
+    (the count of records the killed run processes): the middle
+    ``ResultLanded`` of the second round, the record right after the first
+    ``round_close`` (the snapshot boundary), and ``n_records - 1``."""
+    landed = [r["q"] for r in records
+              if r["k"] == "ResultLanded" and r["r"] == 1]
+    closes = [r["q"] for r in records if r["k"] == "round_close"]
+    if not landed or not closes:
+        raise AssertionError("the golden journal has no ResultLanded in "
+                             "round 2 or no round_close")
+    return {"mid_round_2": landed[len(landed) // 2] + 1,
+            "after_round_close": closes[0] + 2,
+            "n_records_minus_1": len(records) - 1}
+
+
+def resume_launches(eng, n_invocations: int, snap_round: int) -> dict:
+    """The launches a resumed run must have made: one aggregate (and, for
+    top-k, one selection) a round it re-executed from ``snap_round``, one
+    Adam step a local step of each re-executed cohort's largest budget
+    (one trainer call a (round, instant) of the invocations it added past
+    the first ``n_invocations``)."""
+    cohorts = collections.defaultdict(int)
+    for r in eng.platform.invocations[n_invocations:]:
+        key = (r.round, r.t_invoked)
+        cohorts[key] = max(cohorts[key], step_budget(
+            eng.data, r.client_id, eng.cfg.batch_size, eng.cfg.local_epochs))
+    rounds = eng.db.round - snap_round
+    want = {"staleness_agg": rounds, "fused_adam": sum(cohorts.values())}
+    if eng.cfg.strategy == "apodotiko-topk":
+        want["block_topk"] = rounds
+    return want
+
+
+def crash_and_resume(cfg, model, data, dev, k: int, gold: dict,
+                     gold_journal: bytes) -> dict:
+    """Kill a durable run after journal record ``k``, resume it on ``dev``
+    (``resume_durable``, timed: truncate, validate, load, build, install)
+    and run it to the end with every kernel count zeroed just before the
+    resume and read just after. Returns its record, with ``equal``: the
+    journal bytes and every ``durable_state`` key against the golden run's,
+    and the launches against ``resume_launches``."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.durability import SimulatedCrash, resume_durable
+    from repro_torch.faas.hardware import paper_fleet
+
+    fleet = list(paper_fleet(cfg.n_clients))
+    eng = build_engine(cfg, model, data, list(fleet), device=dev)
+    eng.durability.crash_after = k
+    try:
+        eng.run()
+        raise AssertionError(f"the run ended before its crash point {k}")
+    except SimulatedCrash:
+        pass
+    del eng
+    zero_counts()
+    t0 = time.perf_counter()
+    res = resume_durable(cfg, model, data, list(fleet), device=dev)
+    resume_s = time.perf_counter() - t0
+    snap_round, n_inv = res.db.round, len(res.platform.invocations)
+    m = res.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    want = resume_launches(res, n_inv, snap_round)
+    got = durable_state(res)
+    journal_equal = read_bytes(os.path.join(
+        cfg.checkpoint_dir, "journal.wal")) == gold_journal
+    differ = unequal(got, gold) + ([] if journal_equal else ["journal"])
+    return {"crash_after": k, "snapshot_round": snap_round,
+            "journal_replayed": m["journal_replayed"],
+            "resume_ms": resume_s * 1e3,
+            "launches": {n: launches[n] for n in want},
+            "launches_wanted": want, "differs": differ,
+            "live_rows": len(got["live_rows"])}
+
+
+def durable_cfg(strategy: str, rounds: int, root: str, **over):
+    """``paper_cfg`` with ``durability="journal"`` in ``root``."""
+    return paper_cfg(strategy, rounds, durability="journal",
+                     checkpoint_dir=root, **over)
+
+
+def timed_durable_run(cfg, model, data, dev) -> tuple:
+    """(engine, metrics, wall s) of one run through ``build_engine``."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.faas.hardware import paper_fleet
+
+    eng = build_engine(cfg, model, data, list(paper_fleet(cfg.n_clients)),
+                       device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return eng, m, time.perf_counter() - t0
+
+
+def snapshot_bytes(root: str) -> list:
+    """Bytes of each snapshot kept in ``root``, from its manifest."""
+    from repro_torch.durability import list_snapshots
+    from repro_torch.durability.snapshot import MANIFEST, snapshot_dir
+    out = []
+    for seq in list_snapshots(root):
+        with open(os.path.join(snapshot_dir(root, seq), MANIFEST)) as f:
+            out.append(sum(v["size"] for v in json.load(f)["files"].values()))
+    return out
+
+
+def golden_crash_series(strategy: str, rounds: int, points, model, data,
+                        dev, tmp: str, after_golden=None, **size) -> dict:
+    """One golden durable run of ``strategy`` and a crash-and-resume at each
+    boundary ``points(records)`` names (``after_golden()``, if given, is
+    called between the two); each resumed run's directory is removed after
+    its comparison, the golden one at the end."""
+    import shutil
+
+    from repro_torch.core.journal import Journal
+
+    gold_dir = os.path.join(tmp, f"{strategy}-golden")
+    eng, m, wall = timed_durable_run(
+        durable_cfg(strategy, rounds, gold_dir, **size), model, data, dev)
+    gold, gold_journal = durable_state(eng), read_bytes(
+        os.path.join(gold_dir, "journal.wal"))
+    records, _ = Journal.read(os.path.join(gold_dir, "journal.wal"))
+    out = {"wall_s": wall, "rounds": len(eng.history),
+           "snapshot_bytes": snapshot_bytes(gold_dir),
+           "snapshot_ms": m["snapshot_s"] / max(m["n_snapshots"], 1) * 1e3,
+           **{k: m[k] for k in ("journal_records", "journal_bytes",
+                                "journal_fsyncs", "n_snapshots",
+                                "durability_sync")},
+           "live_rows": len(gold["live_rows"]), "crashes": {}}
+    del eng
+    shutil.rmtree(gold_dir)
+    if after_golden is not None:
+        after_golden()
+    for name, k in points(records).items():
+        root = os.path.join(tmp, f"{strategy}-{name}")
+        out["crashes"][name] = crash_and_resume(
+            durable_cfg(strategy, rounds, root, **size), model, data, dev,
+            k, gold, gold_journal)
+        shutil.rmtree(root)
+        gc.collect()            # an engine and its manager hold each other
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def start_child(dev, tmp: str) -> tuple:
+    """Start ``scripts/torch_durable_crash_child.py`` on ``dev`` under
+    deterministic algorithms, armed to die by a real SIGKILL after journal
+    record ``DUR_CHILD_CRASH``. It runs beside this process (its start-up,
+    most of its time, overlaps the crash runs). Returns (the process, its
+    start time, its checkpoint directory)."""
+    kill_dir = os.path.join(tmp, "child-killed")
+    proc = subprocess.Popen(
+        [sys.executable, str(DUR_CHILD), kill_dir, "--crash-after",
+         str(DUR_CHILD_CRASH), "--crash-mode", "sigkill", "--device",
+         dev.type, "--deterministic"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter(), kill_dir
+
+
+def sigkill_child(started: tuple, dev, tmp: str) -> dict:
+    """Wait for the child of ``start_child``, which must have died by
+    SIGKILL with ``DUR_CHILD_CRASH`` records on disk; then resume it in
+    this process on ``dev`` and hold it to an in-process golden run of the
+    child's config."""
+    import importlib.util
+
+    from repro_torch.core.journal import Journal
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.durability import resume_durable
+
+    proc, t0, kill_dir = started
+    _, err = proc.communicate(timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -9:
+        raise AssertionError(f"the child exited {proc.returncode}, not by "
+                             f"SIGKILL: {err[-800:]}")
+    spec = importlib.util.spec_from_file_location("torch_durable_crash_child",
+                                                  DUR_CHILD)
+    child = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(child)
+    gold_dir = os.path.join(tmp, "child-golden")
+    records, _ = Journal.read(os.path.join(kill_dir, "journal.wal"))
+    gold_eng = build_engine(child.child_config(gold_dir),
+                            *child.child_setup(), device=dev)
+    gold_eng.run()
+    res = resume_durable(child.child_config(kill_dir), *child.child_setup(),
+                         device=dev)
+    snap_round = res.db.round
+    res.run()
+    differ = unequal(durable_state(res), durable_state(gold_eng))
+    if read_bytes(os.path.join(kill_dir, "journal.wal")) != read_bytes(
+            os.path.join(gold_dir, "journal.wal")):
+        differ.append("journal")
+    return {"crash_after": DUR_CHILD_CRASH, "returncode": proc.returncode,
+            "child_wall_s": child_s, "records_on_disk": len(records),
+            "snapshot_round": snap_round, "device": str(res.device),
+            "differs": differ}
+
+
+def checkpoint_resume(model, data, dev, tmp: str, **size) -> dict:
+    """The poll loop's database checkpoints: ``apodotiko`` on the
+    ``Controller`` with ``checkpoint_every=1`` for 2 rounds, its stragglers
+    landed and one more ``checkpoint()`` (so the checkpoint holds live
+    rows), then ``Controller.resume`` with ``rounds=3``: the round counter,
+    client records, results, params and live update rows (ids and bits)
+    equal the checkpoint's, and the resumed run finishes its round with one
+    aggregate."""
+    from repro_torch.core.controller import Controller
+    from repro_torch.faas.hardware import paper_fleet
+
+    root = os.path.join(tmp, "checkpoint")
+    cfg = paper_cfg("apodotiko", 2, engine="legacy", checkpoint_every=1,
+                    checkpoint_dir=root, **size)
+    fleet = list(paper_fleet(cfg.n_clients))
+    ctl = Controller(cfg, model, data, list(fleet), device=dev)
+    cadence, checkpoint = [], ctl.checkpoint
+
+    def counted():
+        cadence.append(ctl.db.round)
+        checkpoint()
+
+    ctl.checkpoint = counted
+    ctl.run()
+    while ctl.loop.step():      # land the stragglers: live rows to save
+        pass
+    t0 = time.perf_counter()
+    checkpoint()
+    save_s = time.perf_counter() - t0
+
+    def state(eng):
+        live = sorted(r.update_row for r in eng.db.results
+                      if not r.aggregated)
+        out = durable_state(eng)
+        clients = out["fleet_host"] if eng.db.columnar else {
+            c: asdict(r) for c, r in eng.db.clients.items()}
+        return {"round": eng.db.round, "results": [
+                    asdict(r) for r in eng.db.results],
+                "clients": clients, "params": out["params"],
+                "pending_rows": live,
+                "rows": eng.store.gather(live).view(torch.int32).cpu()}
+
+    want = state(ctl)
+    del ctl
+    t0 = time.perf_counter()
+    res = Controller.resume(paper_cfg("apodotiko", 3, engine="legacy",
+                                      checkpoint_dir=root, **size),
+                            model, data, list(fleet), device=dev)
+    resume_s = time.perf_counter() - t0
+    got = state(res)
+    zero_counts()
+    m = res.run()
+    launches = read_counts()
+    return {"cadence": cadence, "checkpoint_round": want["round"],
+            "live_rows": len(want["pending_rows"]), "save_ms": save_s * 1e3,
+            "resume_ms": resume_s * 1e3, "differs": unequal(got, want),
+            "resumed_rounds": m["rounds"], "final_round": res.db.round,
+            "staleness_agg": launches["staleness_agg"]}
+
+
+def durability_phase(data, dev, model=None, **size) -> dict:
+    """Durable runs at the paper's MNIST width (``paper_cfg``; MnistCNN
+    unless ``model`` is given, ``size`` cuts the config for a rehearsal),
+    under ``torch.use_deterministic_algorithms(True)`` (restored after), in
+    a temporary directory removed at the end:
+
+      1. ``apodotiko``, 3 rounds, ``durability="journal"``, a snapshot every
+         round: the golden run, then three runs killed (``crash_after``)
+         at the boundaries of ``crash_points`` and resumed
+         (``resume_durable``) on the card: journal bytes, history, clock,
+         params, free list, live rows and generator equal the golden
+         run's, and the resumed runs launch ``staleness_agg`` once a
+         re-executed round and ``fused_adam`` once a local step of each
+         re-executed cohort's largest budget;
+      2. ``apodotiko-topk``, 2 rounds, one crash mid-round 2: also the
+         fleet's booster and score state, and ``block_topk`` once a
+         re-executed round;
+      3. the overhead: the same 3-round ``apodotiko`` run with durability
+         off just before the golden run (journal, "round" sync): both
+         walls, the journal's records, bytes and fsyncs, snapshot ms and
+         bytes, resume ms, the overhead beside the reference's CI limit
+         (informational); and a real SIGKILL of
+         ``scripts/torch_durable_crash_child.py`` on the card, started
+         after the golden run (so it perturbs no wall of the overhead)
+         and run beside the crash runs, resumed here;
+      4. ``checkpoint_resume``.
+
+    Any difference fails the phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models.paper_models import MnistCNN
+
+    model = model or MnistCNN()
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_durability_")
+    t_phase = time.perf_counter()
+    started = []
+    try:
+        off_eng, m_off, wall_off = timed_durable_run(
+            paper_cfg("apodotiko", DUR_ROUNDS, **size), model, data, dev)
+        del off_eng
+        apo = golden_crash_series(
+            "apodotiko", DUR_ROUNDS, crash_points, model, data, dev, tmp,
+            after_golden=lambda: started.append(start_child(dev, tmp)),
+            **size)
+        topk = golden_crash_series(
+            "apodotiko-topk", DUR_TOPK_ROUNDS,
+            lambda recs: {"mid_round_2": crash_points(recs)["mid_round_2"]},
+            model, data, dev, tmp, **size)
+        child = sigkill_child(started[0], dev, tmp)
+        ckpt = checkpoint_resume(model, data, dev, tmp, **size)
+    finally:
+        for proc, _, _ in started:      # stop the child on any failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(tmp, ignore_errors=True)
+    overhead = apo["wall_s"] / wall_off - 1
+    record = {"deterministic_algorithms": True,
+              "config": {k: getattr(paper_cfg("apodotiko", DUR_ROUNDS,
+                                              **size), k)
+                         for k in ("n_clients", "clients_per_round",
+                                   "local_epochs", "batch_size",
+                                   "concurrency_ratio")},
+              "apodotiko": apo, "apodotiko_topk": topk,
+              "overhead": {"off_wall_s": wall_off,
+                           "journal_wall_s": apo["wall_s"],
+                           "overhead": overhead,
+                           "reference_ci_limit": DUR_CI_LIMIT,
+                           "durability_off": m_off["durability"]},
+              "sigkill": child, "checkpoint": ckpt,
+              "seconds": time.perf_counter() - t_phase}
+    emit("durability", **record)
+    for name, series in (("apodotiko", apo), ("apodotiko-topk", topk)):
+        for point, c in series["crashes"].items():
+            if c["differs"]:
+                raise AssertionError(f"durability {name} {point}: the "
+                                     f"resumed run differs in {c['differs']}")
+            if c["launches"] != c["launches_wanted"]:
+                raise AssertionError(
+                    f"durability {name} {point}: launched {c['launches']}, "
+                    f"want {c['launches_wanted']}")
+    if child["differs"] or child["records_on_disk"] != DUR_CHILD_CRASH:
+        raise AssertionError(f"durability: the SIGKILL child's resume "
+                             f"differs in {child['differs']} "
+                             f"({child['records_on_disk']} records on disk)")
+    if ckpt["differs"] or ckpt["cadence"] != [1, 2] or \
+            ckpt["final_round"] != 3 or ckpt["staleness_agg"] != 1:
+        raise AssertionError(f"durability: the checkpoint resume: {ckpt}")
+    if m_off["durability"] != "off":
+        raise AssertionError("durability: the off run journaled")
+    return record
 
 
 # ----------------------------------------------------------------- compress
@@ -2522,12 +2982,14 @@ def main() -> int:
     phase_s["main_path"] = time.perf_counter() - t0
     timed("megastep", megastep_phase, data, dev)
     profiles = timed("profiles", profiles_phase, data, dev)
+    timed("durability", durability_phase, data, dev)
     main_m = topk_engine.db.fleet.capacity
     main_selection = main_path_selection(topk_engine)
     fleet, fleet_state = timed("fleet", fleet_phase, dev)
     timed("topk_sort_route", topk_sort_route_phase, fleet_state, dev)
     timed("reference", reference_phase, dev)
-    timed("profile", profile_round, data, dev, avg["rounds"][0]["wall_s"])
+    timed("profile", profile_round, data, dev, avg["rounds"][0]["wall_s"],
+          avg["largest_step_budget"])
     update = mnist_update(apo_engine, dev)
     compress = timed("compress", compress_phase, update, main_run(apo))
     with fp32_exact():

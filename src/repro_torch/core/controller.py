@@ -19,7 +19,13 @@ coin or any seeded ``fault_profile`` schedule, ``faas/faults.py``) simply
 never produce results, and the recovery layer (timeouts, retries,
 quarantine) is Scheduler-only, so recovery knobs stay off for
 cross-engine runs. Open-loop traffic is applied once a round, at its
-first poll, as the Scheduler applies it at round open.
+first poll, as the Scheduler applies it at round open. The controller
+checkpoints {global model, client records, scores, boosters, round, live
+update rows} every ``checkpoint_every`` rounds and resumes from the
+database (``Controller.resume``); with ``durability="journal"`` its events
+are journaled through ``_emit``, with a ``round_open`` marker at each
+fresh round, a round-close marker (and on cadence a snapshot) at each
+close, and ``run_end`` when the loop ends.
 
 Usage: ``Controller(cfg, model, data, fleet, device=None).run()``; the
 device defaults to the CUDA card.
@@ -50,6 +56,10 @@ class Controller(FLRuntime):
                 # traffic in _open_round, never on adapter re-selects)
                 self._apply_due_traffic()
                 traffic_round = round_
+                if self.durability is not None:
+                    # the poll loop has no RoundStarted event; the marker
+                    # gives its journal the same open boundary
+                    self.durability.record_marker("round_open", round_)
             selection = strat.select(self.db, round_)
             if not selection:
                 # every client busy: advance until something completes, or,
@@ -83,6 +93,7 @@ class Controller(FLRuntime):
             if n_agg == 0:
                 round_ += 1
                 self.db.round = round_
+                self._durability_round_closed()
                 continue
             if cfg.eval_every and round_ % cfg.eval_every == 0:
                 self._acc = self.evaluate()
@@ -94,6 +105,11 @@ class Controller(FLRuntime):
                 progress(log)
             round_ += 1
             self.db.round = round_
+            self._durability_round_closed()
+            if cfg.checkpoint_every and round_ % cfg.checkpoint_every == 0:
+                self.checkpoint()
             if cfg.target_accuracy and self._acc >= cfg.target_accuracy:
                 break
+        if self.durability is not None:
+            self.durability.finish()
         return self.metrics()

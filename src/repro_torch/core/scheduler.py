@@ -28,8 +28,11 @@ reference): a run of provably quiescent rounds runs as one fused loop, and
 ``megastep_fallback_reason`` says why a round did not. Open-loop traffic
 (``FLConfig.traffic_profile``) shifts membership only at fresh-round open,
 as in the poll loop, and a run stalled for lack of clients jumps to the
-next arrival boundary. The reference's durability hooks are not part of
-the port yet: durability stays off.
+next arrival boundary. With ``durability="journal"`` every dispatched event
+is journaled before its actions run (``_dispatch``), each round close
+writes its marker and, on cadence, a coordinated snapshot, and ``run``
+ends the journal with ``run_end`` (``repro_torch.durability``); a durable
+run refuses the megastep, whose fused rounds dispatch no events.
 
 Entry points::
 
@@ -50,6 +53,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from repro_torch.core.controller import Controller
+from repro_torch.core.database import Database
 from repro_torch.core.megastep import try_megastep
 from repro_torch.core.protocol import (Action, Aggregate, CancelInvocation,
                                        DatabaseView, EndRun, Event, Hedge,
@@ -83,15 +87,17 @@ class Scheduler(FLRuntime):
     engine_name = "scheduler"
 
     def __init__(self, cfg: FLConfig, model, data, fleet, *,
-                 policy: Optional[ReactivePolicy] = None, init_params=None,
+                 policy: Optional[ReactivePolicy] = None,
+                 db: Optional[Database] = None, init_params=None,
                  device=None):
         if policy is None:
             policy = make_policy(cfg.strategy, strategy_config(cfg))
         if recovery_enabled(cfg) and not isinstance(policy, RecoveryPolicy):
             policy = RecoveryPolicy(policy, cfg)
         self.policy = policy
-        super().__init__(cfg, model, data, fleet, init_params=init_params,
-                         strategy=policy.strategy, device=device)
+        super().__init__(cfg, model, data, fleet, db=db,
+                         init_params=init_params, strategy=policy.strategy,
+                         device=device)
         self.view = DatabaseView(self)
         self._timers: list[tuple] = []   # (time, seq, round, tag)
         self._timer_seq = itertools.count()
@@ -113,7 +119,11 @@ class Scheduler(FLRuntime):
         cfg = self.cfg
         self._progress = progress
         self._done = False
+        # NOTE: self._acc is NOT reset here — it carries the last
+        # evaluated accuracy across a durable resume (eval_every > 1)
         if self.db.round >= cfg.rounds or self.loop.now >= cfg.max_sim_time:
+            if self.durability is not None:
+                self.durability.finish()
             return self.metrics()
         self._open_round()
         drained = 0
@@ -137,6 +147,8 @@ class Scheduler(FLRuntime):
             if drained > 1:
                 break               # policy made no progress on drain
             self._dispatch(LoopDrained(t=self.loop.now))
+        if self.durability is not None:
+            self.durability.finish()
         return self.metrics()
 
     # ------------------------------------------------------------------- pump
@@ -219,6 +231,10 @@ class Scheduler(FLRuntime):
         self._dispatch(event)
 
     def _dispatch(self, event: Event) -> None:
+        # write-ahead: the journal records the occurrence before any of
+        # its actions execute (repro_torch.durability)
+        if self.durability is not None:
+            self.durability.record_event(event)
         self.n_events += 1
         actions = self.policy.on_event(event, self.view)
         for action in self._coalesce(actions or ()):
@@ -344,9 +360,13 @@ class Scheduler(FLRuntime):
             if self._progress:
                 self._progress(log)
         self.db.round = round_ + 1
-        if n_agg and cfg.target_accuracy and self._acc >= cfg.target_accuracy:
-            self._done = True
-            return
+        self._durability_round_closed()
+        if n_agg:
+            if cfg.checkpoint_every and self.db.round % cfg.checkpoint_every == 0:
+                self.checkpoint()
+            if cfg.target_accuracy and self._acc >= cfg.target_accuracy:
+                self._done = True
+                return
         if self.db.round >= cfg.rounds or self.loop.now >= cfg.max_sim_time:
             self._done = True
             return

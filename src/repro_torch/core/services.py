@@ -22,7 +22,13 @@ buffer ``c_buf``, flat ``[W]`` / ``[capacity, W]`` fp32 rows on the card in
 ``remove_clients``), seeded fault injection (``faas.faults``: the platform
 evaluates ``FLConfig.fault_profile`` once an invocation) and the open-loop
 traffic plane (``traffic``: a compiled schedule of bulk joins and leaves,
-applied at fresh-round open by both engines).
+applied at fresh-round open by both engines). With ``durability="journal"``
+a ``durability.DurabilityManager`` journals every protocol event before its
+effects (``_emit``, and the Scheduler's ``_dispatch``) and writes a
+coordinated snapshot at round close (``_durability_round_closed``), so a
+killed run resumes bit-identically (``durability.resume_durable``); the
+database checkpoints of ``checkpoint_every`` / ``checkpoint_dir`` are
+``checkpoint`` and ``FLRuntime.resume``.
 
 Drivers differ only in *when* they call the services: ``Controller`` keeps
 the poll loop (Algorithm 1 verbatim); ``Scheduler`` dispatches typed
@@ -34,12 +40,13 @@ The port runs both engines on either update plane (``device`` rows, or
 plane (``device`` resident, or ``host``: per-dispatch upload), on the
 ``object`` or ``columnar`` control plane, with any fault or traffic
 profile, and the Scheduler's fused-round megastep (``megastep="fused"``,
-the default, as in the reference). Settings that need a later slice raise
-``NotImplementedError`` naming it (``_check_supported``): durability and
-checkpointing, and meshes other than ``1x1``.
+the default, as in the reference), durable or not, with database
+checkpoints or without. Meshes other than ``1x1`` need a later slice and
+raise ``NotImplementedError`` naming it (``_check_supported``).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Any, Optional
 
@@ -72,6 +79,8 @@ from repro_torch.traffic import (build_traffic_schedule,
                                  resolve_traffic_profile, slo_summary)
 
 Params = Any
+
+UPDATE_STORE_DIRNAME = "update_store"
 
 
 def _resolve(value: str, default: str) -> str:
@@ -112,6 +121,29 @@ def resolve_megastep(mode: str) -> str:
     return mode
 
 
+def resolve_durability(mode: str) -> str:
+    """'off' (= 'auto': no journal, no snapshots, zero extra work — every
+    trace bit-identical) | 'journal' (write-ahead event journal +
+    coordinated round-boundary snapshots, ``repro_torch.durability``).
+    Unlike the reference, no environment variable is read."""
+    mode = _resolve(mode, "off")
+    if mode not in ("off", "journal"):
+        raise ValueError(f"unknown durability mode {mode!r} "
+                         "(expected 'off', 'journal', or 'auto')")
+    return mode
+
+
+def resolve_durability_sync(mode: str) -> str:
+    """'round' (= 'auto': fsync the journal at round boundaries only) |
+    'event' (fsync every record — strongest, slowest). Unlike the
+    reference, no environment variable is read."""
+    mode = _resolve(mode, "round")
+    if mode not in ("event", "round"):
+        raise ValueError(f"unknown durability sync policy {mode!r} "
+                         "(expected 'event', 'round', or 'auto')")
+    return mode
+
+
 def _check_supported(cfg: "FLConfig") -> None:
     """Raise for every setting this slice of the port does not run."""
     later = "comes with a later slice of the port"
@@ -121,10 +153,6 @@ def _check_supported(cfg: "FLConfig") -> None:
         raise ValueError(f"unknown control plane {cfg.control_plane!r}")
     if _resolve(cfg.mesh, "1x1") != "1x1":
         raise NotImplementedError(f"mesh={cfg.mesh!r} {later}")
-    if _resolve(cfg.durability, "off") != "off":
-        raise NotImplementedError(f"durability={cfg.durability!r} {later}")
-    if cfg.checkpoint_every and cfg.checkpoint_dir:
-        raise NotImplementedError(f"checkpointing {later}")
 
 
 @dataclass
@@ -135,12 +163,10 @@ class FLConfig:
     Paper defaults (IV-A): 200 clients, 100 per round, E=5 local epochs,
     batch 10 (MNIST), Adam 1e-3, CR=0.3, rho=0.2, staleness cap 5.
 
-    The fields and their meaning are the reference's, minus the tuning
-    knobs of durability (journal sync policy and snapshot cadence), which
-    comes with a later slice. In the port an ``"auto"`` value resolves to
-    the default the comment names without reading any ``REPRO_*``
-    environment variable. Every setting runs except durability,
-    checkpointing and meshes other than ``1x1``, which raise
+    The fields, their defaults and their meaning are the reference's. In
+    the port an ``"auto"`` value resolves to the default the comment names
+    without reading any ``REPRO_*`` environment variable. Every setting
+    runs except meshes other than ``1x1``, which raise
     (``_check_supported``)."""
 
     # -- population & schedule -------------------------------------------------
@@ -221,8 +247,19 @@ class FLConfig:
     #                                 (= "auto"): runs of quiescent rounds as
     #                                 one fused loop (core.megastep), or
     #                                 "stepwise", the event-driven oracle
-    durability: str = "auto"       # durable runs: "auto"/"off" only in this
-    #                                 slice
+    durability: str = "auto"       # durable runs: "journal"
+    #                                 write-ahead-journals every protocol
+    #                                 event and snapshots all planes at
+    #                                 round boundaries so a killed run
+    #                                 resumes bit-identically
+    #                                 (durability.resume_durable); "off"
+    #                                 (= "auto") does nothing
+    durability_sync: str = "auto"  # journal fsync policy: "event" (every
+    #                                 record) | "round" (= "auto": round
+    #                                 boundaries only)
+    durability_snap_every: int = 1  # coordinated snapshot every k closed
+    #                                 rounds (journal validation covers the
+    #                                 re-executed gap on resume)
     mesh: str = "auto"             # device mesh: "1x1" (= "auto") only in
     #                                 this slice
     # -- harness ---------------------------------------------------------------
@@ -292,12 +329,15 @@ class Inflight:
 class FLRuntime:
     """State + round services shared by the ``Controller`` poll loop and the
     event-driven ``Scheduler`` (see module docstring). ``device`` defaults
-    to the CUDA card."""
+    to the CUDA card. ``db`` is a restored database (``resume``,
+    ``durability.resume_durable``): its control plane is authoritative and
+    no client is registered anew."""
 
     engine_name = "runtime"
 
     def __init__(self, cfg: FLConfig, model, data, fleet: list[HardwareProfile],
-                 *, init_params: Optional[Params] = None,
+                 *, db: Optional[Database] = None,
+                 init_params: Optional[Params] = None,
                  strategy: Optional[Strategy] = None, device=None):
         _check_supported(cfg)
         self.device = resolve_device(device)
@@ -333,26 +373,30 @@ class FLRuntime:
             batch_size=cfg.batch_size, prox_mu=self.strategy.prox_mu,
             seed=cfg.seed, device=self.device)
 
-        self.control_plane = _resolve(cfg.control_plane, "columnar")
-        self.db = Database(control_plane=self.control_plane,
-                           device=self.device)
+        # control plane: a restored database's plane is authoritative (its
+        # client state is stored in that representation)
+        self.control_plane = (db.control_plane if db is not None
+                              else _resolve(cfg.control_plane, "columnar"))
+        self.db = db or Database(control_plane=self.control_plane,
+                                 device=self.device)
         if self.db.columnar:
             # incremental-EMA decay (lambda = 1 - rho)
             self.db.fleet.decay = decay_rate(cfg.adjustment_rate)
-        if self.traffic is not None:
-            # open-loop: only the schedule's initial membership exists at
-            # t=0; later arrivals land via bulk traffic segments
-            init = self.traffic.initial
-            self.db.register_clients_bulk(
-                init, data.n[init], cfg.batch_size, cfg.local_epochs,
-                hardware=[fleet[int(c)].name for c in init])
-        else:
-            for cid in range(cfg.n_clients):
-                self.db.register_client(ClientRecord(
-                    client_id=cid, hardware=fleet[cid].name,
-                    data_cardinality=int(data.n[cid]),
-                    batch_size=cfg.batch_size,
-                    local_epochs=cfg.local_epochs))
+        if db is None:
+            if self.traffic is not None:
+                # open-loop: only the schedule's initial membership exists
+                # at t=0; later arrivals land via bulk traffic segments
+                init = self.traffic.initial
+                self.db.register_clients_bulk(
+                    init, data.n[init], cfg.batch_size, cfg.local_epochs,
+                    hardware=[fleet[int(c)].name for c in init])
+            else:
+                for cid in range(cfg.n_clients):
+                    self.db.register_client(ClientRecord(
+                        client_id=cid, hardware=fleet[cid].name,
+                        data_cardinality=int(data.n[cid]),
+                        batch_size=cfg.batch_size,
+                        local_epochs=cfg.local_epochs))
         self.hw = {cid: fleet[cid] for cid in range(len(fleet))}
         # never pruned: cost/metrics must resolve hardware for historical
         # invocations of since-removed clients
@@ -362,7 +406,9 @@ class FLRuntime:
         # clients may share one HardwareProfile object)
         self._fleet_pos = {cid: cid for cid in range(len(fleet))}
 
-        if init_params is None:
+        if init_params is None and self.db.global_models:
+            init_params = self.db.latest_global()
+        elif init_params is None:
             gen = torch.Generator().manual_seed(cfg.seed)
             init_params = model.init(gen)
         self.params = tree_map(
@@ -388,10 +434,14 @@ class FLRuntime:
         self.spec = RavelSpec(self.params)
         self.store: Optional[UpdateStore] = None
         self.update_host_bytes = 0  # bytes moved host<->card for updates
+        if db is not None:
+            self._check_plane_compatible(db)
         if self.update_plane == "device":
             self.store = UpdateStore(self.spec.n_params,
                                      capacity=max(cfg.clients_per_round, 1),
                                      device=self.device)
+            if db is not None and cfg.checkpoint_dir:
+                self._rehydrate_store()
         # data plane: the federated dataset is resident on the card, or
         # (host) each cohort's arrays are uploaded per dispatch
         self.data_plane = resolve_data_plane(cfg.data_plane)
@@ -409,6 +459,12 @@ class FLRuntime:
                                         dtype=torch.float32,
                                         device=self.device)
             self._ensure_c_capacity(max(cfg.n_clients, 1))
+        # durability plane: off by default — no journal, no snapshots, no
+        # RNG draws, every trace bit-identical
+        self.durability = None
+        if resolve_durability(cfg.durability) == "journal":
+            from repro_torch.durability.manager import DurabilityManager
+            self.durability = DurabilityManager(self)
 
     # -- driver view contract (protocol.DatabaseView reads these) ------------
     @property
@@ -418,6 +474,38 @@ class FLRuntime:
     @property
     def round_start(self) -> float:
         return getattr(self, "_t0", 0.0)
+
+    def _check_plane_compatible(self, db: Database) -> None:
+        """A checkpoint written under one update plane cannot feed pending
+        results to the other: blob records carry update_row=-1 (which would
+        silently index the last buffer row) and device records carry no
+        blob. Switching planes across a resume is fine once nothing is
+        in flight."""
+        saved = db.meta.get("update_plane")
+        if saved is None or saved == self.update_plane:
+            return
+        if any(not r.aggregated for r in db.results):
+            raise ValueError(
+                f"checkpoint was written with update_plane={saved!r} and "
+                f"has un-aggregated results; resuming with "
+                f"update_plane={self.update_plane!r} would corrupt them — "
+                f"set cfg.update_plane={saved!r} to resume, or aggregate "
+                f"before switching planes")
+
+    def _rehydrate_store(self) -> None:
+        """Resume path: reload the live un-aggregated update rows saved at
+        checkpoint time, at their original ids so ResultRecord handles in
+        the restored database stay valid."""
+        from repro_torch.checkpoint import restore_update_store
+        d = os.path.join(self.cfg.checkpoint_dir, UPDATE_STORE_DIRNAME)
+        if not os.path.isdir(d):
+            return
+        ids, rows, n_params = restore_update_store(d)
+        if n_params != self.spec.n_params:
+            raise ValueError(
+                f"update-store checkpoint has N={n_params} params but the "
+                f"model has N={self.spec.n_params}")
+        self.store.write_at(ids, rows)
 
     def _row_width(self) -> int:
         """The flat row width of an update or a SCAFFOLD variate: the
@@ -556,8 +644,18 @@ class FLRuntime:
 
     # -------------------------------------------------- protocol emit hook
     def _emit(self, event: Event) -> None:
-        """Protocol dispatch hook: a no-op for the poll loop; the
-        ``Scheduler`` overrides it to hand the event to its policy."""
+        """Protocol dispatch hook: journal-only for the poll loop; the
+        ``Scheduler`` overrides this to hand the event to its policy
+        (which journals at the top of ``_dispatch`` instead)."""
+        if self.durability is not None:
+            self.durability.record_event(event)
+
+    def _durability_round_closed(self) -> None:
+        """Both engines call this immediately after ``db.round``
+        advances: the round-close journal marker plus, on cadence, the
+        coordinated snapshot (``repro_torch.durability``)."""
+        if self.durability is not None:
+            self.durability.on_round_closed()
 
     # -------------------------------------------------- invocation service
     def invoke_round(self, round_: int, selection: list[int],
@@ -877,6 +975,9 @@ class FLRuntime:
             "n_quarantined": self.n_quarantined,
             "retry_latency_s": self.retry_latency_s,
             "failures_by_phase": self._failures_by_phase(inv),
+            # durability plane
+            **(self.durability.metrics() if self.durability is not None
+               else {"durability": "off"}),
             "selection_bias": (max(count_arr) - min(count_arr)) if count_arr else 0,
             "invocation_counts": count_arr,
             "history": [(l.t_end, l.round, l.accuracy) for l in self.history],
@@ -889,6 +990,35 @@ class FLRuntime:
             if l.accuracy >= target:
                 return l.t_end
         return None
+
+    # ------------------------------------------------------------- checkpoint
+    def checkpoint(self) -> None:
+        """Save the database (client records, results, round, the global
+        model as host arrays) to ``cfg.checkpoint_dir``, and on the device
+        plane the live un-aggregated update rows beside it."""
+        if not self.cfg.checkpoint_dir:
+            return
+        self.db.meta["update_plane"] = self.update_plane
+        self.db.put_global_model(self.db.round, tree_map(
+            lambda p: p.detach().cpu().numpy(), self.params))
+        self.db.save(self.cfg.checkpoint_dir)
+        if self.update_plane == "device":
+            # persist the live un-aggregated rows so the async in-flight
+            # state survives a crash bit-exactly (handles stay valid)
+            from repro_torch.checkpoint import save_update_store
+            ids = [r.update_row for r in self.db.results
+                   if not r.aggregated and r.update_row >= 0]
+            save_update_store(
+                self.store, ids,
+                os.path.join(self.cfg.checkpoint_dir, UPDATE_STORE_DIRNAME))
+
+    @classmethod
+    def resume(cls, cfg: FLConfig, model, data, fleet, device=None):
+        """Rebuild an engine from the database ``checkpoint`` saved in
+        ``cfg.checkpoint_dir`` (on the card unless ``device`` says
+        otherwise)."""
+        db = Database.load(cfg.checkpoint_dir, device=resolve_device(device))
+        return cls(cfg, model, data, fleet, db=db, device=device)
 
     @staticmethod
     def _failures_by_phase(inv) -> dict:

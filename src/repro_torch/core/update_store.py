@@ -13,7 +13,9 @@ Geometry as in the reference: ``W`` is ``n_params`` rounded up to 1024 and
 dry, and the free-list order (and so every row id) matches the reference's
 for the same sequence of calls. ``free_stack`` hands that order to the
 fused-round megastep (``core.megastep``), which replays the LIFO pops and
-pushes on the card.
+pushes on the card. Checkpoints and durable snapshots save only the live
+rows and write them back at their original ids (``write_at``), so record
+handles stay valid bit-exactly after a resume.
 
 The stacked helpers ``gather_stacked`` / ``scatter_stacked_tree`` /
 ``grow_stacked`` are the reference's persistent-buffer contract (SCAFFOLD's
@@ -113,6 +115,25 @@ class UpdateStore:
         ids = self.alloc(rows.shape[0])
         scatter_rows(self.buffer, ids, rows)
         return ids
+
+    def write_at(self, ids: Sequence[int], rows) -> None:
+        """Write rows at specific ids (checkpoint rehydration and snapshot
+        install), reserving them. Accepts [L, n_params] or full [L, W] rows
+        (host arrays or tensors); rows of a store with a wider W are
+        trimmed to this store's W (the excess is tail pad zeros)."""
+        ids = np.asarray(ids, np.int64)
+        if ids.size == 0:
+            return
+        self._ensure(int(ids.max()) + 1)
+        for i in ids:
+            i = int(i)
+            if i in self._free:
+                self._free.remove(i)
+            self._live.add(i)
+        rows = torch.as_tensor(rows)
+        if rows.shape[1] > self.row_width:
+            rows = rows[:, : self.row_width]
+        scatter_rows(self.buffer, ids, rows.to(self.device))
 
     def gather(self, ids: Sequence[int]) -> torch.Tensor:
         """[len(ids), W] device gather."""

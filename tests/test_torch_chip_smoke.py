@@ -1079,3 +1079,113 @@ def test_pytree_entry_takes_the_plane_runs_k(monkeypatch):
     assert e["bytes"] == (3 * 582_026 + 3 + 582_026) * 4
     assert e["bound_by"] == "bytes" and e["stack_ms"] == 0.5
     assert set(cs.KERNEL_KEYS) <= set(e)
+
+
+def _durability_rehearsal(cs, monkeypatch):
+    """chip_smoke's durability phase on the CPU at the reference's test size
+    (ProxyCNN, 10 clients, 4 a round, E=1, B=5), plain calls counted."""
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    _count_plain_calls(monkeypatch)
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    return cs.durability_phase(data, torch.device("cpu"), model=ProxyCNN(10),
+                               n_clients=10, clients_per_round=4,
+                               local_epochs=1, batch_size=5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_durability_phase_on_the_cpu(monkeypatch, capsys):
+    """The phase's contract: three crash points of the apodotiko run and
+    one of the apodotiko-topk run resume bit-equal to their golden runs
+    with the launches a re-executed round must make, the SIGKILL child
+    resumes, the checkpoint resume restores what it saved, the overhead
+    and the snapshot numbers are reported, one JSON line, and the
+    deterministic-algorithms flag is restored."""
+    cs = _load()
+    was = torch.are_deterministic_algorithms_enabled()
+    rec = _durability_rehearsal(cs, monkeypatch)
+    assert torch.are_deterministic_algorithms_enabled() == was
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == ["durability"]
+    apo, topk = rec["apodotiko"], rec["apodotiko_topk"]
+    assert set(apo["crashes"]) == {"mid_round_2", "after_round_close",
+                                   "n_records_minus_1"}
+    assert set(topk["crashes"]) == {"mid_round_2"}
+    assert apo["rounds"] == cs.DUR_ROUNDS
+    assert topk["rounds"] == cs.DUR_TOPK_ROUNDS
+    n = apo["journal_records"]
+    assert apo["crashes"]["n_records_minus_1"]["crash_after"] == n - 1
+    for series in (apo, topk):
+        assert series["n_snapshots"] == series["rounds"]
+        assert series["snapshot_bytes"] and min(series["snapshot_bytes"]) > 0
+        assert series["journal_fsyncs"] < series["journal_records"]
+        for c in series["crashes"].values():
+            assert c["differs"] == []
+            assert c["launches"] == c["launches_wanted"]
+            assert c["journal_replayed"] > 0 and c["resume_ms"] > 0
+    mid = apo["crashes"]["mid_round_2"]
+    assert mid["snapshot_round"] == 1
+    assert mid["launches_wanted"]["staleness_agg"] == cs.DUR_ROUNDS - 1
+    assert mid["launches_wanted"]["fused_adam"] > 0
+    assert topk["crashes"]["mid_round_2"]["launches_wanted"][
+        "block_topk"] == 1
+    assert rec["sigkill"]["returncode"] == -9
+    assert rec["sigkill"]["records_on_disk"] == cs.DUR_CHILD_CRASH
+    assert rec["sigkill"]["differs"] == []
+    ckpt = rec["checkpoint"]
+    assert ckpt["cadence"] == [1, 2] and ckpt["live_rows"] > 0
+    assert ckpt["differs"] == [] and ckpt["final_round"] == 3
+    over = rec["overhead"]
+    assert over["off_wall_s"] > 0 and over["journal_wall_s"] > 0
+    assert over["reference_ci_limit"] == 0.05
+    assert lines[0]["overhead"]["overhead"] == over["overhead"]
+
+
+def _generator_not_restored(monkeypatch):
+    """A snapshot that leaves out the generator state: the resumed trainer
+    keeps the generator it was built with (seeded afresh)."""
+    from repro_torch.durability import snapshot
+
+    install = snapshot.install_snapshot
+
+    def forgetful(rt, state, path):
+        fresh = rt.trainer.generator.get_state()
+        install(rt, state, path)
+        rt.trainer.generator.set_state(fresh)
+
+    monkeypatch.setattr(snapshot, "install_snapshot", forgetful)
+    import repro_torch.durability as durability
+    monkeypatch.setattr(durability, "install_snapshot", forgetful)
+
+
+def _rows_not_written(monkeypatch):
+    """A resume that reserves the live rows but skips writing them."""
+    from repro_torch.core.update_store import UpdateStore
+
+    def reserve_only(self, ids, rows):
+        for i in ids:
+            i = int(i)
+            if i in self._free:
+                self._free.remove(i)
+            self._live.add(i)
+
+    monkeypatch.setattr(UpdateStore, "write_at", reserve_only)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("plant", [_generator_not_restored,
+                                   _rows_not_written],
+                         ids=["generator", "write_at"])
+def test_durability_phase_fails_on_a_planted_omission(monkeypatch, plant):
+    """Each planted omission fails the phase: a resumed generator restarted
+    at its seed draws other minibatches (the journal's round-close
+    fingerprint of the generator diverges), and rows reserved but not
+    written aggregate zeros into the params."""
+    from repro_torch.durability import JournalDivergence
+
+    cs = _load()
+    plant(monkeypatch)
+    with pytest.raises((AssertionError, JournalDivergence)):
+        _durability_rehearsal(cs, monkeypatch)

@@ -1017,3 +1017,108 @@ def test_aggregate_pytree_at_mnist_width_equals_plain(card, k):
     # test_staleness_agg_kernel_matches_plain holds them
     torch.testing.assert_close(spec.ravel(got), want, rtol=RTOL,
                                atol=ATOL * k)
+
+
+# ------------------------------------------------------------ durable runs
+DURABLE_KW = dict(n_clients=10, clients_per_round=4, rounds=3,
+                  local_epochs=1, batch_size=5, base_step_time=0.5,
+                  round_timeout=200.0, seed=0, durability="journal")
+
+
+def _durable_state(eng):
+    """What a resume must give back bit for bit: the trace, params (their
+    bits), the store's free list and live rows, and the generator."""
+    live = [int(i) for i in eng.store.live_rows()]
+    return {"trace": _trace(eng),
+            "params": {n: p.view(torch.int32).cpu()
+                       for n, p in eng.params.items()},
+            "free": list(eng.store._free), "live": live,
+            "rows": eng.store.gather(live).view(torch.int32).cpu(),
+            "generator": eng.trainer.generator.get_state()}
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["scheduler", "legacy"])
+def test_durable_resume_on_the_card_is_bit_identical(card, tmp_path, engine):
+    """A durable run on the card killed mid-run and at the last round close
+    resumes, on the card with the device store, to the golden run's
+    journal bytes, history, clock, params, free list, live rows and
+    generator, under deterministic algorithms; the resumed run launches
+    ``staleness_agg`` once a re-executed round."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.durability import SimulatedCrash, resume_durable
+
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    kw = dict(DURABLE_KW, strategy="apodotiko", engine=engine)
+
+    def cfg(name):
+        return FLConfig(**kw, checkpoint_dir=str(tmp_path / name))
+
+    def journal(name):
+        with open(tmp_path / name / "journal.wal", "rb") as f:
+            return f.read()
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        gold = build_engine(cfg("gold"), ProxyCNN(10), data,
+                            list(paper_fleet(10)), device=card)
+        m_gold = gold.run()
+        n = m_gold["journal_records"]
+        for k in (n // 2, n - 1):
+            eng = build_engine(cfg(f"c{k}"), ProxyCNN(10), data,
+                               list(paper_fleet(10)), device=card)
+            eng.durability.crash_after = k
+            with pytest.raises(SimulatedCrash):
+                eng.run()
+            res = resume_durable(cfg(f"c{k}"), ProxyCNN(10), data,
+                                 list(paper_fleet(10)), device=card)
+            assert res.store.buffer.device.type == "cuda"
+            before = sa.staleness_agg.launches
+            done = res.db.round
+            m = res.run()
+            torch.cuda.synchronize()
+            assert sa.staleness_agg.launches - before == 3 - done
+            assert m["history"] == m_gold["history"]
+            assert m["total_time"] == m_gold["total_time"]
+            assert journal(f"c{k}") == journal("gold")
+            assert _same(_durable_state(res), _durable_state(gold))
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.cuda
+def test_controller_checkpoint_resume_on_the_card(card, tmp_path):
+    """The poll loop's database checkpoint on the card: the resume holds
+    the checkpoint's round, client records, global params and live rows,
+    the rows back on the card at their ids, and the run goes on."""
+    from repro_torch.core.controller import Controller
+
+    data = make_federated_dataset("mnist", n_clients=10, scale=0.05, seed=0)
+    kw = dict(n_clients=10, clients_per_round=4, local_epochs=1,
+              batch_size=5, base_step_time=0.5, round_timeout=200.0, seed=0,
+              strategy="apodotiko", checkpoint_dir=str(tmp_path))
+    ctl = Controller(FLConfig(**kw, rounds=2, checkpoint_every=1),
+                     ProxyCNN(10), data, list(paper_fleet(10)), device=card)
+    ctl.run()
+    while ctl.loop.step():      # land the stragglers: live rows to save
+        pass
+    ctl.checkpoint()
+    live = [r.update_row for r in ctl.db.results if not r.aggregated]
+    assert live
+    res = Controller.resume(FLConfig(**kw, rounds=3), ProxyCNN(10), data,
+                            list(paper_fleet(10)), device=card)
+    assert res.db.round == 2
+    assert res.db.client_ids() == ctl.db.client_ids()
+    for name, p in ctl.params.items():
+        assert torch.equal(res.params[name], p), name
+    assert res.store.buffer.device.type == "cuda"
+    assert torch.equal(res.store.gather(live), ctl.store.gather(live))
+    m = res.run()
+    assert m["rounds"] >= 1 and res.db.round == 3

@@ -45,7 +45,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.sweep.results", "repro_torch.sweep.runner",
             "repro_torch.traffic.slo", "repro_torch.traffic.model",
             "repro_torch.traffic.schedule", "repro_torch.faas.faults",
-            "repro_torch.core.data_plane"} <= set(mods)
+            "repro_torch.core.data_plane", "repro_torch.core.journal",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.durability", "repro_torch.durability.manager",
+            "repro_torch.durability.snapshot"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -217,9 +220,7 @@ def test_training_and_evaluation_run_inside_the_fp32_scope():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(durability="journal"), "durability"),
     (dict(mesh="2x1"), "mesh"),
-    (dict(checkpoint_every=1, checkpoint_dir="ckpt"), "checkpointing"),
     (dict(optimizer="adafactor"), "adafactor"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
@@ -248,9 +249,31 @@ def test_settings_of_the_profiles_and_planes_slice_run(kw):
     assert np.isfinite(m["total_time"])
 
 
-@pytest.mark.parametrize("field", ["durability_sync"])
-def test_tuning_fields_of_left_out_features_are_not_accepted(field):
-    """The reference's knobs that only tune a feature this slice leaves
-    out are not fields of the port's config: passing one is an error."""
-    with pytest.raises(TypeError, match=field):
-        FLConfig(**{field: 1})
+@pytest.mark.parametrize("kw", [
+    dict(durability="journal"), dict(durability="journal",
+                                     durability_sync="event",
+                                     durability_snap_every=2),
+    dict(checkpoint_every=1),
+])
+def test_settings_of_the_durability_slice_run(kw, tmp_path):
+    """Durable runs and database checkpoints run on the port's entry point
+    (on the CPU here): the journal, its snapshots and the checkpoint land
+    in ``checkpoint_dir`` and the metrics report them."""
+    data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
+    cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=2,
+                   local_epochs=1, batch_size=5,
+                   checkpoint_dir=str(tmp_path), **kw)
+    m = Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
+                   device="cpu").run()
+    assert np.isfinite(m["total_time"])
+    files = set(os.listdir(tmp_path))
+    if "durability" in kw:
+        assert m["durability"] == "journal"
+        assert m["durability_sync"] == kw.get("durability_sync", "round")
+        assert m["journal_records"] > 0
+        assert m["n_snapshots"] == 2 // kw.get("durability_snap_every", 1)
+        assert "journal.wal" in files and any(
+            f.startswith("snap_") for f in files)
+    else:
+        assert m["durability"] == "off"
+        assert {"db.json", "blobs.npz", "update_store"} <= files
