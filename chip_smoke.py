@@ -145,7 +145,28 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      deterministic algorithms the same to the byte for one and two
      workers; each host-plane cell of ``dataplane_ablation`` equal to its
      device twin; every row printed;
- 11. kernels: each kernel at the shapes its path gave it, against its
+ 11. lm: the dense decoder-LM family at published width. Serving:
+     ``DecoderLM`` of qwen3-1.7b (1,720,574,976 params, bf16) initialized
+     on the card prefills 4 prompts of 512 tokens into a cache of 576 and
+     decodes greedily to fill it, in bf16 and again in fp32; each decoded
+     position's logits must be within ``LM_DECODE_RTOL`` (relative L2:
+     5e-2 bf16, 1e-3 fp32) of the full forward's at that position;
+     prefill ms, decode tokens/s and peak memory. Training:
+     ``repro_torch.launch.train.main`` for qwen3-1.7b (not ``--smoke``),
+     3 steps of 4 x 1,024 tokens, remat as the config sets it, Adam
+     through ``fused_adam``: a finite loss every step, the first batch's
+     loss lower after the steps, one ``fused_adam`` launch a step (counts
+     zeroed just before, read just after); step ms and peak memory.
+     Federated: ``examples/torch_train_fl_lm.py``'s ``--full`` model (12
+     layers, d 768, vocab 32,000: 100,094,208 params) and setup through the
+     ``Controller``, 12 clients, 3 rounds, on the example's token streams
+     over 2,048 tokens (``LM_FL``: its Markov source at 32,000 tokens costs
+     ~8.5 minutes of host time): ``staleness_agg`` once an aggregation and
+     ``fused_adam`` once a local step of each cohort's largest budget;
+     then the example's ``main`` at its container size on the card and on
+     the CPU, host traces (selections, invocation records, simulated
+     clock, cost, cold starts) equal;
+ 12. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
      phase's check), and timed (median of CUDA-event times) beside the
@@ -184,6 +205,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      run's own width and last K; ``staleness_agg[pytree]`` is the blob
      plane's launch (``ops.aggregate_pytree``) over K MnistCNN-shaped
      trees, K the plane run's last pending count, the stack timed apart.
+     The lm phase's entries, timed right after it while the card holds
+     nothing else: ``fused_adam[qwen3-1.7b]`` (the centralized step, one
+     lane of 1,720,574,976, its check against the plain version a chunk
+     of columns at a time), ``fused_adam[fl_lm]`` (the federated run's
+     largest cohort at W = 100,094,208) and ``staleness_agg[fl_lm]`` at
+     its last aggregate, in the route it took, and in the rows form.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -191,7 +218,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
+import importlib.util
 import json
 import os
 import statistics
@@ -1150,6 +1179,288 @@ def paper_models_phase(dev, **size) -> dict:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return records
+
+
+# ----------------------------------------------------------------------- lm
+LM_ARCH = "qwen3-1.7b"
+# serve: 4 prompts of 512 tokens into a cache of 576, greedy decode of 64
+# tokens (the prefill's pick, then 63 decode steps) to fill it, in the
+# published bf16 and again in fp32
+LM_SERVE = dict(batch=4, prompt=512, cache=576)
+LM_SERVE_DTYPES = ("bfloat16", "float32")
+LM_TRAIN = dict(steps=3, batch=4, seq=1024)
+# the federated run: the example's --full model (12 L, d 768, vocab
+# 32,000: 100,094,208 params) over 12 clients for 3 rounds, its setup
+# (``fl_config``), on the example's Markov token streams over a 2,048-token
+# vocabulary: at the model's 32,000 the streams' transition matrices take
+# 9 x 32,000^2 Dirichlet draws, ~8.5 minutes and ~72 GB of host memory on
+# the chip machine (PR 23 probe), a cost of the data, not of the model.
+# Its host trace is held card against CPU through the example's ``main``
+# at its container size
+LM_FL = dict(clients=12, rounds=3, data_vocab=2048, full=True)
+LM_TRACE_ARGS = ("--clients", "12", "--rounds", "3")
+LM_FL_EXAMPLE = ROOT / "examples" / "torch_train_fl_lm.py"
+# each decoded position's logits against the full forward's at that
+# position, as the relative L2 error over the vocabulary. Both paths run
+# the same weights at other shapes (one query row against the cache, 576
+# rows at once), so they round apart. bf16: 2^-8 a rounding in each of the
+# 28 layers (at 8 layers on the CPU the largest was 1.7 %, the median 0.5
+# %; a random walk over 28 layers gives ~3 %). fp32 (TF32 off, torch's
+# default for matmuls): only the reductions' order differs, ~1e-6 a layer
+LM_DECODE_RTOL = {"bfloat16": 5e-2, "float32": 1e-3}
+LM_CHECK_CHUNK = 1 << 27      # columns a plain-version check takes at once
+
+
+def load_example(path: Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reset_peak(dev) -> None:
+    """Free what earlier runs left (their engines hold reference cycles)
+    and start the peak-memory count."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)     # the allocator exists from here
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peak_gb(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else None)
+
+
+def lm_serve(dev, cfg, batch: int, prompt: int, cache: int) -> dict:
+    """``DecoderLM`` at ``cfg``'s width and dtype, initialized on ``dev``:
+    prefill (twice, the first warming cuBLAS and the allocator), greedy
+    decode to fill the cache, then the full forward over the decoded
+    sequence; each decoded position's logits within
+    ``LM_DECODE_RTOL[dtype]`` of the full forward's."""
+    from repro_torch.models.common import count_params
+    from repro_torch.models.lm import DecoderLM
+
+    reset_peak(dev)
+    lm = DecoderLM(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = lm.init(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                            device=dev)
+    with torch.no_grad():
+        prefill_ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches, _ = lm.apply(params, {"tokens": prompts},
+                                         make_cache=True, cache_len=cache)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        rows = [logits[:, -1]]
+        tok = torch.argmax(rows[-1], dim=-1)[:, None]
+        toks = [tok]
+        t0 = time.perf_counter()
+        for i in range(cache - prompt - 1):
+            logits, caches = lm.decode_step(params, caches, tok, prompt + i)
+            rows.append(logits[:, -1])
+            tok = torch.argmax(rows[-1], dim=-1)[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        seqs = torch.cat(toks, dim=1)
+        full, _, _ = lm.apply(params, {"tokens": torch.cat(
+            [prompts, seqs[:, :-1]], dim=1)})
+        full = full[:, prompt - 1:].float()
+        dec = torch.stack(rows, dim=1).float()
+        rel = (dec - full).norm(dim=-1) / full.norm(dim=-1)
+        agree = (dec.argmax(-1) == full.argmax(-1)).float().mean()
+    steps = cache - prompt - 1
+    rtol = LM_DECODE_RTOL[cfg.param_dtype]
+    rec = {"arch": cfg.name, "n_params": count_params(params),
+           "dtype": cfg.param_dtype, "batch": batch, "prompt": prompt,
+           "cache": cache, "decoded_tokens": seqs.shape[1],
+           "decode_steps": steps, "init_s": init_s,
+           "prefill_ms_first": prefill_ms[0], "prefill_ms": prefill_ms[1],
+           "decode_s": decode_s,
+           "decode_tokens_per_s": steps * batch / decode_s,
+           "decode_ms_per_step": decode_s / steps * 1e3,
+           "decode_rel_l2_max": float(rel.max()),
+           "decode_rel_l2_median": float(rel.median()),
+           "decode_rtol": rtol,
+           "argmax_agreement": float(agree),
+           "logits_finite": bool(torch.isfinite(dec).all()),
+           "peak_gb": peak_gb(dev)}
+    del params, caches, logits, full, dec
+    if not rec["logits_finite"]:
+        raise AssertionError(f"lm serve: {cfg.name} decoded non-finite logits")
+    if rec["decode_rel_l2_max"] > rtol:
+        raise AssertionError(
+            f"lm serve ({cfg.param_dtype}): decode vs full forward "
+            f"relative L2 {rec['decode_rel_l2_max']} > {rtol}")
+    return rec
+
+
+def lm_train(dev, arch: str, smoke: bool, steps: int, batch: int,
+             seq: int) -> dict:
+    """``repro_torch.launch.train.main`` for ``arch``, every kernel count
+    zeroed just before and read just after: a finite loss at every step, one
+    ``fused_adam`` launch a step, and the step-0 batch's loss lower after
+    the steps than it was at step 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--device", str(dev)] + (
+                ["--smoke"] if smoke else [])
+    reset_peak(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        out = train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    cfg = get_config(arch, smoke=smoke)
+    first = train.token_batch(np.random.default_rng(0), cfg.vocab_size,
+                              batch, seq, dev)
+    with torch.no_grad():
+        again = float(build_model(cfg).loss(out["params"], first)[0])
+    rec = {"arch": arch, "smoke": smoke, "n_params": out["n_params"],
+           "dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
+           "remat": cfg.remat, "steps": steps, "batch": batch,
+           "tokens_per_step": batch * (seq - 1), "losses": out["losses"],
+           "step_s": out["step_s"],
+           "step_ms": statistics.median(out["step_s"][1:] or out["step_s"])
+           * 1e3,
+           "step0_batch_loss_after": again, "wall_s": wall_s,
+           "launches": launches, "launches_wanted": {"fused_adam": steps},
+           "peak_gb": peak_gb(dev)}
+    del out
+    if not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"lm train: non-finite loss {rec['losses']}")
+    if not again < rec["losses"][0]:
+        raise AssertionError(f"lm train: the step-0 batch's loss went from "
+                             f"{rec['losses'][0]} to {again}")
+    if launches["fused_adam"] != steps:
+        raise AssertionError(f"lm train: fused_adam launched "
+                             f"{launches['fused_adam']} times in {steps} "
+                             "steps")
+    return rec
+
+
+def lm_fl_run(dev, argv) -> tuple:
+    """The federated LM example's ``main`` on ``dev`` (its prints to
+    stderr). Returns (controller, metrics)."""
+    ex = load_example(LM_FL_EXAMPLE)
+    with contextlib.redirect_stdout(sys.stderr):
+        return ex.main([*argv, "--device", str(dev)])
+
+
+def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
+          trace_argv=LM_TRACE_ARGS) -> dict:
+    """The federated LM example's setup (its ``lm_config``, ``fl_config``
+    and ``make_lm_federated_data`` over ``data_vocab`` tokens) through the
+    ``Controller`` on ``dev``, every kernel count zeroed just before the
+    run and read just after: ``staleness_agg`` once an aggregation and
+    ``fused_adam`` once a local step of each cohort's largest budget,
+    finite params (the record the kernel entries read); then the example's
+    ``main`` at ``trace_argv`` on the card and on the CPU: host traces and
+    the host's metrics equal."""
+    from repro_torch.core import aggregation
+    from repro_torch.core.controller import Controller
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.models.api import LMClientAdapter
+
+    ex = load_example(LM_FL_EXAMPLE)
+    cfg = ex.lm_config(LM_ARCH, full)
+    t0 = time.perf_counter()
+    data = ex.make_lm_federated_data(clients, data_vocab, seq_len=32,
+                                     samples_per_client=24)
+    data_s = time.perf_counter() - t0
+    reset_peak(dev)
+    ctl = Controller(ex.fl_config(clients, rounds), LMClientAdapter(cfg),
+                     data, list(paper_fleet(clients)), device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = ctl.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    cohorts = collections.defaultdict(list)
+    for r in ctl.platform.invocations:
+        cohorts[(r.round, r.t_invoked)].append(step_budget(
+            data, r.client_id, ctl.cfg.batch_size, ctl.cfg.local_epochs))
+    budgets = [max(v) for _, v in sorted(cohorts.items())]
+    per_round = collections.Counter(r.round for r in ctl.platform.invocations)
+    want = {"staleness_agg": sum(1 for l in ctl.history
+                                 if l.n_aggregated > 0),
+            "fused_adam": sum(budgets)}
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tree_leaves(ctl.params))
+    rec = {"model": (f"{cfg.name}, {cfg.n_layers} L, d {cfg.d_model}, "
+                     f"vocab {cfg.vocab_size}"), "phase": "lm",
+           "strategy": ctl.cfg.strategy, "n_params": ctl.spec.n_params,
+           "row_width": ctl.store.row_width, "data_vocab": data_vocab,
+           "data_s": data_s,
+           "rounds": [{"round": l.round, "n_aggregated": l.n_aggregated,
+                       "accuracy": l.accuracy,
+                       "store_capacity": ctl.store.capacity}
+                      for l in ctl.history],
+           "cohort_sizes": [per_round[r] for r in sorted(per_round)],
+           "cohort_step_budgets": budgets, "agg_route": aggregation.last_path(),
+           "wall_s": wall_s, "wall_s_per_round": wall_s / rounds,
+           "total_sim_time_s": m["total_time"],
+           "final_accuracy": m["final_accuracy"], "launches": launches,
+           "launches_wanted": want, "params_finite": finite,
+           "peak_gb": peak_gb(dev)}
+    del ctl
+    if not finite:
+        raise AssertionError("lm fl: params not finite")
+    if want["staleness_agg"] < 1 or any(launches[k] != n
+                                        for k, n in want.items()):
+        raise AssertionError(f"lm fl: launches {launches}, want {want}")
+    card, m_card = lm_fl_run(dev, trace_argv)
+    cpu, m_cpu = lm_fl_run(torch.device("cpu"), trace_argv)
+    keys = ("total_time", "total_cost_usd", "cold_start_ratio",
+            "n_invocations", "invocation_counts")
+    rec["trace_run"] = " ".join(trace_argv)
+    rec["trace_equal"] = host_trace(card) == host_trace(cpu)
+    rec["trace_metrics_equal"] = all(m_card[k] == m_cpu[k] for k in keys)
+    rec["trace_accuracy_card_cpu"] = [m_card["final_accuracy"],
+                                      m_cpu["final_accuracy"]]
+    if not (rec["trace_equal"] and rec["trace_metrics_equal"]):
+        raise AssertionError("lm fl: host trace card vs CPU differs")
+    return rec
+
+
+def lm_phase(dev, arch: str = LM_ARCH, smoke: bool = False, serve=None,
+             train=None, fl=None, trace_argv=LM_TRACE_ARGS) -> dict:
+    """The dense LM family on the card: serving (bf16 and fp32) and
+    training Qwen3-1.7B at its published width, and the federated LM
+    example's setup (``lm_serve``, ``lm_train``, ``lm_fl``); ``smoke`` and
+    the sizes cut it for a rehearsal. One JSON line."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch, smoke=smoke)
+    serve_rec = {dt: lm_serve(dev, cfg.with_(param_dtype=dt, compute_dtype=dt),
+                              **(serve or LM_SERVE))
+                 for dt in LM_SERVE_DTYPES}
+    train_rec = lm_train(dev, arch, smoke, **(train or LM_TRAIN))
+    fl_rec = lm_fl(dev, **(fl or LM_FL), trace_argv=trace_argv)
+    rec = {"serve": serve_rec, "train": train_rec, "fl": fl_rec,
+           "wall_s": time.perf_counter() - t0}
+    emit("lm", **rec)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
 
 
 # -------------------------------------------------------------------- sweep
@@ -2306,8 +2617,8 @@ def check(name: str, got, want, rtol: float = KERNEL_RTOL,
 def main_run(record: dict) -> str:
     """Names the run whose launch counts an entry reports: a main-path run,
     or a paper_models run (its record names its model)."""
-    where = (f"paper_models phase: {record['model']}" if "model" in record
-             else "main path")
+    where = (f"{record.get('phase', 'paper_models')} phase: "
+             f"{record['model']}" if "model" in record else "main path")
     return f"{where}: {record['strategy']}, {len(record['rounds'])} rounds"
 
 
@@ -2449,16 +2760,19 @@ def pytree_agg_entry(run: dict, dev) -> dict:
     return entry
 
 
-def adam_kernel_entry(record: dict, dev, name: str = "fused_adam") -> dict:
-    """``fused_adam`` at the run's largest cohort: Kp lanes (the cohort
-    padded to a power of two) of its row width, the pad lanes inactive;
-    event time and the kernel's own profiler time."""
-    from repro_torch.core.client import DEFAULT_COHORT_FLOOR, _bucket
+def adam_entry(name: str, kp: int, k: int, W: int, launches: int,
+               run: str, dev) -> dict:
+    """``fused_adam`` at [kp, W], the first k lanes active: event time, the
+    kernel's own profiler time, the plain version's and
+    ``torch._fused_adam_``'s over the active lanes. The check holds the
+    kernel's output against the plain version on the same inputs,
+    ``LM_CHECK_CHUNK`` columns at a time (an elementwise step: each column
+    is the whole function), so a width of 1.72 B needs no more than the
+    inputs and the kernel's copies of p, m, v; the plain version is timed
+    at the full shape once those copies are gone."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_adam import fused_adam
 
-    k = max(record["cohort_sizes"])
-    kp, W = _bucket(k, DEFAULT_COHORT_FLOOR), record["row_width"]
     lr, b1, b2, eps, s = 1e-3, 0.9, 0.999, 1e-8, 0
     gen = torch.Generator(device=dev).manual_seed(SEED)
     p = torch.randn(kp, W, device=dev, generator=gen) * 0.05
@@ -2470,32 +2784,39 @@ def adam_kernel_entry(record: dict, dev, name: str = "fused_adam") -> dict:
     hyper = dict(lr=lr, b1=b1, b2=b2, eps=eps)
 
     mine = [t.clone() for t in (p, m, v)]
-    plain = [t.clone() for t in (p, m, v)]
     fused_adam(*mine, g, steps, s, **hyper)
-    ref.fused_adam(*plain, g, steps, s, **hyper)
     torch.cuda.synchronize()
-    errs = [check(name, a, b) for a, b in zip(mine, plain)]
+    errs = []
+    for a in range(0, W, LM_CHECK_CHUNK):
+        cols = slice(a, min(a + LM_CHECK_CHUNK, W))
+        plain = [t[:, cols].clone() for t in (p, m, v)]
+        ref.fused_adam(*plain, g[:, cols], steps, s, **hyper)
+        errs += [check(name, x[:, cols], y) for x, y in zip(mine, plain)]
     entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/fused_adam.cu",
              "replaces": "src/repro/kernels/fused_adam.py:52",
-             "launches": record["launches"]["fused_adam"],
-             "launches_run": main_run(record),
+             "launches": launches, "launches_run": run,
              "shape": {"Kp": kp, "W": W, "active_lanes": k},
-             **{k: max(e[k] for e in errs) for k in errs[0]}}
+             **{key: max(e[key] for e in errs) for key in errs[0]}}
     call = lambda: fused_adam(*mine, g, steps, s, **hyper)
     entry["ms"] = time_ms(call)
     put_device_ms(entry, "device_ms",
                   device_ms({"fused_adam": call})["fused_adam"])
+    del mine, call
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     entry["plain_ms"] = time_ms(
-        lambda: ref.fused_adam(*plain, g, steps, s, **hyper))
+        lambda: ref.fused_adam(p, m, v, g, steps, s, **hyper))
 
-    # yardstick: PyTorch's own fused Adam over the active lanes' rows
-    lib = [list(t[:k].clone().unbind(0)) for t in (p, m, v)]
-    grads = list(g[:k].unbind(0))
-    step_t = [torch.tensor(float(s + 1), device=dev) for _ in range(k)]
+    # yardstick: PyTorch's own fused Adam over the active lanes' rows, in
+    # pieces of at most 2^30 elements
+    piece = 1 << 30
+    lib = [[t[i, a:a + piece] for i in range(k) for a in range(0, W, piece)]
+           for t in (p, m, v, g)]
+    step_t = [torch.tensor(float(s + 1), device=dev) for _ in lib[0]]
 
     def library():
-        torch._fused_adam_(lib[0], grads, lib[1], lib[2], [], step_t, lr=lr,
+        torch._fused_adam_(lib[0], lib[3], lib[1], lib[2], [], step_t, lr=lr,
                            beta1=b1, beta2=b2, weight_decay=0.0, eps=eps,
                            amsgrad=False, maximize=False)
 
@@ -2504,6 +2825,45 @@ def adam_kernel_entry(record: dict, dev, name: str = "fused_adam") -> dict:
     entry["bound_ms"], entry["bound_by"] = bound(nbytes, k * W * 14)
     entry["bytes"] = nbytes
     return entry
+
+
+def adam_kernel_entry(record: dict, dev, name: str = "fused_adam") -> dict:
+    """``fused_adam`` at the run's largest cohort: Kp lanes (the cohort
+    padded to a power of two) of its row width, the pad lanes inactive."""
+    from repro_torch.core.client import DEFAULT_COHORT_FLOOR, _bucket
+
+    k = max(record["cohort_sizes"])
+    return adam_entry(name, _bucket(k, DEFAULT_COHORT_FLOOR), k,
+                      record["row_width"], record["launches"]["fused_adam"],
+                      main_run(record), dev)
+
+
+def lm_kernel_entries(rec: dict, dev) -> list:
+    """The LM phase's kernels at its shapes: ``fused_adam[qwen3-1.7b]``,
+    the centralized step's one lane of every param (padded to the kernel's
+    vector width), ``fused_adam[fl_lm]`` at the federated run's largest
+    cohort, and ``staleness_agg[fl_lm]`` at its last aggregate, in the
+    route the run took, and in the rows form beside it."""
+    from repro_torch.kernels.fused_adam import VEC
+
+    train, fl = rec["train"], rec["fl"]
+    reset_peak(dev)
+    n = train["n_params"]
+    run = (f"lm phase: {train['arch']} launch.train, {train['steps']} "
+           "steps")
+    entries = [adam_entry(f"fused_adam[{train['arch']}]", 1, 1,
+                          n + (-n) % VEC, train["launches"]["fused_adam"],
+                          run, dev)]
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    entries.append(adam_kernel_entry(fl, dev, name="fused_adam[fl_lm]"))
+    rows_form = fl["agg_route"] == "gather"
+    entries.append(agg_kernel_entry("staleness_agg[fl_lm]", fl, dev,
+                                    rows_form=rows_form))
+    if not rows_form:
+        entries.append(agg_kernel_entry("staleness_agg[fl_lm,rows]", fl, dev,
+                                        rows_form=True))
+    return entries
 
 
 def paper_kernel_entries(records: dict, dev) -> list:
@@ -2996,6 +3356,11 @@ def main() -> int:
         attention, attn_inputs = timed("attention", attention_phase, dev)
     paper = timed("paper_models", paper_models_phase, dev)
     timed("sweep", sweep_phase, dev)
+    torch.cuda.empty_cache()
+    lm = timed("lm", lm_phase, dev)
+    # timed now, while the card holds nothing else: the 1.72 B-wide Adam
+    # step's plain version needs ~69 GB
+    lm_entries = timed("lm_kernel_entries", lm_kernel_entries, lm, dev)
     if tf32_flags() != tf32:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
                              f"{tf32} before: a scope leaked")
@@ -3038,6 +3403,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += paper_kernel_entries(paper, dev)
     kernels.append(pytree_agg_entry(profiles["pytree_run"], dev))
+    kernels += lm_entries
     phase_s["kernel_entries"] = time.perf_counter() - t0
     for e in kernels:
         emit("kernel", **e)

@@ -915,6 +915,18 @@ class FLRuntime:
         xs = torch.as_tensor(np.asarray(self.data.eval_x))
         ys = torch.as_tensor(np.asarray(self.data.eval_y)).long()
         n, bs = len(xs), 256
+        if not hasattr(self.model, "predict"):
+            # a model with only ``accuracy`` (the LM adapter, which masks
+            # its targets) takes the reference's per-batch loop: each
+            # batch's fp32 accuracy weighted by its size, summed in float64
+            total = 0.0
+            with fp32_exact():
+                for i in range(0, n, bs):
+                    batch = {"x": xs[i:i + bs].to(self.device),
+                             "y": ys[i:i + bs].to(self.device)}
+                    total += float(self.model.accuracy(self.params, batch)
+                                   ) * len(batch["x"])
+            return total / max(n, 1)
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
         with fp32_exact():
             for i in range(0, n, bs):

@@ -39,43 +39,55 @@ from repro_torch.kernels.quant8 import (  # noqa: F401
 from repro_torch.kernels.staleness_agg import VEC, staleness_agg
 from repro_torch.kernels.topk import masked_topk, scored_topk  # noqa: F401
 
-Params = Any   # a dict (possibly nested) of tensors
+Params = Any   # nested dicts (and lists) of tensors
 BLOCK_N = 1024   # update-store row width alignment (the reference's block)
 SUBLANE = 8      # row-count alignment; K pads to a multiple
 
 
 def tree_leaves(tree: Params) -> list:
-    """Leaves in ``jax.tree.leaves`` order: sorted dict keys, depth first."""
+    """Leaves in ``jax.tree.leaves`` order: sorted dict keys, list items in
+    index order, depth first; an empty dict or list has no leaves."""
     if isinstance(tree, dict):
         return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [l for x in tree for l in tree_leaves(x)]
     return [tree]
 
 
 def tree_map(fn, tree: Params, *rest: Params) -> Params:
-    """``fn`` over matching leaves of dict trees (structure of ``tree``)."""
+    """``fn`` over matching leaves of dict and list trees (structure of
+    ``tree``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, x, *(r[i] for r in rest))
+                for i, x in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def _structure(tree: Params):
     if isinstance(tree, dict):
         return {k: _structure(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_structure(x) for x in tree]
     return None
 
 
 def _unflatten(struct, leaves):
     if isinstance(struct, dict):
         return {k: _unflatten(v, leaves) for k, v in struct.items()}
+    if isinstance(struct, list):
+        return [_unflatten(v, leaves) for v in struct]
     return next(leaves)
 
 
 class RavelSpec:
     """Stable params <-> flat fp32 buffer contract.
 
-    Built once from a template dict of tensors (or numpy arrays); any
+    Built once from a template tree of tensors (or numpy arrays): nested
+    dicts and lists, as ``DecoderLM``'s ``params["layers"]["first"]``; any
     structurally identical tree ravels into ``[N]`` (or ``[K, N]`` rows
-    for ``[K, ...]``-stacked leaves) in sorted-key leaf order, the order
+    for ``[K, ...]``-stacked leaves) in ``tree_leaves`` order, the order
     of the reference's ``RavelSpec``, so rows compare element-wise."""
 
     def __init__(self, template: Params):

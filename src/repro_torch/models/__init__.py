@@ -1,0 +1,1 @@
+from repro_torch.models.api import build_model, input_specs  # noqa: F401

@@ -1189,3 +1189,174 @@ def test_durability_phase_fails_on_a_planted_omission(monkeypatch, plant):
     plant(monkeypatch)
     with pytest.raises((AssertionError, JournalDivergence)):
         _durability_rehearsal(cs, monkeypatch)
+
+
+# ----------------------------------------------------------------------- lm
+LM_SMALL = dict(smoke=True, serve=dict(batch=2, prompt=16, cache=24),
+                train=dict(steps=3, batch=2, seq=33),
+                fl=dict(clients=6, rounds=2, data_vocab=64, full=False),
+                trace_argv=("--clients", "6", "--rounds", "2"))
+
+
+def _lm_rehearsal(cs, monkeypatch, count=True):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if count:
+        _count_plain_calls(monkeypatch)
+    return cs.lm_phase(torch.device("cpu"), **LM_SMALL)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_phase_on_the_cpu(monkeypatch, capsys):
+    """The phase's contract on the smoke config: serve (prefill, greedy
+    decode to fill the cache, each decoded position against the full
+    forward), train through ``launch.train.main`` (a finite loss a step,
+    one ``fused_adam`` a step, the step-0 batch's loss lower after), and
+    the federated example (one ``staleness_agg`` an aggregation, one
+    ``fused_adam`` a local step of each cohort's largest budget; host
+    trace card against CPU); one JSON line."""
+    cs = _load()
+    rec = _lm_rehearsal(cs, monkeypatch)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"phase": "lm", **json.loads(json.dumps(rec))}
+    serve, train, fl = rec["serve"], rec["train"], rec["fl"]
+    assert list(serve) == ["bfloat16", "float32"]
+    for dt, s in serve.items():
+        assert s["dtype"] == dt and s["decode_rtol"] == cs.LM_DECODE_RTOL[dt]
+        assert s["decoded_tokens"] == 8 and s["decode_steps"] == 7
+        assert s["n_params"] == 82_304 and s["logits_finite"]
+        assert s["decode_rel_l2_max"] <= s["decode_rtol"]
+    assert serve["float32"]["decode_rel_l2_max"] < 1e-5
+    assert train["launches"]["fused_adam"] == 3 == len(train["losses"])
+    assert train["step0_batch_loss_after"] < train["losses"][0]
+    assert train["tokens_per_step"] == 2 * 32 and train["remat"]
+    assert fl["launches"] == {**fl["launches"], **fl["launches_wanted"]}
+    assert fl["launches_wanted"]["staleness_agg"] == 2
+    assert fl["launches_wanted"]["fused_adam"] == \
+        sum(fl["cohort_step_budgets"])
+    assert fl["trace_equal"] and fl["trace_metrics_equal"]
+    assert fl["params_finite"] and fl["agg_route"] == "sweep"
+    assert fl["data_vocab"] == 64 and fl["n_params"] == 90_496
+    assert cs.main_run(fl) == ("lm phase: qwen3-1.7b, 2 L, d 64, vocab 256: "
+                               "apodotiko, 2 rounds")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_phase_fails_without_its_launches(monkeypatch):
+    """On the CPU no kernel launches: uncounted, the training run's missing
+    ``fused_adam`` launches fail the phase."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="fused_adam launched 0 times"):
+        _lm_rehearsal(cs, monkeypatch, count=False)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_lm_serve_fails_on_a_planted_decode_fault(monkeypatch):
+    """A decode step whose logits stray 10 % from the full forward's fails
+    the serve check."""
+    from repro_torch.models.lm import DecoderLM
+
+    cs = _load()
+    step = DecoderLM.decode_step
+    monkeypatch.setattr(DecoderLM, "decode_step", lambda *a: (
+        lambda out: (out[0] * 1.1, out[1]))(step(*a)))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    from repro_torch.configs import get_config
+    with pytest.raises(AssertionError, match="relative L2"):
+        cs.lm_serve(torch.device("cpu"),
+                    get_config("qwen3-1.7b", smoke=True),
+                    **LM_SMALL["serve"])
+
+
+def test_lm_full_fl_config_is_the_examples_100m():
+    """The federated run's model is the example's ``--full`` config, at
+    the width the kernel entries report."""
+    from repro_torch.models.api import LMClientAdapter
+    from repro_torch.models.common import count_params
+
+    cs = _load()
+    assert cs.LM_FL["full"] and cs.LM_FL["clients"] == 12
+    cfg = cs.load_example(cs.LM_FL_EXAMPLE).lm_config(cs.LM_ARCH, True)
+    assert count_params(LMClientAdapter(cfg).init(device="meta")) == \
+        100_094_208
+
+
+def _lm_record(cs):
+    return {"train": {"arch": "qwen3-1.7b", "n_params": 82_302, "steps": 3,
+                      "launches": {"fused_adam": 3}},
+            "fl": {"model": "qwen3-1.7b, 12 L, d 768, vocab 32000",
+                   "phase": "lm",
+                   "strategy": "apodotiko", "row_width": 2048,
+                   "cohort_sizes": [3, 4], "agg_route": "sweep",
+                   "rounds": [{"store_capacity": 8, "n_aggregated": 3}] * 3,
+                   "launches": {"staleness_agg": 3, "fused_adam": 20}}}
+
+
+def _stub_entry_timers(cs, monkeypatch):
+    import types
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **kw: (fn(), 0.5)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(cs, "l2_flush", lambda dev: lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(cs, "LM_CHECK_CHUNK", 1000)   # many chunks
+
+
+def test_lm_kernel_entries_take_the_phases_shapes(monkeypatch):
+    """CPU rehearsal: ``fused_adam`` at the training step's one lane of
+    every param (padded to the kernel's 4) and at the federated run's
+    largest cohort, ``staleness_agg`` at its last aggregate in the route it
+    took (the sweep: 8 rows) and in the rows form; each held to its plain
+    version (the Adam check a chunk of columns at a time), with its run's
+    launches and the byte bound."""
+    cs = _load()
+    _stub_entry_timers(cs, monkeypatch)
+    entries = cs.lm_kernel_entries(_lm_record(cs), torch.device("cpu"))
+    assert [e["name"] for e in entries] == [
+        "fused_adam[qwen3-1.7b]", "fused_adam[fl_lm]",
+        "staleness_agg[fl_lm]", "staleness_agg[fl_lm,rows]"]
+    big, adam, sweep, rows = entries
+    assert big["shape"] == {"Kp": 1, "W": 82_304, "active_lanes": 1}
+    assert big["launches"] == 3 and big["max_abs_err"] < 1e-6
+    assert big["launches_run"] == "lm phase: qwen3-1.7b launch.train, 3 steps"
+    assert big["bytes"] == 82_304 * 7 * 4 + 4 and big["bound_by"] == "bytes"
+    assert adam["shape"] == {"Kp": 4, "W": 2048, "active_lanes": 4}
+    assert adam["launches"] == 20
+    assert adam["launches_run"] == \
+        "lm phase: qwen3-1.7b, 12 L, d 768, vocab 32000: apodotiko, 3 rounds"
+    assert not sweep["shape"]["rows_form"] and rows["shape"]["rows_form"]
+    assert sweep["shape"]["C"] == 8 and rows["shape"]["K"] == 3
+    for e in entries:
+        assert set(cs.KERNEL_KEYS) <= set(e)
+        assert e["library_ms"] == 0.5 and e["plain_ms"] == 0.5
+
+
+def test_lm_adam_check_covers_every_chunk(monkeypatch):
+    """A kernel output wrong in the last column only (the last chunk of the
+    check) fails the entry."""
+    from repro_torch.kernels import fused_adam as fa
+
+    cs = _load()
+    _stub_entry_timers(cs, monkeypatch)
+    real = fa.fused_adam
+
+    def planted(p, *a, **k):
+        real(p, *a, **k)
+        p[0, -1] += 1.0
+
+    monkeypatch.setattr(fa, "fused_adam", planted)
+    with pytest.raises(AssertionError, match="x the tolerance"):
+        cs.adam_entry("fused_adam[x]", 1, 1, 8192, 1, "x", torch.device("cpu"))
+
+
+def test_lm_phase_probe_fails_without_a_card():
+    """``scripts/lm_phase_probe.py`` runs only on a card: with none visible
+    it exits non-zero and prints no phase line."""
+    import os
+    proc = subprocess.run([sys.executable, "scripts/lm_phase_probe.py"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr

@@ -1122,3 +1122,100 @@ def test_controller_checkpoint_resume_on_the_card(card, tmp_path):
     assert torch.equal(res.store.gather(live), ctl.store.gather(live))
     m = res.run()
     assert m["rounds"] >= 1 and res.db.round == 3
+
+
+# -- the dense decoder LM -----------------------------------------------------
+
+
+def _lm_batch(vocab, seed=0):
+    tok = np.random.default_rng(seed).integers(0, vocab, (2, 17))
+    tgt = tok[:, 1:].copy()
+    tgt[0, -3:] = -1
+    return tok[:, :-1].astype(np.int32), tgt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b", "yi-6b",
+                                  "qwen3-4b"])
+def test_lm_loss_and_grads_card_equal_cpu(no_tf32, arch):
+    """A smoke-config ``DecoderLM``'s loss and every grad on the card
+    within rtol 1e-4 / atol 1e-5 of the CPU, from one set of params, TF32
+    off (both compute in fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(get_config(arch, smoke=True))
+    params = lm.init(torch.Generator().manual_seed(0))
+    tok, tgt = _lm_batch(lm.cfg.vocab_size)
+    out = []
+    for dev in (no_tf32, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        loss, _ = lm.loss(p, {"tokens": torch.as_tensor(tok, device=dev),
+                              "targets": torch.as_tensor(tgt, device=dev)})
+        loss.backward()
+        out.append((loss.detach(), [t.grad for t in tree_leaves(p)]))
+    (lc, gc), (lh, gh) = out
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5)
+    for a, b in zip(gc, gh):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_lm_prefill_then_decode_on_the_card_matches_full_forward(no_tf32):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(get_config("qwen3-1.7b", smoke=True))
+    p = lm.init(torch.Generator(device=no_tf32).manual_seed(0))
+    tok = torch.randint(0, lm.cfg.vocab_size, (2, 13), device=no_tf32,
+                        generator=torch.Generator(device=no_tf32).manual_seed(1))
+    with torch.no_grad():
+        full, _, _ = lm.apply(p, {"tokens": tok[:, :12]})
+        _, caches, _ = lm.apply(p, {"tokens": tok[:, :11]}, make_cache=True,
+                                cache_len=13)
+        dec, _ = lm.decode_step(p, caches, tok[:, 11:12], 11)
+    assert caches["stack"]["k"].is_cuda
+    torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_federated_lm_round_card_matches_cpu(card):
+    """One round of the federated LM example's setup (6 clients, 4 a round)
+    on the card and on the CPU from one set of params, on one table of
+    minibatch indices: the host trace identical, the global params within
+    rtol 1e-4 / atol 1e-5, the token accuracies within 1e-2 (an argmax
+    may flip on a difference of 1e-6)."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.core.controller import Controller
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models.api import LMClientAdapter
+
+    path = Path(__file__).resolve().parents[1] / "examples" / \
+        "torch_train_fl_lm.py"
+    spec = importlib.util.spec_from_file_location("torch_train_fl_lm", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = ex.lm_config("qwen3-1.7b", full=False)
+    data = ex.make_lm_federated_data(6, cfg.vocab_size, seq_len=32,
+                                     samples_per_client=24)
+    init = LMClientAdapter(cfg).init(torch.Generator().manual_seed(0))
+    runs = {}
+    for where in (card, torch.device("cpu")):
+        ctl = Controller(ex.fl_config(6, 1), LMClientAdapter(cfg), data,
+                         list(paper_fleet(6)), device=where,
+                         init_params=tree_map(lambda t: t.to(where), init))
+        ctl.trainer.batch_indices = TableIndices(7, 4)
+        ctl.run()
+        runs[where.type] = ctl
+    on_card, on_cpu = runs["cuda"], runs["cpu"]
+    strip = lambda t: ([h[:3] + h[4:] for h in t[0]], t[1])
+    assert strip(_trace(on_card)) == strip(_trace(on_cpu))
+    assert abs(on_card.history[-1].accuracy
+               - on_cpu.history[-1].accuracy) <= 1e-2
+    for a, b in zip(tree_leaves(on_card.params), tree_leaves(on_cpu.params)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)

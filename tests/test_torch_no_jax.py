@@ -49,6 +49,13 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.durability", "repro_torch.durability.manager",
             "repro_torch.durability.snapshot"} <= set(mods)
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.qwen3_1p7b", "repro_torch.configs.granite_8b",
+            "repro_torch.configs.yi_6b", "repro_torch.configs.qwen3_4b",
+            "repro_torch.configs.arctic_480b", "repro_torch.models.api",
+            "repro_torch.models.attention", "repro_torch.models.blocks",
+            "repro_torch.models.lm", "repro_torch.launch",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -65,8 +72,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) > 20
+    assert ROOT / "examples" / "torch_train_fl_lm.py" in files
     bad = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -277,3 +286,21 @@ def test_settings_of_the_durability_slice_run(kw, tmp_path):
     else:
         assert m["durability"] == "off"
         assert {"db.json", "blobs.npz", "update_store"} <= files
+
+
+def test_lm_entry_points_take_the_card_and_never_fall_back(monkeypatch):
+    """The LM client on the ``Controller`` and the serving and training
+    entry points raise without a card unless asked for the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.api import LMClientAdapter
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = make_federated_dataset("shakespeare", n_clients=4, scale=0.05,
+                                  seed=0)
+    cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1)
+    model = LMClientAdapter(get_config("qwen3-1.7b", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Controller(cfg, model, data, list(paper_fleet(4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--smoke", "--steps", "1"])
