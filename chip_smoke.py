@@ -166,7 +166,37 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      then the example's ``main`` at its container size on the card and on
      the CPU, host traces (selections, invocation records, simulated
      clock, cost, cold starts) equal;
- 12. kernels: each kernel at the shapes its path gave it, against its
+ 12. moe: the MoE + MLA LM family. Serving: ``DecoderLM`` of
+     DeepSeek-V2-Lite uncut (27 layers, 15,706,484,224 params, bf16: MLA
+     attention, an MLA-dense first layer, 64 routed experts top-6 and 2
+     shared) prefills 4 x 512 into a cache of 576 and decodes greedily to
+     fill it, and Arctic at its published width cut to 1 layer
+     (14,069,945,344 params, bf16: GQA, 128 experts top-2 and a parallel
+     dense residual FFN; two layers would need 55.4 GB of weights) 4 x 128
+     into 160; each timed at the published capacity factor (init s,
+     prefill ms first and second, decode tokens/s and ms a step, peak GB),
+     then checked on the same params at ``ceil(n_experts / top_k)`` (11
+     and 64), where every call's capacity holds all its tokens (asserted):
+     each decoded position's logits within ``LM_DECODE_RTOL`` (5e-2) of
+     the full forward's, which holds MLA's absorbed branch (prefill and
+     decode) against its expanded one (the full forward); the same check
+     in fp32 at DeepSeek's 3-layer cut, within 1e-3. Training, at
+     DeepSeek's 3-layer cut (1,670,135,296 params; all 27 layers' fused
+     Adam rows would be ~375 GB): ``launch.train.main --layers 3``, 3
+     steps of 4 x 1,024 tokens through ``fused_adam`` (a finite loss a
+     step, the first batch's lower after, exactly 3 launches), then 3
+     steps of ``launch.train.train_step`` with
+     ``build_optimizer("adafactor", 1e-3)`` (``MOE_ADAFACTOR_LR``: at
+     Arctic's 1e-2 the reference's formula diverges at this width; the
+     same loss checks, no kernel launch); step ms and peak GB. Arctic's ``launch.train --smoke``
+     (Adafactor, its config's optimizer) on the card and on the CPU, each
+     loss within 1e-4 relative. Federated:
+     ``examples/torch_train_fl_lm.py --arch deepseek-v2-lite-16b`` at its
+     container size through the ``Controller``, 12 clients, 3 rounds:
+     ``staleness_agg`` once an aggregation, ``fused_adam`` once a local step
+     of each cohort's largest budget, then the host trace and the host's
+     metrics card against CPU;
+ 13. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
      phase's check), and timed (median of CUDA-event times) beside the
@@ -211,6 +241,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      of columns at a time), ``fused_adam[fl_lm]`` (the federated run's
      largest cohort at W = 100,094,208) and ``staleness_agg[fl_lm]`` at
      its last aggregate, in the route it took, and in the rows form.
+     The moe phase's entry: ``fused_adam[deepseek-v2-lite-16b]`` (the
+     centralized step at the 3-layer cut, one lane of 1,670,135,296).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1233,12 +1265,58 @@ def peak_gb(dev):
             else None)
 
 
-def lm_serve(dev, cfg, batch: int, prompt: int, cache: int) -> dict:
+def greedy_serve(lm, params, prompts, cache: int, prefills: int = 2
+                 ) -> tuple:
+    """Prefill ``prompts`` into a cache of ``cache`` slots ``prefills``
+    times (the first warms cuBLAS and the allocator), then decode greedily
+    to fill the cache. Returns (each prefill's ms, the decode's seconds,
+    the logits of every picked position [B, n, V], the picks [B, n])."""
+    prompt = prompts.shape[1]
+    prefill_ms = []
+    for _ in range(prefills):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches, _ = lm.apply(params, {"tokens": prompts},
+                                     make_cache=True, cache_len=cache)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    rows = [logits[:, -1]]
+    tok = torch.argmax(rows[-1], dim=-1)[:, None]
+    toks = [tok]
+    t0 = time.perf_counter()
+    for i in range(cache - prompt - 1):
+        logits, caches = lm.decode_step(params, caches, tok, prompt + i)
+        rows.append(logits[:, -1])
+        tok = torch.argmax(rows[-1], dim=-1)[:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return (prefill_ms, decode_s, torch.stack(rows, dim=1).float(),
+            torch.cat(toks, dim=1))
+
+
+def serve_capacities(cfg, batch: int, prompt: int, cache: int) -> dict:
+    """The MoE capacity of each call a serve check makes (prefill, one
+    decode step, the full forward over the decoded sequence) against its
+    token count."""
+    from repro_torch.models.moe import capacity
+
+    calls = {"prefill": batch * prompt, "decode": batch,
+             "full": batch * (cache - 1)}
+    return {k: {"tokens": t, "capacity": capacity(t, cfg)}
+            for k, t in calls.items()}
+
+
+def lm_serve(dev, cfg, batch: int, prompt: int, cache: int,
+             check_cfg=None) -> dict:
     """``DecoderLM`` at ``cfg``'s width and dtype, initialized on ``dev``:
-    prefill (twice, the first warming cuBLAS and the allocator), greedy
-    decode to fill the cache, then the full forward over the decoded
-    sequence; each decoded position's logits within
-    ``LM_DECODE_RTOL[dtype]`` of the full forward's."""
+    prefill (twice), greedy decode to fill the cache, then the full forward
+    over the decoded sequence; each decoded position's logits within
+    ``LM_DECODE_RTOL[dtype]`` of the full forward's. With ``check_cfg``
+    (an MoE config at a capacity that drops no token) the timed run is
+    ``cfg``'s and the decode and the full forward of the check are
+    ``check_cfg``'s, on the same params; every call's capacity must hold
+    all its tokens."""
     from repro_torch.models.common import count_params
     from repro_torch.models.lm import DecoderLM
 
@@ -1249,38 +1327,29 @@ def lm_serve(dev, cfg, batch: int, prompt: int, cache: int) -> dict:
     params = lm.init(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = peak_gb(dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
                             device=dev)
+    caps = None
     with torch.no_grad():
-        prefill_ms = []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, caches, _ = lm.apply(params, {"tokens": prompts},
-                                         make_cache=True, cache_len=cache)
-            torch.cuda.synchronize()
-            prefill_ms.append((time.perf_counter() - t0) * 1e3)
-        rows = [logits[:, -1]]
-        tok = torch.argmax(rows[-1], dim=-1)[:, None]
-        toks = [tok]
-        t0 = time.perf_counter()
-        for i in range(cache - prompt - 1):
-            logits, caches = lm.decode_step(params, caches, tok, prompt + i)
-            rows.append(logits[:, -1])
-            tok = torch.argmax(rows[-1], dim=-1)[:, None]
-            toks.append(tok)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        seqs = torch.cat(toks, dim=1)
+        prefill_ms, decode_s, dec, seqs = greedy_serve(lm, params, prompts,
+                                                       cache)
+        if check_cfg is not None:
+            caps = serve_capacities(check_cfg, batch, prompt, cache)
+            if any(c["capacity"] < c["tokens"] for c in caps.values()):
+                raise AssertionError(f"lm serve: a check call can drop "
+                                     f"tokens: {caps}")
+            lm = DecoderLM(check_cfg)
+            _, _, dec, seqs = greedy_serve(lm, params, prompts, cache, 1)
         full, _, _ = lm.apply(params, {"tokens": torch.cat(
             [prompts, seqs[:, :-1]], dim=1)})
         full = full[:, prompt - 1:].float()
-        dec = torch.stack(rows, dim=1).float()
         rel = (dec - full).norm(dim=-1) / full.norm(dim=-1)
         agree = (dec.argmax(-1) == full.argmax(-1)).float().mean()
     steps = cache - prompt - 1
     rtol = LM_DECODE_RTOL[cfg.param_dtype]
-    rec = {"arch": cfg.name, "n_params": count_params(params),
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "n_params": count_params(params),
            "dtype": cfg.param_dtype, "batch": batch, "prompt": prompt,
            "cache": cache, "decoded_tokens": seqs.shape[1],
            "decode_steps": steps, "init_s": init_s,
@@ -1293,30 +1362,36 @@ def lm_serve(dev, cfg, batch: int, prompt: int, cache: int) -> dict:
            "decode_rtol": rtol,
            "argmax_agreement": float(agree),
            "logits_finite": bool(torch.isfinite(dec).all()),
-           "peak_gb": peak_gb(dev)}
-    del params, caches, logits, full, dec
+           "init_peak_gb": init_peak, "peak_gb": peak_gb(dev)}
+    if check_cfg is not None:
+        rec["capacity_factor"] = cfg.capacity_factor
+        rec["check_capacity_factor"] = check_cfg.capacity_factor
+        rec["check_capacities"] = caps
+    del params, full, dec
     if not rec["logits_finite"]:
         raise AssertionError(f"lm serve: {cfg.name} decoded non-finite logits")
     if rec["decode_rel_l2_max"] > rtol:
         raise AssertionError(
-            f"lm serve ({cfg.param_dtype}): decode vs full forward "
-            f"relative L2 {rec['decode_rel_l2_max']} > {rtol}")
+            f"lm serve ({cfg.name}, {cfg.param_dtype}): decode vs full "
+            f"forward relative L2 {rec['decode_rel_l2_max']} > {rtol}")
     return rec
 
 
 def lm_train(dev, arch: str, smoke: bool, steps: int, batch: int,
-             seq: int) -> dict:
-    """``repro_torch.launch.train.main`` for ``arch``, every kernel count
-    zeroed just before and read just after: a finite loss at every step, one
-    ``fused_adam`` launch a step, and the step-0 batch's loss lower after
-    the steps than it was at step 0."""
+             seq: int, layers=None) -> dict:
+    """``repro_torch.launch.train.main`` for ``arch`` (its depth cut to
+    ``layers`` when given), every kernel count zeroed just before and read
+    just after: a finite loss at every step, one ``fused_adam`` launch a
+    step, and the step-0 batch's loss lower after the steps than it was at
+    step 0."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import build_model
 
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
             "--seq", str(seq), "--device", str(dev)] + (
-                ["--smoke"] if smoke else [])
+                ["--smoke"] if smoke else []) + (
+                ["--layers", str(layers)] if layers else [])
     reset_peak(dev)
     zero_counts()
     t0 = time.perf_counter()
@@ -1326,11 +1401,14 @@ def lm_train(dev, arch: str, smoke: bool, steps: int, batch: int,
     wall_s = time.perf_counter() - t0
     launches = read_counts()
     cfg = get_config(arch, smoke=smoke)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     first = train.token_batch(np.random.default_rng(0), cfg.vocab_size,
                               batch, seq, dev)
     with torch.no_grad():
         again = float(build_model(cfg).loss(out["params"], first)[0])
-    rec = {"arch": arch, "smoke": smoke, "n_params": out["n_params"],
+    rec = {"arch": arch, "smoke": smoke, "n_layers": cfg.n_layers,
+           "n_params": out["n_params"],
            "dtype": cfg.param_dtype, "optimizer": cfg.optimizer,
            "remat": cfg.remat, "steps": steps, "batch": batch,
            "tokens_per_step": batch * (seq - 1), "losses": out["losses"],
@@ -1362,7 +1440,8 @@ def lm_fl_run(dev, argv) -> tuple:
 
 
 def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
-          trace_argv=LM_TRACE_ARGS) -> dict:
+          trace_argv=LM_TRACE_ARGS, arch: str = LM_ARCH,
+          phase: str = "lm") -> dict:
     """The federated LM example's setup (its ``lm_config``, ``fl_config``
     and ``make_lm_federated_data`` over ``data_vocab`` tokens) through the
     ``Controller`` on ``dev``, every kernel count zeroed just before the
@@ -1378,7 +1457,7 @@ def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
     from repro_torch.models.api import LMClientAdapter
 
     ex = load_example(LM_FL_EXAMPLE)
-    cfg = ex.lm_config(LM_ARCH, full)
+    cfg = ex.lm_config(arch, full)
     t0 = time.perf_counter()
     data = ex.make_lm_federated_data(clients, data_vocab, seq_len=32,
                                      samples_per_client=24)
@@ -1405,7 +1484,7 @@ def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
     finite = all(bool(torch.isfinite(p).all())
                  for p in tree_leaves(ctl.params))
     rec = {"model": (f"{cfg.name}, {cfg.n_layers} L, d {cfg.d_model}, "
-                     f"vocab {cfg.vocab_size}"), "phase": "lm",
+                     f"vocab {cfg.vocab_size}"), "phase": phase,
            "strategy": ctl.cfg.strategy, "n_params": ctl.spec.n_params,
            "row_width": ctl.store.row_width, "data_vocab": data_vocab,
            "data_s": data_s,
@@ -1422,10 +1501,10 @@ def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
            "peak_gb": peak_gb(dev)}
     del ctl
     if not finite:
-        raise AssertionError("lm fl: params not finite")
+        raise AssertionError(f"{phase} fl: params not finite")
     if want["staleness_agg"] < 1 or any(launches[k] != n
                                         for k, n in want.items()):
-        raise AssertionError(f"lm fl: launches {launches}, want {want}")
+        raise AssertionError(f"{phase} fl: launches {launches}, want {want}")
     card, m_card = lm_fl_run(dev, trace_argv)
     cpu, m_cpu = lm_fl_run(torch.device("cpu"), trace_argv)
     keys = ("total_time", "total_cost_usd", "cold_start_ratio",
@@ -1436,7 +1515,7 @@ def lm_fl(dev, clients: int, rounds: int, data_vocab: int, full: bool,
     rec["trace_accuracy_card_cpu"] = [m_card["final_accuracy"],
                                       m_cpu["final_accuracy"]]
     if not (rec["trace_equal"] and rec["trace_metrics_equal"]):
-        raise AssertionError("lm fl: host trace card vs CPU differs")
+        raise AssertionError(f"{phase} fl: host trace card vs CPU differs")
     return rec
 
 
@@ -1461,6 +1540,201 @@ def lm_phase(dev, arch: str = LM_ARCH, smoke: bool = False, serve=None,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------- moe
+# DeepSeek-V2-Lite served uncut (27 L, 15,706,484,224 params, bf16: 31.4 GB)
+# and Arctic's published width cut to 1 layer (14,069,945,344 params, 28.1
+# GB; two layers would be 55.4 GB before any activation). Each serve run is
+# timed at the published capacity factor; its decode check runs on the
+# same params at ceil(n_experts / top_k), where no call can drop a token
+# (at 1.25 the full forward over 4 x 575 tokens drops tokens that decode
+# does not), and again in fp32 at DeepSeek's 3-layer cut
+MOE_SERVE = {"deepseek-v2-lite-16b": dict(layers=None, batch=4, prompt=512,
+                                          cache=576),
+             "arctic-480b": dict(layers=1, batch=4, prompt=128, cache=160)}
+MOE_FP32 = dict(arch="deepseek-v2-lite-16b", layers=3, batch=4, prompt=512,
+                cache=576)
+# training at DeepSeek's 3-layer cut (1 MLA-dense, 2 MLA-MoE layers:
+# 1,670,135,296 params): its fused Adam's fp32 rows at all 27 layers would
+# be ~375 GB. Adafactor at the same cut and width; Arctic's own (smoke)
+# launch.train run, Adafactor, card against CPU
+MOE_TRAIN = dict(arch="deepseek-v2-lite-16b", smoke=False, layers=3, steps=3,
+                 batch=4, seq=1024)
+# Adafactor's lr at width: the reference's formula has no relative step
+# size, so each step moves every weight by about lr (its RMS clip), and at
+# d 2,048 (weights of RMS 0.022) lr 1e-2, Arctic's config value, sends the
+# first batch's loss from 9.4 to 45 in 3 steps, the reference's own
+# Adafactor as much (CPU probes at DeepSeek's width over 8,192 tokens);
+# at 1e-3 it falls to 6.7
+MOE_ADAFACTOR_LR = 1e-3
+MOE_SMOKE_TRAIN = ("--arch", "arctic-480b", "--smoke", "--steps", "4",
+                   "--batch", "4", "--seq", "64")
+MOE_SMOKE_RTOL = 1e-4
+# the federated MoE: the example at its container size (DeepSeek's smoke
+# config, vocabulary 256), as the example runs it by default
+MOE_FL = dict(arch="deepseek-v2-lite-16b", clients=12, rounds=3,
+              data_vocab=256, full=False)
+MOE_TRACE_ARGS = ("--arch", "deepseek-v2-lite-16b", "--clients", "12",
+                  "--rounds", "3")
+
+
+def no_drop_cf(cfg) -> int:
+    """The capacity factor at which no expert can drop a token:
+    ``capacity(T) >= T`` for every T, each token taking K distinct
+    experts."""
+    return -(-cfg.n_experts // cfg.top_k)
+
+
+def moe_serve(dev, arch: str, layers, batch: int, prompt: int, cache: int,
+              smoke: bool = False, dtype=None) -> dict:
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, smoke=smoke)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    if dtype:
+        cfg = cfg.with_(param_dtype=dtype, compute_dtype=dtype)
+    return lm_serve(dev, cfg, batch, prompt, cache,
+                    check_cfg=cfg.with_(capacity_factor=no_drop_cf(cfg)))
+
+
+def moe_adafactor(dev, arch: str, smoke: bool, layers, steps: int,
+                  batch: int, seq: int, lr: float) -> dict:
+    """``steps`` steps of ``launch.train``'s ``train_step`` with
+    ``build_optimizer("adafactor", lr)`` on ``arch`` (cut to ``layers``),
+    on its token stream from seed 0: a finite loss at every step and the
+    step-0 batch's loss lower after the steps; Adafactor launches no
+    kernel (counts zeroed just before, read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.optim import build_optimizer
+
+    cfg = get_config(arch, smoke=smoke)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    reset_peak(dev)
+    model = build_model(cfg)
+    opt = build_optimizer("adafactor", lr)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = opt.init(params)
+    rng = np.random.default_rng(0)
+    first = train.token_batch(np.random.default_rng(0), cfg.vocab_size,
+                              batch, seq, dev)
+    losses, step_s = [], []
+    zero_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, loss = train.train_step(
+            model, opt, params, state,
+            train.token_batch(rng, cfg.vocab_size, batch, seq, dev))
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+    launches = read_counts()
+    with torch.no_grad():
+        again = float(model.loss(params, first)[0])
+    rec = {"arch": arch, "n_layers": cfg.n_layers,
+           "n_params": count_params(params), "dtype": cfg.param_dtype,
+           "optimizer": opt.name, "lr": lr, "steps": steps,
+           "tokens_per_step": batch * (seq - 1), "losses": losses,
+           "step_s": step_s,
+           "step_ms": statistics.median(step_s[1:] or step_s) * 1e3,
+           "step0_batch_loss_after": again, "launches": launches,
+           "peak_gb": peak_gb(dev)}
+    del params, state
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"moe adafactor: non-finite loss {losses}")
+    if not again < losses[0]:
+        raise AssertionError(f"moe adafactor: the step-0 batch's loss went "
+                             f"from {losses[0]} to {again}")
+    if any(launches.values()):
+        raise AssertionError(f"moe adafactor: launches {launches}")
+    return rec
+
+
+def smoke_train_card_cpu(dev, argv) -> dict:
+    """``launch.train.main`` on ``argv`` on the card and on the CPU from
+    one set of params: a ``--steps 0`` run on the CPU checkpoints its
+    init, and each run resumes from a copy of it (a generator draws other
+    values on the card). Each step's loss within ``MOE_SMOKE_RTOL``
+    (relative) card against CPU, the optimizer's state through the
+    checkpoint and back."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):
+        init = os.path.join(tmp, "init")
+        train.main([*argv, "--steps", "0", "--ckpt-dir", init,
+                    "--device", "cpu"])
+        for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            ck = os.path.join(tmp, name)
+            shutil.copytree(init, ck)
+            runs[name] = train.main([*argv, "--ckpt-dir", ck, "--resume",
+                                     "--device", str(where)])
+    card, cpu = runs["card"]["losses"], runs["cpu"]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    rec = {"run": " ".join(argv), "losses_card": card, "losses_cpu": cpu,
+           "loss_rel_max": rel, "rtol": MOE_SMOKE_RTOL,
+           "opt_state_keys": sorted(runs["cpu"]["opt_state"])}
+    if not (len(card) == len(cpu) > 0 and rel <= MOE_SMOKE_RTOL):
+        raise AssertionError(f"moe smoke train: card vs CPU losses "
+                             f"{card} / {cpu}")
+    return rec
+
+
+def moe_phase(dev, serve=None, fp32=None, train=None, adafactor_lr=None,
+              smoke_train=MOE_SMOKE_TRAIN, fl=None,
+              trace_argv=MOE_TRACE_ARGS) -> dict:
+    """The MoE + MLA LM family on the card: DeepSeek-V2-Lite served uncut
+    and Arctic's layer at published width (bf16), the fp32 check at
+    DeepSeek's 3-layer cut; DeepSeek's cut trained through ``launch.train``
+    (fused Adam) and through ``train_step`` with Adafactor; Arctic's smoke
+    run with Adafactor card against CPU; the federated MoE example
+    (``moe_serve``, ``lm_train``, ``moe_adafactor``,
+    ``smoke_train_card_cpu``, ``lm_fl``). The sizes cut it for a
+    rehearsal. One JSON line."""
+    t0 = time.perf_counter()
+    serve_rec = {arch: moe_serve(dev, arch, **kw)
+                 for arch, kw in (serve or MOE_SERVE).items()}
+    serve_rec["float32"] = moe_serve(dev, **(fp32 or MOE_FP32),
+                                     dtype="float32")
+    train_kw = dict(train or MOE_TRAIN)
+    train_rec = lm_train(dev, **train_kw)
+    ada_kw = {k: train_kw[k] for k in ("arch", "smoke", "layers", "steps",
+                                       "batch", "seq")}
+    ada_rec = moe_adafactor(dev, **ada_kw,
+                            lr=adafactor_lr or MOE_ADAFACTOR_LR)
+    smoke_rec = smoke_train_card_cpu(dev, smoke_train)
+    fl_rec = lm_fl(dev, **(fl or MOE_FL), trace_argv=trace_argv,
+                   phase="moe")
+    rec = {"serve": serve_rec, "train": train_rec, "adafactor": ada_rec,
+           "smoke_train": smoke_rec, "fl": fl_rec,
+           "wall_s": time.perf_counter() - t0}
+    emit("moe", **rec)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def moe_kernel_entries(rec: dict, dev) -> list:
+    """The MoE phase's new shape: ``fused_adam`` at the centralized
+    DeepSeek step's one lane of every param of the 3-layer cut (padded to
+    the kernel's vector width)."""
+    from repro_torch.kernels.fused_adam import VEC
+
+    train = rec["train"]
+    reset_peak(dev)
+    n = train["n_params"]
+    run = (f"moe phase: {train['arch']} ({train['n_layers']} layers) "
+           f"launch.train, {train['steps']} steps")
+    return [adam_entry(f"fused_adam[{train['arch']}]", 1, 1, n + (-n) % VEC,
+                       train["launches"]["fused_adam"], run, dev)]
 
 
 # -------------------------------------------------------------------- sweep
@@ -3361,6 +3635,8 @@ def main() -> int:
     # timed now, while the card holds nothing else: the 1.72 B-wide Adam
     # step's plain version needs ~69 GB
     lm_entries = timed("lm_kernel_entries", lm_kernel_entries, lm, dev)
+    moe = timed("moe", moe_phase, dev)
+    moe_entries = timed("moe_kernel_entries", moe_kernel_entries, moe, dev)
     if tf32_flags() != tf32:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
                              f"{tf32} before: a scope leaked")
@@ -3403,7 +3679,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += paper_kernel_entries(paper, dev)
     kernels.append(pytree_agg_entry(profiles["pytree_run"], dev))
-    kernels += lm_entries
+    kernels += lm_entries + moe_entries
     phase_s["kernel_entries"] = time.perf_counter() - t0
     for e in kernels:
         emit("kernel", **e)

@@ -4,11 +4,12 @@
     PYTHONPATH=src python examples/torch_serve_lm.py --arch qwen3-1.7b \
         --tokens 16 [--device cpu]
 
-Runs the smoke-sized config of the chosen dense architecture (Qwen3,
-Granite, Yi; the other families come with later slices and raise) on the
-CUDA card, or the CPU with ``--device cpu``: prefills a batch of prompts
-into a KV cache of prompt + tokens slots, then decodes greedily against
-it, one token a step.
+Runs the smoke-sized config of the chosen architecture (the dense family:
+Qwen3, Granite, Yi; the MoE family: DeepSeek-V2-Lite, whose MLA caches the
+compressed KV, and Arctic; the other families come with later slices and
+raise) on the CUDA card, or the CPU with ``--device cpu``: prefills a
+batch of prompts into a KV cache of prompt + tokens slots, then decodes
+greedily against it, one token a step.
 """
 import argparse
 import time

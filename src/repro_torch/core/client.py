@@ -148,7 +148,7 @@ class CohortTrainer:
         flat = row0.repeat(Kp, 1)
         grads = torch.zeros_like(flat)
         params, grad_views = spec.unravel_stacked(flat), spec.unravel_stacked(grads)
-        opt_state = self.opt.cohort_init(flat)
+        opt_state = self.opt.cohort_init(flat, spec)
         bidx = self.batch_indices(Kp, max_steps, n_t)
         sel_c = sel_t[:, None]
         losses = torch.zeros(Kp, dtype=torch.float32, device=dev)

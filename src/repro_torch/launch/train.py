@@ -1,22 +1,28 @@
 """Training driver (twin of ``repro.launch.train``): centralized training
-of a dense decoder LM, with checkpointing and restart.
+of a decoder LM (the ``dense`` and ``moe`` families), with checkpointing
+and restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 20 --smoke --batch 4 --seq 64 --ckpt-dir /tmp/ckpt \\
-        [--device cpu]
+        [--layers N] [--device cpu]
 
 Runs on the CUDA card unless ``--device cpu``; ``--smoke`` takes the
-arch's reduced config. Params are initialized from ``torch.Generator``
-seed 0 on the device, the token stream is the reference's
+arch's reduced config, ``--layers N`` keeps the config's widths and cuts
+its depth to N layers (DeepSeek-V2-Lite's first, dense layer among them).
+Params are initialized from ``torch.Generator`` seed 0 on the device, the
+token stream is the reference's
 (``numpy.random.default_rng(0)``, ``[batch, seq]`` uniform tokens a step,
 inputs ``[:, :-1]``, targets ``[:, 1:]``), and the optimizer is the
-config's (``adam``: the fused kernel, ``optim.adam_fused``). A checkpoint
-holds the params and the optimizer state (``checkpoint.CheckpointManager``,
-every ``--ckpt-every`` steps and at the end); ``--resume`` restarts from
-the newest one and skips the batches its steps consumed, so a resumed run
-ends where the uninterrupted run ends (the reference draws the stream
-again from its first batch). The families other than ``dense`` raise.
-For federated LM training see ``examples/torch_train_fl_lm.py``.
+config's (``adam``: the fused kernel, ``optim.adam_fused``; ``adafactor``,
+Arctic's, ``optim.adafactor``). A checkpoint holds the params and the
+optimizer state (``checkpoint.CheckpointManager``, every ``--ckpt-every``
+steps and at the end: Adam's flat moments, or Adafactor's per-leaf
+factored state, a tree shaped as the params; the step count as an int);
+``--resume`` restarts from the newest one and skips the batches its steps
+consumed, so a resumed run ends where the uninterrupted run ends (the
+reference draws the stream again from its first batch). The SSM, hybrid,
+VLM and enc-dec families raise, naming their slice. For federated LM
+training see ``examples/torch_train_fl_lm.py``.
 """
 from __future__ import annotations
 
@@ -82,11 +88,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers is not None:
+        cfg = cfg.with_(n_layers=args.layers)
     model = build_model(cfg)
     opt = build_optimizer(cfg.optimizer, cfg.learning_rate)
 

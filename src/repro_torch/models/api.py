@@ -7,16 +7,16 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.lm import FAMILY_SLICE
+from repro_torch.models.lm import FAMILIES, FAMILY_SLICE
 
 
 def build_model(cfg: ModelConfig):
-    """``paper-*`` configs get the paper's model, ``dense`` a
+    """``paper-*`` configs get the paper's model, ``dense`` and ``moe`` a
     ``DecoderLM``; the other families come with later slices and raise."""
     if cfg.family.startswith("paper"):
         from repro_torch.models.paper_models import build_paper_model
         return build_paper_model(cfg.name)
-    if cfg.family == "dense":
+    if cfg.family in FAMILIES:
         from repro_torch.models.lm import DecoderLM
         return DecoderLM(cfg)
     raise NotImplementedError(

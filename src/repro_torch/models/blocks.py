@@ -1,7 +1,8 @@
-"""Residual blocks (twin of the dense part of ``repro.models.blocks``): the
-SwiGLU FFN and the pre-norm decoder block of GQA attention and a dense
-FFN. The MoE, MLA, mamba, zamba and cross-attention blocks come with later
-slices and raise."""
+"""Residual blocks (twin of the decoder part of ``repro.models.blocks``):
+the SwiGLU FFN and the pre-norm decoder block of GQA or MLA attention and a
+dense FFN or an MoE (with Arctic's parallel dense residual FFN). The
+mamba, zamba and cross-attention blocks come with later slices and
+raise."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ParamFactory, later_slice, rms_norm,
                                        swiglu)
 
@@ -31,42 +33,48 @@ def ffn_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsf,fd->bsd", h, p["w_down"].to(x.dtype))
 
 
-# -- standard decoder block (GQA attention + dense FFN) -----------------------
-
-
-def _check_kind(kind: str) -> None:
-    if kind != "dense":
-        raise NotImplementedError(
-            f"decoder block kind {kind!r} comes with a later slice of the "
-            f"port ({attn.MOE_SLICE})")
+# -- standard decoder block (GQA or MLA attention + dense FFN or MoE) ---------
 
 
 def init_decoder_block(pf: ParamFactory, cfg: ModelConfig, *,
                        kind: str) -> None:
-    """kind: 'dense' (the reference's 'moe', 'mla_dense' and 'mla_moe' come
-    with the MoE + MLA slice)."""
-    _check_kind(kind)
+    """kind: 'dense' | 'moe' | 'mla_dense' | 'mla_moe'."""
     d = cfg.d_model
     pf.param("ln_attn", (d,), init="ones")
     pf.param("ln_mlp", (d,), init="ones")
     with pf.scope("attn"):
-        attn.init_gqa(pf, cfg)
+        if kind.startswith("mla"):
+            attn.init_mla(pf, cfg)
+        else:
+            attn.init_gqa(pf, cfg)
     with pf.scope("mlp"):
-        init_ffn(pf, d, cfg.d_ff)
+        if kind.endswith("moe"):
+            moe_mod.init_moe(pf, cfg)
+            if cfg.dense_residual:
+                with pf.scope("dense_res"):
+                    init_ffn(pf, d, cfg.d_ff)
+        else:
+            init_ffn(pf, d, cfg.d_ff)
 
 
 def decoder_block(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
                   kind: str, cache: Optional[dict] = None, pos=None,
                   causal: bool = True):
     """Returns (y, new_cache, aux_loss); a dense block's aux loss is 0."""
-    _check_kind(kind)
     h = rms_norm(x, p["ln_attn"], cfg.norm_eps)
-    a, new_cache = attn.gqa_forward(p["attn"], h, cfg, positions, cache=cache,
-                                    pos=pos, causal=causal)
+    attn_fn = attn.mla_forward if kind.startswith("mla") else attn.gqa_forward
+    a, new_cache = attn_fn(p["attn"], h, cfg, positions, cache=cache, pos=pos,
+                           causal=causal)
     x = x + a
     h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + ffn_forward(p["mlp"], h), new_cache, aux
+    if kind.endswith("moe"):
+        m, aux = moe_mod.moe_forward(p["mlp"], h, cfg)
+        if cfg.dense_residual:
+            m = m + ffn_forward(p["mlp"]["dense_res"], h)
+    else:
+        m = ffn_forward(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + m, new_cache, aux
 
 
 init_mamba_block = later_slice("init_mamba_block", SSM_SLICE)

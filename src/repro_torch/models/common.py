@@ -28,10 +28,13 @@ Params = Any
 class ParamFactory:
     """Accumulates a nested dict of initialized parameters under nested
     scopes, drawn in creation order from one generator on ``device`` (the
-    generator's device by default)."""
+    generator's device by default). With ``into`` (a tree of preallocated
+    tensors of the same names and shapes) each leaf is drawn into its
+    tensor there, which ``params`` then holds."""
 
     def __init__(self, generator: Optional[torch.Generator],
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None,
+                 into: Optional[dict] = None):
         self.generator = generator
         self.dtype = dtype
         self.device = torch.device(
@@ -39,6 +42,7 @@ class ParamFactory:
             else generator.device if generator is not None else "cpu")
         self.params: dict = {}
         self._path: list[str] = []
+        self._into = into
 
     @contextlib.contextmanager
     def scope(self, name: str) -> Iterator[None]:
@@ -54,37 +58,50 @@ class ParamFactory:
         for p in self._path:
             node = node.setdefault(p, {})
         if name in node:
-            raise ValueError(f"duplicate param {'/'.join(self._path + [name])}")
+            raise ValueError(
+                f"duplicate param {'/'.join(self._path + [name])}")
+        out = None
+        if self._into is not None:
+            out = self._into
+            for key in self._path + [name]:
+                out = out[key]
         value = _initialize(self.generator, shape, self.dtype, init, scale,
-                            self.device)
+                            self.device, out)
         node[name] = value
         return value
 
 
 def _initialize(gen: Optional[torch.Generator], shape, dtype, init: str,
-                scale: Optional[float], device=None) -> torch.Tensor:
+                scale: Optional[float], device=None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One leaf, drawn into ``out`` when it is given. A normal leaf is drawn
+    in fp32 (into ``out`` itself when it is fp32) and scaled in place, so
+    the draw holds one fp32 copy of the leaf beside its cast."""
     device = torch.device("cpu" if device is None else device)
     if init not in ("zeros", "ones", "normal", "embed"):
         raise ValueError(f"unknown init {init}")
     if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=device)
-    if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=device)
+        return (out if out is not None
+                else torch.empty(shape, dtype=dtype, device=device))
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if init in ("zeros", "ones"):
+        return out.fill_(0.0 if init == "zeros" else 1.0)
+    x = (out if out.dtype == torch.float32
+         else torch.empty(shape, dtype=torch.float32, device=device))
     if init == "normal":
         # fan-in scaled truncated normal, as the reference: fan_in = prod
         # of all but the last dim (conv HWIO, fused [in, heads, hd])
         fan_in = math.prod(shape[:-1]) if len(shape) >= 2 else (
             shape[-1] if shape else 1)
         std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-        x = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return (x * std).to(dtype)
-    # "embed": a plain (not truncated) normal, as the reference's embeddings
-    std = scale if scale is not None else 0.02
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    else:
+        # "embed": a plain (not truncated) normal, as the reference's
+        std = scale if scale is not None else 0.02
+        x.normal_(0.0, 1.0, generator=gen)
+    x.mul_(std)
+    return out if x is out else out.copy_(x)
 
 
 def init_stacked(init_fn: Callable, generator: Optional[torch.Generator],
@@ -93,14 +110,21 @@ def init_stacked(init_fn: Callable, generator: Optional[torch.Generator],
 
     ``init_fn(pf, *args)`` registers one block's params on a
     :class:`ParamFactory`; the ``n`` blocks draw one after another from
-    ``generator`` (the reference splits one key per block) and their leaves
-    are stacked, to be consumed one layer at a time."""
-    blocks = []
-    for _ in range(n):
-        pf = ParamFactory(generator, dtype, device)
-        init_fn(pf, *args)
-        blocks.append(pf.params)
-    return tree_map(lambda *xs: torch.stack(xs), blocks[0], *blocks[1:])
+    ``generator`` (the reference splits one key per block). Each stacked
+    leaf is allocated once, and every block's leaf is drawn into its slot,
+    so the stack is never held twice."""
+    meta = ParamFactory(None, dtype, "meta")
+    init_fn(meta, *args)
+    device = torch.device(device if device is not None
+                          else generator.device if generator is not None
+                          else "cpu")
+    stack = tree_map(lambda t: torch.empty((n,) + tuple(t.shape), dtype=dtype,
+                                           device=device), meta.params)
+    if device.type != "meta":
+        for i in range(n):
+            init_fn(ParamFactory(generator, dtype, device,
+                                 into=tree_map(lambda t: t[i], stack)), *args)
+    return stack
 
 
 # ----------------------------------------------------------------------------

@@ -1,5 +1,7 @@
-"""Decoder-only language model, ``family="dense"`` (twin of
-``repro.models.lm``): Qwen3, Granite and Yi.
+"""Decoder-only language model, ``family="dense"`` (Qwen3, Granite, Yi)
+and ``family="moe"`` (DeepSeek-V2-Lite: MLA attention, an MLA-dense first
+layer, shared + routed experts; Arctic: GQA, 128 experts top-2 and a
+parallel dense residual FFN) (twin of ``repro.models.lm``).
 
 API (functional, as the reference):
 
@@ -12,14 +14,16 @@ API (functional, as the reference):
 
 Params keep the reference's names, shapes and leaf order: ``tok_embed``,
 ``ln_f``, ``head`` (untied only), ``layers = {"first": [], "stack": {...}}``
-with every stack leaf on a leading layers axis. The reference's
-``lax.scan`` over the stack is a Python loop over that axis; its
+with every stack leaf on a leading layers axis; the ``first``
+``first_dense_layers`` layers are the family's dense kind (``mla_dense``
+for DeepSeek). The reference's ``lax.scan`` over the stack is a Python
+loop over that axis, summing the layers' MoE aux losses in its order; its
 ``jax.checkpoint`` (``cfg.remat``) is ``torch.utils.checkpoint`` around
 each layer under plain autograd. Under ``torch.func`` transforms (the
 cohort trainer's ``vmap(grad_and_value)``) torch's checkpoint raises
 ("don't yet support saved tensor hooks"), so there the layers run without
-it; remat changes no value either way. The MoE, SSM, hybrid and VLM
-families come with later slices and raise.
+it; remat changes no value either way. The SSM, hybrid and VLM families
+come with later slices and raise.
 """
 from __future__ import annotations
 
@@ -37,9 +41,9 @@ from repro_torch.models.common import (ParamFactory, init_stacked, rms_norm,
 
 Params = Any
 
-FAMILY_SLICE = {"moe": attn.MOE_SLICE, "ssm": blk.SSM_SLICE,
-                "hybrid": blk.SSM_SLICE, "vlm": attn.CROSS_SLICE,
-                "encdec": attn.CROSS_SLICE}
+FAMILY_SLICE = {"ssm": blk.SSM_SLICE, "hybrid": blk.SSM_SLICE,
+                "vlm": attn.CROSS_SLICE, "encdec": attn.CROSS_SLICE}
+FAMILIES = ("dense", "moe")
 
 
 def _dtype(name: str):
@@ -59,13 +63,14 @@ def _remat_active(cfg: ModelConfig) -> bool:
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense" or block_kind(cfg) != "dense":
-            fam = "moe" if cfg.family == "dense" else cfg.family
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"DecoderLM family {cfg.family!r} ({cfg.name}) comes with a "
                 f"later slice of the port "
-                f"({FAMILY_SLICE.get(fam, 'not planned')})")
+                f"({FAMILY_SLICE.get(cfg.family, 'not planned')})")
         self.cfg = cfg
+        self.kind = block_kind(cfg)
+        self.dense_kind = self.kind.replace("moe", "dense")
         self.pdtype = _dtype(cfg.param_dtype)
         self.cdtype = _dtype(cfg.compute_dtype)
 
@@ -86,10 +91,10 @@ class DecoderLM:
         first = []
         for _ in range(cfg.first_dense_layers):
             pf1 = ParamFactory(generator, self.pdtype, pf.device)
-            blk.init_decoder_block(pf1, cfg, kind="dense")
+            blk.init_decoder_block(pf1, cfg, kind=self.dense_kind)
             first.append(pf1.params)
         stack = init_stacked(
-            lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense"),
+            lambda pf_: blk.init_decoder_block(pf_, cfg, kind=self.kind),
             generator, cfg.n_layers - cfg.first_dense_layers, self.pdtype,
             device=pf.device)
         params["layers"] = {"first": first, "stack": stack}
@@ -113,14 +118,14 @@ class DecoderLM:
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def layer(p_i, x, c_i):
-            return blk.decoder_block(p_i, x, cfg, positions, kind="dense",
+        def layer(p_i, x, c_i, kind=self.kind):
+            return blk.decoder_block(p_i, x, cfg, positions, kind=kind,
                                      cache=c_i, pos=pos)
 
         new_first = []
         for i, p_i in enumerate(params["layers"]["first"]):
             c_i = caches["first"][i] if caches is not None else None
-            x, nc, a = layer(p_i, x, c_i)
+            x, nc, a = layer(p_i, x, c_i, self.dense_kind)
             aux = aux + a
             new_first.append(nc)
         stack = params["layers"]["stack"]
@@ -169,9 +174,13 @@ class DecoderLM:
     # ----------------------------------------------------------- cache utils
     def cache_struct(self, batch: int, cache_len: int) -> dict:
         """The cache tree as ``meta`` tensors (shapes and dtypes):
-        ``{"first": [one] * first_dense_layers, "stack": [L, ...] one}``."""
+        ``{"first": [one] * first_dense_layers, "stack": [L, ...] one}``,
+        ``one`` the MLA cache (``c``, ``k_pe``) when ``kv_lora_rank``,
+        else the GQA cache (``k``, ``v``)."""
         cfg = self.cfg
-        one = attn.gqa_cache_shape(cfg, batch, cache_len, self.cdtype)
+        shape = (attn.mla_cache_shape if cfg.kv_lora_rank
+                 else attn.gqa_cache_shape)
+        one = shape(cfg, batch, cache_len, self.cdtype)
         n = cfg.n_layers - cfg.first_dense_layers
         return {"first": [dict(one) for _ in range(cfg.first_dense_layers)],
                 "stack": {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,

@@ -1,2 +1,3 @@
-from repro_torch.optim.optimizers import (Optimizer, adam, adam_fused,  # noqa: F401
-                                          apply_updates, build_optimizer, sgd)
+from repro_torch.optim.optimizers import (Optimizer, adafactor,  # noqa: F401
+                                          adam, adam_fused, apply_updates,
+                                          build_optimizer, sgd)

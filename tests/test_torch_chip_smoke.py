@@ -1360,3 +1360,138 @@ def test_lm_phase_probe_fails_without_a_card():
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr
+
+
+MOE_SMALL = dict(
+    serve={"deepseek-v2-lite-16b": dict(layers=None, batch=2, prompt=16,
+                                        cache=24, smoke=True,
+                                        dtype="bfloat16"),
+           "arctic-480b": dict(layers=1, batch=2, prompt=16, cache=24,
+                               smoke=True, dtype="bfloat16")},
+    fp32=dict(arch="deepseek-v2-lite-16b", layers=3, batch=2, prompt=16,
+              cache=24, smoke=True),
+    train=dict(arch="deepseek-v2-lite-16b", smoke=True, layers=3, steps=3,
+               batch=2, seq=33),
+    smoke_train=("--arch", "arctic-480b", "--smoke", "--steps", "3",
+                 "--batch", "2", "--seq", "17"),
+    fl=dict(arch="deepseek-v2-lite-16b", clients=6, rounds=2, data_vocab=64,
+            full=False),
+    trace_argv=("--arch", "deepseek-v2-lite-16b", "--clients", "6",
+                "--rounds", "2"))
+
+
+def _moe_rehearsal(cs, monkeypatch, count=True):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if count:
+        _count_plain_calls(monkeypatch)
+    return cs.moe_phase(torch.device("cpu"), **MOE_SMALL)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_phase_on_the_cpu(monkeypatch, capsys):
+    """The moe phase's contract on the smoke configs: each arch served in
+    bf16 and DeepSeek's cut in fp32, timed at its capacity factor and
+    checked at the no-drop one (every call's capacity holding its tokens;
+    each decoded position against the full forward); DeepSeek's cut
+    trained through ``launch.train`` (one ``fused_adam`` a step) and with
+    Adafactor (no launch), both first-batch losses falling; Arctic's smoke
+    run card against CPU from one checkpointed init; the federated MoE
+    example's launches and host trace; one JSON line."""
+    cs = _load()
+    rec = _moe_rehearsal(cs, monkeypatch)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"phase": "moe", **json.loads(json.dumps(rec))}
+    serve = rec["serve"]
+    assert list(serve) == ["deepseek-v2-lite-16b", "arctic-480b", "float32"]
+    for name, s in serve.items():
+        dt = "float32" if name == "float32" else "bfloat16"
+        assert s["dtype"] == dt and s["decode_rtol"] == cs.LM_DECODE_RTOL[dt]
+        assert s["decode_rel_l2_max"] <= s["decode_rtol"]
+        assert s["capacity_factor"] == 8.0
+        assert s["check_capacity_factor"] == 4      # ceil(8 / 2)
+        assert all(c["capacity"] >= c["tokens"]
+                   for c in s["check_capacities"].values())
+        assert s["decoded_tokens"] == 8 and s["logits_finite"]
+    assert serve["arctic-480b"]["n_layers"] == 1
+    assert serve["float32"]["decode_rel_l2_max"] < 1e-5
+    train, ada = rec["train"], rec["adafactor"]
+    assert train["launches"]["fused_adam"] == 3 == len(train["losses"])
+    assert train["n_layers"] == 3 and train["optimizer"] == "adam"
+    assert ada["optimizer"] == "adafactor" and ada["lr"] == 1e-3
+    assert not any(ada["launches"].values())
+    for r in (train, ada):
+        assert r["step0_batch_loss_after"] < r["losses"][0]
+    smoke = rec["smoke_train"]
+    assert smoke["losses_card"] == smoke["losses_cpu"]
+    assert len(smoke["losses_cpu"]) == 3
+    assert smoke["opt_state_keys"] == ["s", "t"]
+    fl = rec["fl"]
+    assert fl["phase"] == "moe" and fl["trace_equal"]
+    assert fl["launches"] == {**fl["launches"], **fl["launches_wanted"]}
+    assert fl["launches_wanted"]["fused_adam"] == \
+        sum(fl["cohort_step_budgets"])
+    assert cs.main_run(fl).startswith(
+        "moe phase: deepseek-v2-lite-16b, 3 L, d 64, vocab 256")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_phase_fails_without_its_launches(monkeypatch):
+    """On the CPU no kernel launches: uncounted, the training run's missing
+    ``fused_adam`` launches fail the phase."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="fused_adam launched 0 times"):
+        _moe_rehearsal(cs, monkeypatch, count=False)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_moe_serve_refuses_a_check_that_can_drop(monkeypatch):
+    """The serve check's capacity must hold every call's tokens: at the
+    published 1.25 the full forward over 2 x 23 tokens of the smoke
+    config can drop (capacity 16 < 46), and the check refuses to run."""
+    from repro_torch.configs import get_config
+
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    cfg = get_config("deepseek-v2-lite-16b", smoke=True)
+    assert cs.no_drop_cf(cfg) == 4
+    assert cs.no_drop_cf(get_config("deepseek-v2-lite-16b")) == 11
+    assert cs.no_drop_cf(get_config("arctic-480b")) == 64
+    with pytest.raises(AssertionError, match="can drop tokens"):
+        cs.lm_serve(torch.device("cpu"), cfg, 2, 16, 24,
+                    check_cfg=cfg.with_(capacity_factor=1.25))
+
+
+def test_moe_published_serve_calls_drop_nothing_at_the_check_capacity():
+    """At the card's shapes every call of each serve check holds all its
+    tokens at ``ceil(n_experts / top_k)``: DeepSeek's prefill of 2,048,
+    full forward of 2,300 and decode of 4; Arctic's 512, 636 and 4."""
+    from repro_torch.configs import get_config
+
+    cs = _load()
+    for arch, kw in cs.MOE_SERVE.items():
+        cfg = get_config(arch)
+        caps = cs.serve_capacities(cfg.with_(capacity_factor=cs.no_drop_cf(
+            cfg)), kw["batch"], kw["prompt"], kw["cache"])
+        assert all(c["capacity"] >= c["tokens"] for c in caps.values()), arch
+    caps = cs.serve_capacities(get_config("deepseek-v2-lite-16b"), 4, 512,
+                               576)
+    assert caps["full"] == {"tokens": 2300, "capacity": 272}
+
+
+def test_moe_kernel_entry_takes_the_training_steps_width(monkeypatch):
+    """CPU rehearsal: ``fused_adam`` at the DeepSeek cut's one lane of
+    every param (padded to the kernel's 4), with its run's launches,
+    held to its plain version a chunk of columns at a time."""
+    cs = _load()
+    _stub_entry_timers(cs, monkeypatch)
+    rec = {"train": {"arch": "deepseek-v2-lite-16b", "n_layers": 3,
+                     "n_params": 216_094, "steps": 3,
+                     "launches": {"fused_adam": 3}}}
+    (entry,) = cs.moe_kernel_entries(rec, torch.device("cpu"))
+    assert entry["name"] == "fused_adam[deepseek-v2-lite-16b]"
+    assert entry["shape"] == {"Kp": 1, "W": 216_096, "active_lanes": 1}
+    assert entry["launches"] == 3 and entry["max_abs_err"] < 1e-6
+    assert entry["launches_run"] == ("moe phase: deepseek-v2-lite-16b "
+                                     "(3 layers) launch.train, 3 steps")
+    assert entry["bytes"] == 216_096 * 7 * 4 + 4
+    assert set(cs.KERNEL_KEYS) <= set(entry)

@@ -1136,7 +1136,8 @@ def _lm_batch(vocab, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b", "yi-6b",
-                                  "qwen3-4b"])
+                                  "qwen3-4b", "deepseek-v2-lite-16b",
+                                  "arctic-480b"])
 def test_lm_loss_and_grads_card_equal_cpu(no_tf32, arch):
     """A smoke-config ``DecoderLM``'s loss and every grad on the card
     within rtol 1e-4 / atol 1e-5 of the CPU, from one set of params, TF32
@@ -1219,3 +1220,166 @@ def test_federated_lm_round_card_matches_cpu(card):
     for a, b in zip(tree_leaves(on_card.params), tree_leaves(on_cpu.params)):
         assert a.is_cuda
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+# -- the MoE + MLA family and Adafactor ----------------------------------------
+
+
+def _smoke_params(arch, init_fn):
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import ParamFactory
+
+    cfg = get_config(arch, smoke=True)
+    pf = ParamFactory(torch.Generator().manual_seed(0))
+    init_fn(pf, cfg)
+    return cfg, pf.params
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, cf", [("deepseek-v2-lite-16b", 8.0),
+                                      ("arctic-480b", 0.5)])
+def test_moe_dispatch_and_output_card_equal_cpu(no_tf32, arch, cf):
+    """The MoE layer on the card and on the CPU from one set of params:
+    routing and dispatch indices equal, the output and the aux loss within
+    rtol 1e-5 / atol 1e-6 (cf 0.5 drops)."""
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import moe
+
+    cfg, p = _smoke_params(arch, moe.init_moe)
+    cfg = cfg.with_(capacity_factor=cf)
+    x = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(4, 24, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        q = tree_map(lambda t: t.to(dev), p)
+        _, _, top_e = moe.route(q, x.to(dev).reshape(96, -1), cfg)
+        d = moe.dispatch(top_e, moe.capacity(96, cfg), cfg.n_experts)
+        y, aux = moe.moe_forward(q, x.to(dev), cfg)
+        out[dev.type] = (top_e, d, y, aux)
+    (ec, dc, yc, ac), (eh, dh, yh, ah) = out["cuda"], out["cpu"]
+    assert torch.equal(ec.cpu(), eh)
+    for k in ("order", "slot", "slot_token", "keep"):
+        assert torch.equal(dc[k].cpu(), dh[k]), k
+    assert bool((~dh["keep"]).any()) == (cf < 1)
+    torch.testing.assert_close(yc.cpu(), yh, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(ac.cpu(), ah, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_moe_bf16_combine_is_deterministic_on_the_card(card):
+    """The bf16 combine (each token's contributions summed in sorted
+    order, no atomics) gives the same bits in two calls on the card, and
+    the bits of the CPU on the same expert outputs."""
+    from repro_torch.models import moe
+
+    cfg, p = _smoke_params("deepseek-v2-lite-16b", moe.init_moe)
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(96, cfg.d_model)).astype(np.float32))
+    _, top_w, top_e = moe.route(p, x, cfg)
+    C = moe.capacity(96, cfg.with_(capacity_factor=0.5))
+    d = moe.dispatch(top_e, C, cfg.n_experts)
+    oe = torch.randn(cfg.n_experts * C, cfg.d_model,
+                     generator=torch.Generator().manual_seed(3))
+    oe = oe.to(torch.bfloat16)
+    want = moe.combine(oe, top_w, d)
+    dc = {k: v.to(card) for k, v in d.items()}
+    runs = [moe.combine(oe.to(card), top_w.to(card), dc) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uncached", "prefill", "decode"])
+def test_mla_forward_card_equal_cpu(no_tf32, mode):
+    """MLA's expanded branch (no cache) and absorbed branch (prefill at 0,
+    decode at 6) on the card within rtol 1e-4 / atol 1e-5 of the CPU, the
+    new cache too."""
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import attention
+
+    cfg, p = _smoke_params("deepseek-v2-lite-16b", attention.init_mla)
+    S, pos = {"uncached": (7, 0), "prefill": (7, 0), "decode": (1, 6)}[mode]
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.normal(size=(2, S, cfg.d_model)).astype(
+        np.float32))
+    cache = None if mode == "uncached" else {
+        "c": torch.as_tensor(rng.normal(size=(2, 10, cfg.kv_lora_rank))
+                             .astype(np.float32)),
+        "k_pe": torch.as_tensor(rng.normal(size=(2, 10, cfg.qk_rope_dim))
+                                .astype(np.float32))}
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        c = None if cache is None else tree_map(lambda t: t.to(dev), cache)
+        out[dev.type] = attention.mla_forward(
+            tree_map(lambda t: t.to(dev), p), x.to(dev), cfg,
+            torch.arange(S, device=dev) + pos, cache=c,
+            pos=None if cache is None else pos)
+    (yc, cc), (yh, ch) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(yc.cpu(), yh, rtol=1e-4, atol=1e-5)
+    if cache is not None:
+        for k in ("c", "k_pe"):
+            torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_moe_prefill_then_decode_on_the_card_matches_full_forward(no_tf32):
+    """DeepSeek-V2-Lite's smoke config on the card: the absorbed MLA
+    (prefill, decode) against the expanded one (the full forward), at cf 8
+    (no drops), within the reference's 2e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(get_config("deepseek-v2-lite-16b", smoke=True))
+    p = lm.init(torch.Generator(device=no_tf32).manual_seed(0))
+    tok = torch.randint(0, lm.cfg.vocab_size, (2, 13), device=no_tf32,
+                        generator=torch.Generator(device=no_tf32).manual_seed(1))
+    with torch.no_grad():
+        full, _, _ = lm.apply(p, {"tokens": tok[:, :12]})
+        _, caches, _ = lm.apply(p, {"tokens": tok[:, :11]}, make_cache=True,
+                                cache_len=13)
+        dec, _ = lm.decode_step(p, caches, tok[:, 11:12], 11)
+    assert caches["stack"]["c"].is_cuda and len(caches["first"]) == 1
+    torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_adafactor_both_forms_card_equal_cpu(card):
+    """Adafactor's pytree form (3 steps over rank-1, -2 and -3 leaves) and
+    its cohort form (4 lanes of unequal budgets over the rows' leaf views)
+    on the card within rtol 1e-5 / atol 1e-6 of the CPU."""
+    from repro_torch.kernels.ops import RavelSpec, tree_leaves, tree_map
+    from repro_torch.optim import adafactor, apply_updates
+
+    rng = np.random.default_rng(5)
+    tree = {"b": rng.normal(size=(7,)), "w": rng.normal(size=(5, 6)),
+            "e": rng.normal(size=(3, 4, 5))}
+    tree = {k: torch.as_tensor(v.astype(np.float32)) for k, v in tree.items()}
+    grads = [tree_map(lambda t: torch.as_tensor(
+        rng.normal(size=tuple(t.shape)).astype(np.float32)), tree)
+        for _ in range(3)]
+    spec = RavelSpec(tree)
+    flat0 = torch.as_tensor(rng.normal(size=(4, spec.n_params + 4))
+                            .astype(np.float32))
+    g_rows = [torch.as_tensor(rng.normal(size=tuple(flat0.shape))
+                              .astype(np.float32)) for _ in range(3)]
+    steps = torch.tensor([3, 1, 0, 2], dtype=torch.int32)
+    opt = adafactor(1e-2)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), tree)
+        state = opt.init(p)
+        for g in grads:
+            upd, state = opt.update(tree_map(lambda t: t.to(dev), g), state,
+                                    p)
+            p = apply_updates(p, upd)
+        flat = flat0.to(dev)
+        cstate = opt.cohort_init(flat, spec)
+        for s, g in enumerate(g_rows):
+            opt.cohort_step(flat, cstate, g.to(dev), steps.to(dev), s)
+        out[dev.type] = (tree_leaves(p) + tree_leaves(state["s"]), flat)
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1],
+                               rtol=1e-5, atol=1e-6)

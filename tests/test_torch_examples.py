@@ -98,6 +98,72 @@ def test_train_fl_lm_twin(capsys):
     assert ctl.params["layers"]["first"] == []
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
+def test_serve_lm_twin_serves_the_moe_family(arch, capsys):
+    """The MoE archs through the serving example: each decoded token the
+    greedy pick of the full forward (the smoke configs route at capacity
+    factor 8, so no token drops in either path)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+
+    seqs = _main("torch_serve_lm")(["--arch", arch, "--device", "cpu",
+                                    "--tokens", "4", "--batch", "2",
+                                    "--prompt-len", "6"])
+    out = capsys.readouterr().out
+    cfg = get_config(arch, smoke=True)
+    assert f"prefill 2x6 in" in out and f"({arch}, {cfg.n_layers}L" in out
+    assert seqs.shape == (2, 4)
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = model.init(gen)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6), generator=gen)
+    with torch.no_grad():
+        logits, _, _ = model.apply(
+            params, {"tokens": torch.cat([prompts, seqs[:, :-1]], dim=1)})
+    assert torch.equal(torch.argmax(logits[:, 5:], dim=-1), seqs)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "arctic-480b"])
+def test_train_fl_lm_twin_federates_the_moe_family(arch, capsys):
+    """The federated example with ``--arch`` an MoE arch: its host trace
+    (selections, invocation records, round boundaries, simulated clock)
+    equal to the reference example's setup run through the reference's
+    ``Controller``, the port's params finite."""
+    import jax
+    import numpy as np
+
+    from repro.configs.base import get_config as jax_get_config
+    from repro.core.controller import Controller as JaxController
+    from repro.core.controller import FLConfig as JaxFLConfig
+    from repro.faas.hardware import paper_fleet as jax_fleet
+    from repro.models.api import LMClientAdapter as JaxLMClientAdapter
+    from repro_torch.kernels.ops import tree_leaves
+    from test_torch_controller import host_trace
+
+    ctl, m = _main("torch_train_fl_lm")(["--arch", arch, "--device", "cpu",
+                                        "--rounds", "2", "--clients", "6"])
+    out = capsys.readouterr().out
+    assert f"federating {arch} (" in out and "done: 2 rounds" in out
+    ref_ex = _module("train_fl_lm")
+    jcfg = jax_get_config(arch, smoke=True).with_(vocab_size=256)
+    jdata = ref_ex.make_lm_federated_data(6, 256, seq_len=32,
+                                          samples_per_client=24)
+    jfl = JaxFLConfig(
+        n_clients=6, clients_per_round=4, rounds=2, strategy="apodotiko",
+        concurrency_ratio=0.5, local_epochs=1, batch_size=4,
+        optimizer="adam", lr=3e-4, base_step_time=2.0, seed=0)
+    ref = JaxController(jfl, JaxLMClientAdapter(jcfg), jdata,
+                        list(jax_fleet(6)))
+    m_ref = ref.run()
+    assert host_trace(ctl) == host_trace(ref)
+    for key in ("total_time", "total_cost_usd", "n_invocations"):
+        assert m[key] == m_ref[key], key
+    assert len(ctl.params["layers"]["first"]) == jcfg.first_dense_layers
+    assert all(bool(torch.isfinite(t).all())
+               for t in tree_leaves(ctl.params))
+    assert np.isfinite(m["final_accuracy"]) and jax is not None
+
+
 def test_train_fl_lm_full_config_has_100m_params():
     """``--full``: 12 layers of d 768 over a 32,000-token vocabulary,
     100,094,208 params."""
@@ -145,6 +211,47 @@ def test_launch_train_resumes_where_the_uninterrupted_run_ends(tmp_path,
     assert torch.equal(resumed["opt_state"]["m"], whole["opt_state"]["m"])
     assert torch.equal(resumed["opt_state"]["v"], whole["opt_state"]["v"])
     assert mgr.latest_step() == 4
+
+
+def test_launch_train_resumes_arctics_adafactor_state(tmp_path, capsys):
+    """Arctic's smoke config trains with Adafactor (its config's
+    optimizer); its factored state (a tree shaped as the params, ``row`` /
+    ``col`` per matrix, ``v`` per vector; ``t`` an int) goes through the
+    checkpoint and ``--resume`` to end on the uninterrupted run's losses,
+    params and state, to the bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.kernels.ops import tree_leaves
+
+    arch = ("--arch", "arctic-480b")
+    whole = _train(*arch)
+    ck = str(tmp_path / "ck")
+    _train(*arch, "--ckpt-dir", ck, "--ckpt-every", "2")
+    mgr = CheckpointManager(ck)
+    shutil.rmtree(mgr._step_dir(4))
+    resumed = _train(*arch, "--ckpt-dir", ck, "--ckpt-every", "2",
+                     "--resume")
+    out = capsys.readouterr().out
+    assert "training arctic-480b (" in out and "adafactor) for 4 steps" in out
+    assert "resumed from step 2" in out
+    assert resumed["losses"] == whole["losses"][2:]
+    state, want = resumed["opt_state"], whole["opt_state"]
+    assert state["t"] == want["t"] == 4 and isinstance(state["t"], int)
+    assert set(state["s"]["layers"]["stack"]["mlp"]["w_up"]) == \
+        {"row", "col"}
+    assert set(state["s"]["ln_f"]) == {"v"}
+    for a, b in zip(tree_leaves(resumed["params"]) + tree_leaves(state["s"]),
+                    tree_leaves(whole["params"]) + tree_leaves(want["s"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_launch_train_cuts_the_depth(capsys):
+    """``--layers N`` keeps the config's widths and cuts its depth to N
+    layers, DeepSeek-V2-Lite's dense first layer among them (its smoke
+    config here, cut from 3 layers to 2)."""
+    out = _train("--arch", "deepseek-v2-lite-16b", "--layers", "2")
+    assert len(out["params"]["layers"]["first"]) == 1
+    assert out["params"]["layers"]["stack"]["ln_attn"].shape[0] == 1
+    assert "adam) for 4 steps" in capsys.readouterr().out
 
 
 def test_launch_train_takes_the_card_by_default_and_raises_unported(

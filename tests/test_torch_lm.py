@@ -1,4 +1,6 @@
-"""The dense decoder-LM family (Qwen3, Granite, Yi) against the reference.
+"""The decoder-LM families against the reference: dense (Qwen3, Granite,
+Yi) and, since the MoE + MLA slice, moe (DeepSeek-V2-Lite, Arctic; their
+SMOKE configs route at capacity factor 8, so no token drops).
 
 Every comparison starts from the reference's params, carried over as numpy
 (``params_from_numpy``), on seeded numpy inputs. fp32: rtol 1e-4 / atol
@@ -14,6 +16,7 @@ grad leaf, and the port's bf16 run from the reference's by 0.9 % and
 bf16 rounding. Decode against prefill holds at the reference's own
 2e-3 (``tests/test_models.py``)."""
 import dataclasses
+import math
 import re
 from pathlib import Path
 
@@ -43,6 +46,7 @@ ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-4, 1e-5
 BF16_LOGITS, BF16_GRADS, BF16_LOSS = 3e-2, 5e-2, 1e-2
 DENSE = ("qwen3-1.7b", "granite-8b", "yi-6b", "qwen3-4b")
+MOE = ("deepseek-v2-lite-16b", "arctic-480b")
 CONFIG_FILES = sorted(p.name for p in (ROOT / "src/repro/configs").glob("*.py"))
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -211,15 +215,26 @@ def test_gqa_forward_matches_the_reference(kv, qk_norm, cached):
 
 
 def test_gqa_cache_shape_and_unported_attention_raise():
+    """The GQA and (since the MoE + MLA slice) MLA cache shapes equal the
+    reference's; cross attention and the SSM blocks still raise, naming
+    their slice."""
     jcfg, cfg = _gqa_cfg(True, 2)
     s = attention.gqa_cache_shape(cfg, 3, 11, torch.bfloat16)
     js = jattn.gqa_cache_shape(jcfg, 3, 11, jnp.bfloat16)
     for k in ("k", "v"):
         assert tuple(s[k].shape) == js[k].shape and s[k].is_meta
         assert s[k].dtype == torch.bfloat16
-    for fn, slice_ in ((attention.mla_forward, "MoE"),
-                       (attention.init_mla, "MoE"),
-                       (attention.cross_forward, "VLM"),
+    jcfg, cfg = _cfgs("deepseek-v2-lite-16b")
+    s = attention.mla_cache_shape(cfg, 3, 11, torch.bfloat16)
+    js = jattn.mla_cache_shape(jcfg, 3, 11, jnp.bfloat16)
+    assert {k: tuple(v.shape) for k, v in s.items()} == \
+        {k: v.shape for k, v in js.items()}
+    pf = common.ParamFactory(torch.Generator().manual_seed(0))
+    attention.init_mla(pf, cfg)
+    assert [(k, tuple(v.shape)) for k, v in _paths(pf.params)] == \
+        [(k, tuple(v.shape)) for k, v in _paths(_ref_params(
+            jattn.init_mla, jcfg))]
+    for fn, slice_ in ((attention.cross_forward, "VLM"),
                        (blocks.mamba_block, "SSM"),
                        (blocks.cross_block, "VLM")):
         with pytest.raises(NotImplementedError, match=slice_):
@@ -243,10 +258,19 @@ def test_decoder_block_matches_the_reference():
                                            torch.arange(6), kind="dense")
     _close(got, want)
     assert cache is None and float(aux) == float(waux) == 0.0
+    # the MoE + MLA slice's kinds, on DeepSeek-V2-Lite's smoke config
+    jcfg, cfg = _cfgs("deepseek-v2-lite-16b")
     for kind in ("moe", "mla_dense", "mla_moe"):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            blocks.decoder_block(p, torch.as_tensor(x), cfg, torch.arange(6),
-                                 kind=kind)
+        jp = _ref_params(lambda pf: jblk.init_decoder_block(pf, jcfg,
+                                                            kind=kind))
+        x = np.random.default_rng(4).normal(size=(2, 6, 64))
+        x = x.astype(np.float32)
+        want, _, waux = jblk.decoder_block(jp, jnp.asarray(x), jcfg,
+                                           jnp.arange(6), kind=kind)
+        got, _, aux = blocks.decoder_block(_to_torch(jp), torch.as_tensor(x),
+                                           cfg, torch.arange(6), kind=kind)
+        _close(got, want)
+        _close(aux, waux)
 
 
 # -- the decoder LM ------------------------------------------------------------
@@ -259,12 +283,13 @@ def _lm_pair(arch, dtype="float32", seed=0):
     return jlm, lm, jp, _to_torch(jp)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_names_shapes_and_order_equal_the_references_init(arch):
     jcfg, cfg = _cfgs(arch)
     jp = JaxDecoderLM(jcfg).init(jax.random.PRNGKey(0))[0]
     p = DecoderLM(cfg).init(torch.Generator().manual_seed(0))
-    assert p["layers"]["first"] == [] and jp["layers"]["first"] == []
+    assert len(p["layers"]["first"]) == len(jp["layers"]["first"]) == \
+        cfg.first_dense_layers
     assert [(k, tuple(v.shape)) for k, v in _paths(p)] == \
         [(k, tuple(v.shape)) for k, v in _paths(jp)]
     assert ("head" in p) == (not cfg.tie_embeddings)
@@ -297,11 +322,13 @@ def _port_loss_and_grads(lm, p, batch):
     return logits, loss, [leaf.grad for leaf in tree_leaves(p)], metrics
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_lm_logits_loss_and_grads_match_the_reference_fp32(arch):
     """Tied (qwen3) and untied (granite, yi) heads, qk-norm on (qwen3) and
-    off: logits, loss and every grad leaf, the tied embedding's grad
-    summing its two uses."""
+    off, MLA with an MLA-dense first layer and shared experts (deepseek),
+    GQA with a dense residual FFN (arctic): logits, loss (CE plus the
+    MoE aux loss) and every grad leaf, the tied embedding's grad summing
+    its two uses."""
     jlm, lm, jp, p = _lm_pair(arch)
     batch = _lm_batch(lm.cfg)
     wlogits, wloss, wgrads = _ref_loss_and_grads(jlm, jp, batch)
@@ -309,7 +336,9 @@ def test_lm_logits_loss_and_grads_match_the_reference_fp32(arch):
     assert logits.shape == (2, 12, lm.cfg.vocab_size)
     _close(logits, wlogits)
     _close(loss, wloss)
-    assert float(metrics["aux"]) == 0.0
+    waux = jlm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()})[1]
+    _close(metrics["aux"], waux["aux"])
+    assert (float(metrics["aux"].detach()) > 0) == (arch in MOE)
     wleaves = jax.tree.leaves(wgrads)
     assert len(grads) == len(wleaves)
     for (path, _), g, w in zip(_paths(p), grads, wleaves):
@@ -317,7 +346,7 @@ def test_lm_logits_loss_and_grads_match_the_reference_fp32(arch):
                                    err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_lm_logits_loss_and_grads_match_the_reference_bf16(arch):
     jlm, lm, jp, p = _lm_pair(arch, "bfloat16")
     assert all(v.dtype == torch.bfloat16 for v in tree_leaves(p))
@@ -332,10 +361,11 @@ def test_lm_logits_loss_and_grads_match_the_reference_bf16(arch):
         assert _rel_l2(g, w) <= BF16_GRADS, path
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b"] + list(MOE))
 def test_decode_step_matches_the_references(arch):
     """Prefill into a cache, then one decode step, in both packages: the
-    logits and every cache leaf."""
+    logits and every cache leaf (MLA's compressed ``c`` and ``k_pe`` for
+    deepseek, its first layer's among them)."""
     jlm, lm, jp, p = _lm_pair(arch)
     tok = _tokens(lm.cfg, (2, 9), seed=5)
     wl, wc, _ = jlm.apply(jp, {"tokens": jnp.asarray(tok[:, :8])},
@@ -346,21 +376,24 @@ def test_decode_step_matches_the_references(arch):
     wd, wc2 = jlm.decode_step(jp, wc, jnp.asarray(tok[:, 8:9]), jnp.int32(8))
     gd, gc2 = lm.decode_step(p, gc, torch.as_tensor(tok[:, 8:9]), 8)
     _close(gd, wd)
-    assert gc["first"] == gc2["first"] == []
+    assert len(gc["first"]) == len(gc2["first"]) == lm.cfg.first_dense_layers
     for (path, g), w in zip(_paths(gc2), jax.tree.leaves(wc2)):
         np.testing.assert_allclose(_np(g), _np(w), rtol=RTOL, atol=ATOL,
                                    err_msg=str(path))
     # the caller's caches are not written
-    assert float(gc["stack"]["k"][:, :, 8].abs().max()) == 0.0
+    key = "c" if lm.cfg.kv_lora_rank else "k"
+    assert float(gc["stack"][key][:, :, 8].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_then_decode_matches_full_forward(arch):
     """The twin of the reference's ``tests/test_models.py`` case: the full
     forward's logits at position S-1 equal a prefill of S-1 tokens into a
     cache of S+1 and one decode step at S-1 (tolerance 2e-3, the
-    reference's)."""
+    reference's); for MLA this holds the absorbed branch (prefill, decode)
+    against the expanded one (the full forward), at cf 8 (no drops)."""
     _, lm, _, p = _lm_pair(arch)
+    assert lm.cfg.capacity_factor == 8.0 or arch in DENSE
     S = 12
     tok = torch.as_tensor(_tokens(lm.cfg, (1, S + 1), seed=9))
     with torch.no_grad():
@@ -376,19 +409,25 @@ def test_prefill_then_decode_matches_full_forward(arch):
         tree_map(lambda t: (tuple(t.shape), t.dtype), struct)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_cache_struct_equals_the_references(arch):
+    """GQA's ``k`` / ``v``, or MLA's ``c`` / ``k_pe`` (deepseek), per
+    ``first`` layer and stacked."""
     jcfg = jbase.get_config(arch)
     struct = DecoderLM(base.get_config(arch)).cache_struct(4, 576)
     jstruct, _ = JaxDecoderLM(jcfg).cache_struct(4, 576)
-    assert struct["first"] == [] == jstruct["first"]
-    for k in ("k", "v"):
-        assert tuple(struct["stack"][k].shape) == jstruct["stack"][k].shape
-        assert struct["stack"][k].dtype == torch.bfloat16
-        assert struct["stack"][k].is_meta
+    assert len(struct["first"]) == len(jstruct["first"]) == \
+        jcfg.first_dense_layers
+    keys = ("c", "k_pe") if jcfg.kv_lora_rank else ("k", "v")
+    assert set(struct["stack"]) == set(keys) == set(jstruct["stack"])
+    for one, jone in zip(struct["first"] + [struct["stack"]],
+                         jstruct["first"] + [jstruct["stack"]]):
+        for k in keys:
+            assert tuple(one[k].shape) == jone[k].shape
+            assert one[k].dtype == torch.bfloat16 and one[k].is_meta
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_published_count_on_meta_equals_the_references_eval_shape(arch):
     """The FULL config counted on the ``meta`` device (nothing allocated,
     nothing drawn) equals the reference's ``jax.eval_shape`` count, leaf by
@@ -408,6 +447,19 @@ def test_qwen3_1p7b_has_its_published_count():
     n = common.count_params(
         DecoderLM(base.get_config("qwen3-1.7b")).init(device="meta"))
     assert n == 1_720_574_976
+
+
+@pytest.mark.parametrize("arch, layers, n", [
+    ("deepseek-v2-lite-16b", None, 15_706_484_224),
+    ("deepseek-v2-lite-16b", 3, 1_670_135_296),
+    ("arctic-480b", 1, 14_069_945_344)])
+def test_moe_counts_of_the_card_runs(arch, layers, n):
+    """The counts of the MoE runs on the card (uncut DeepSeek, its 3-layer
+    cut, Arctic's one layer at width), on the ``meta`` device."""
+    cfg = base.get_config(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    assert common.count_params(DecoderLM(cfg).init(device="meta")) == n
 
 
 # -- remat ---------------------------------------------------------------------
@@ -448,14 +500,17 @@ def test_remat_changes_no_value_under_autograd_and_under_vmap():
 
 
 def test_build_model_raises_for_the_families_not_ported():
+    """The dense and (since the MoE + MLA slice) moe families build a
+    ``DecoderLM``; the SSM, hybrid, VLM and enc-dec families raise, naming
+    their slice."""
     for arch in base.ARCH_IDS:
         cfg = base.get_config(arch)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             assert isinstance(api.build_model(cfg), DecoderLM)
             continue
         with pytest.raises(NotImplementedError, match="later slice") as err:
             api.build_model(cfg)
-        assert re.search(r"MoE|SSM|VLM", str(err.value)), arch
+        assert re.search(r"SSM|VLM", str(err.value)), arch
         with pytest.raises(NotImplementedError, match="later slice"):
             DecoderLM(cfg)
     assert isinstance(api.build_model(base.get_config("paper-mnist")),
@@ -583,17 +638,69 @@ def test_param_factory_scopes_ones_and_meta():
     assert not torch.equal(stacked["v"][0], stacked["v"][1])
 
 
+def _old_initialize(gen, shape, dtype, init, scale, device=None, out=None):
+    """The factory's draw before the init repair: an fp32 draw, scaled
+    into a second fp32 copy, then cast."""
+    assert out is None
+    device = torch.device("cpu" if device is None else device)
+    if init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "normal":
+        fan_in = math.prod(shape[:-1]) if len(shape) >= 2 else (
+            shape[-1] if shape else 1)
+        std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        x = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (x * std).to(dtype)
+    std = scale if scale is not None else 0.02
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * std).to(dtype)
+
+
+def _old_init_stacked(init_fn, generator, n, dtype, *args, device=None):
+    """The stacked init before the repair: every block drawn whole, then
+    ``torch.stack``-ed."""
+    blocks_ = []
+    for _ in range(n):
+        pf = common.ParamFactory(generator, dtype, device)
+        init_fn(pf, *args)
+        blocks_.append(pf.params)
+    return tree_map(lambda *xs: torch.stack(xs), blocks_[0], *blocks_[1:])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_init_repair_keeps_every_value(arch, dtype, monkeypatch):
+    """Preallocated stacks and in-place scaling draw what the previous
+    init drew: every leaf of every family's init equal to the bit, dtypes
+    and all, to the init of whole blocks stacked afterwards with two fp32
+    copies a leaf."""
+    from repro_torch.models import lm as lm_mod
+
+    cfg = _cfgs(arch, dtype)[1]
+    new = DecoderLM(cfg).init(torch.Generator().manual_seed(5))
+    monkeypatch.setattr(common, "_initialize", _old_initialize)
+    monkeypatch.setattr(lm_mod, "init_stacked", _old_init_stacked)
+    old = DecoderLM(cfg).init(torch.Generator().manual_seed(5))
+    assert [k for k, _ in _paths(new)] == [k for k, _ in _paths(old)]
+    for (path, a), b in zip(_paths(new), tree_leaves(old)):
+        assert a.dtype == b.dtype == getattr(torch, dtype), path
+        assert torch.equal(a, b), path
+
+
 # -- the centralized training driver ---------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "yi-6b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "yi-6b"] + list(MOE))
 def test_launch_train_steps_match_the_references(arch):
     """Three steps of ``launch.train``'s step on its token stream, from the
     reference's params, against the reference driver's step (value and
     grad, the config's optimizer, ``apply_updates``): each loss and the
     final params within rtol 1e-4 / atol 1e-5. The port's ``adam`` is the
     fused kernel's form (its plain version here), the reference's on the
-    CPU plain Adam: the same formula."""
+    CPU plain Adam: the same formula; Arctic's config takes Adafactor."""
     from repro.optim import apply_updates as japply
     from repro.optim import build_optimizer as jbuild
     from repro_torch.launch import train
@@ -603,7 +710,8 @@ def test_launch_train_steps_match_the_references(arch):
     cfg = lm.cfg
     jopt = jbuild(cfg.optimizer, cfg.learning_rate)
     opt = build_optimizer(cfg.optimizer, cfg.learning_rate)
-    assert opt.name == "adam-fused"
+    assert opt.name == {"adam": "adam-fused",
+                        "adafactor": "adafactor"}[cfg.optimizer]
     jstate, state = jopt.init(jp), opt.init(p)
 
     @jax.jit
