@@ -6,10 +6,12 @@
 
 Runs the smoke-sized config of the chosen architecture (the dense family:
 Qwen3, Granite, Yi; the MoE family: DeepSeek-V2-Lite, whose MLA caches the
-compressed KV, and Arctic; the other families come with later slices and
-raise) on the CUDA card, or the CPU with ``--device cpu``: prefills a
-batch of prompts into a KV cache of prompt + tokens slots, then decodes
-greedily against it, one token a step.
+compressed KV, and Arctic; the SSM family, Mamba2, whose cache is a
+fixed-size recurrent state; the hybrid family, Zamba2, mamba states plus
+the shared attention block's KV; the VLM and enc-dec families come with a
+later slice and raise) on the CUDA card, or the CPU with ``--device
+cpu``: prefills a batch of prompts into a cache of prompt + tokens slots,
+then decodes greedily against it, one token a step.
 """
 import argparse
 import time

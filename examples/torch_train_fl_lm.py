@@ -9,10 +9,11 @@ Every client is a serverless function holding a private token stream (its
 "user corpus", a biased Markov source); the controller federates a
 qwen3-family decoder LM across the heterogeneous fleet with CEF scoring +
 async aggregation, local training on the CUDA card (or the CPU with
-``--device cpu``). Any dense or MoE config id of ``repro_torch.configs``
-works via ``--arch`` (an MoE LM's client loss is cross entropy plus the
-router's load-balancing loss); the other families come with later slices
-and raise.
+``--device cpu``). Any dense, MoE, SSM or hybrid config id of
+``repro_torch.configs`` works via ``--arch`` (an MoE LM's client loss is
+cross entropy plus the router's load-balancing loss; ``mamba2-370m`` and
+``zamba2-2.7b`` federate their smoke configs' Mamba2 layers); the VLM and
+enc-dec families come with a later slice and raise.
 """
 import argparse
 

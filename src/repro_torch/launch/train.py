@@ -1,6 +1,6 @@
 """Training driver (twin of ``repro.launch.train``): centralized training
-of a decoder LM (the ``dense`` and ``moe`` families), with checkpointing
-and restart.
+of a decoder LM (the ``dense``, ``moe``, ``ssm`` and ``hybrid``
+families), with checkpointing and restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 20 --smoke --batch 4 --seq 64 --ckpt-dir /tmp/ckpt \\
@@ -8,7 +8,8 @@ and restart.
 
 Runs on the CUDA card unless ``--device cpu``; ``--smoke`` takes the
 arch's reduced config, ``--layers N`` keeps the config's widths and cuts
-its depth to N layers (DeepSeek-V2-Lite's first, dense layer among them).
+its depth to N layers (DeepSeek-V2-Lite's first, dense layer among them;
+for a hybrid, Zamba2, N must be a multiple of its ``attn_period``).
 Params are initialized from ``torch.Generator`` seed 0 on the device, the
 token stream is the reference's
 (``numpy.random.default_rng(0)``, ``[batch, seq]`` uniform tokens a step,
@@ -20,9 +21,9 @@ steps and at the end: Adam's flat moments, or Adafactor's per-leaf
 factored state, a tree shaped as the params; the step count as an int);
 ``--resume`` restarts from the newest one and skips the batches its steps
 consumed, so a resumed run ends where the uninterrupted run ends (the
-reference draws the stream again from its first batch). The SSM, hybrid,
-VLM and enc-dec families raise, naming their slice. For federated LM
-training see ``examples/torch_train_fl_lm.py``.
+reference draws the stream again from its first batch). The VLM and
+enc-dec families raise, naming their slice. For federated LM training see
+``examples/torch_train_fl_lm.py``.
 """
 from __future__ import annotations
 
@@ -96,6 +97,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.layers is not None:
+        if cfg.family == "hybrid" and args.layers % cfg.attn_period:
+            ap.error(f"--layers {args.layers}: {args.arch} takes a multiple "
+                     f"of its attn_period, {cfg.attn_period}")
         cfg = cfg.with_(n_layers=args.layers)
     model = build_model(cfg)
     opt = build_optimizer(cfg.optimizer, cfg.learning_rate)

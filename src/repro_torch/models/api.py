@@ -11,8 +11,9 @@ from repro_torch.models.lm import FAMILIES, FAMILY_SLICE
 
 
 def build_model(cfg: ModelConfig):
-    """``paper-*`` configs get the paper's model, ``dense`` and ``moe`` a
-    ``DecoderLM``; the other families come with later slices and raise."""
+    """``paper-*`` configs get the paper's model, ``dense``, ``moe``,
+    ``ssm`` and ``hybrid`` a ``DecoderLM``; the VLM and enc-dec families
+    come with a later slice and raise."""
     if cfg.family.startswith("paper"):
         from repro_torch.models.paper_models import build_paper_model
         return build_paper_model(cfg.name)

@@ -1,8 +1,8 @@
-"""Residual blocks (twin of the decoder part of ``repro.models.blocks``):
-the SwiGLU FFN and the pre-norm decoder block of GQA or MLA attention and a
-dense FFN or an MoE (with Arctic's parallel dense residual FFN). The
-mamba, zamba and cross-attention blocks come with later slices and
-raise."""
+"""Residual blocks (twin of ``repro.models.blocks``): the SwiGLU FFN, the
+pre-norm decoder block of GQA or MLA attention and a dense FFN or an MoE
+(with Arctic's parallel dense residual FFN), the Mamba2 block and
+Zamba2's shared attention block. The cross-attention block comes with a
+later slice and raises."""
 from __future__ import annotations
 
 from typing import Optional
@@ -12,10 +12,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamFactory, later_slice, rms_norm,
                                        swiglu)
-
-SSM_SLICE = "the SSM + hybrid slice"
 
 
 # -- dense FFN ----------------------------------------------------------------
@@ -77,9 +76,54 @@ def decoder_block(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
     return x + m, new_cache, aux
 
 
-init_mamba_block = later_slice("init_mamba_block", SSM_SLICE)
-mamba_block = later_slice("mamba_block", SSM_SLICE)
-init_zamba_shared = later_slice("init_zamba_shared", SSM_SLICE)
-zamba_shared_block = later_slice("zamba_shared_block", SSM_SLICE)
+# -- mamba2 block --------------------------------------------------------------
+
+
+def init_mamba_block(pf: ParamFactory, cfg: ModelConfig) -> None:
+    pf.param("ln", (cfg.d_model,), init="ones")
+    with pf.scope("mixer"):
+        ssm_mod.init_mamba2(pf, cfg)
+
+
+def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                cache: Optional[dict] = None, decode: bool = False):
+    """Returns (y, new_cache); ``decode`` takes one token against
+    ``cache``, else the full sequence (a new cache when ``cache`` is not
+    None, ``{}`` included)."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    if decode:
+        y, new_cache = ssm_mod.mamba2_decode_step(p["mixer"], h, cfg, cache)
+    else:
+        y, new_cache = ssm_mod.mamba2_forward(p["mixer"], h, cfg, cache=cache)
+    return x + y, new_cache
+
+
+# -- zamba2 shared attention block ---------------------------------------------
+# The shared block consumes concat(hidden, initial embedding) (the Zamba
+# trick), projects back to d_model, then runs a dense decoder block whose
+# weights every application shares.
+
+
+def init_zamba_shared(pf: ParamFactory, cfg: ModelConfig) -> None:
+    d = cfg.d_model
+    pf.param("w_concat", (2 * d, d))
+    pf.param("ln_in", (2 * d,), init="ones")
+    init_decoder_block(pf, cfg, kind="dense")
+
+
+def zamba_shared_block(p: dict, x: torch.Tensor, x0: torch.Tensor,
+                       cfg: ModelConfig, positions, *, cache=None, pos=None,
+                       causal: bool = True):
+    """Returns (y, new_cache): ``x`` plus the block's delta, ``x + (y -
+    h)`` as the reference writes it (in bf16 it rounds otherwise than the
+    block's own residual sum)."""
+    h = torch.cat([x, x0], dim=-1)
+    h = rms_norm(h, p["ln_in"], cfg.norm_eps)
+    h = torch.einsum("bse,ed->bsd", h, p["w_concat"].to(x.dtype))
+    y, new_cache, _ = decoder_block(p, h, cfg, positions, kind="dense",
+                                    cache=cache, pos=pos, causal=causal)
+    return x + (y - h), new_cache
+
+
 init_cross_block = later_slice("init_cross_block", attn.CROSS_SLICE)
 cross_block = later_slice("cross_block", attn.CROSS_SLICE)

@@ -74,11 +74,11 @@ class ParamFactory:
 def _initialize(gen: Optional[torch.Generator], shape, dtype, init: str,
                 scale: Optional[float], device=None,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One leaf, drawn into ``out`` when it is given. A normal leaf is drawn
-    in fp32 (into ``out`` itself when it is fp32) and scaled in place, so
-    the draw holds one fp32 copy of the leaf beside its cast."""
+    """One leaf, drawn into ``out`` when it is given. A drawn leaf is drawn
+    in fp32 (into ``out`` itself when it is fp32) and transformed in place,
+    so the draw holds one fp32 copy of the leaf beside its cast."""
     device = torch.device("cpu" if device is None else device)
-    if init not in ("zeros", "ones", "normal", "embed"):
+    if init not in ("zeros", "ones", "normal", "embed", "ssm_dt", "ssm_a"):
         raise ValueError(f"unknown init {init}")
     if device.type == "meta":
         return (out if out is not None
@@ -96,11 +96,17 @@ def _initialize(gen: Optional[torch.Generator], shape, dtype, init: str,
             shape[-1] if shape else 1)
         std = scale if scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    else:
-        # "embed": a plain (not truncated) normal, as the reference's
+        x.mul_(std)
+    elif init == "embed":
+        # a plain (not truncated) normal, as the reference's
         std = scale if scale is not None else 0.02
-        x.normal_(0.0, 1.0, generator=gen)
-    x.mul_(std)
+        x.normal_(0.0, 1.0, generator=gen).mul_(std)
+    elif init == "ssm_dt":
+        # dt bias: softplus^-1 of uniform in [1e-3, 1e-1)
+        x.uniform_(1e-3, 1e-1, generator=gen).expm1_().log_()
+    else:
+        # "ssm_a", A_log: log of uniform in [1, 16)
+        x.uniform_(1.0, 16.0, generator=gen).log_()
     return out if x is out else out.copy_(x)
 
 

@@ -1,7 +1,10 @@
-"""Decoder-only language model, ``family="dense"`` (Qwen3, Granite, Yi)
-and ``family="moe"`` (DeepSeek-V2-Lite: MLA attention, an MLA-dense first
-layer, shared + routed experts; Arctic: GQA, 128 experts top-2 and a
-parallel dense residual FFN) (twin of ``repro.models.lm``).
+"""Decoder-only language model (twin of ``repro.models.lm``):
+``family="dense"`` (Qwen3, Granite, Yi), ``family="moe"``
+(DeepSeek-V2-Lite: MLA attention, an MLA-dense first layer, shared +
+routed experts; Arctic: GQA, 128 experts top-2 and a parallel dense
+residual FFN), ``family="ssm"`` (Mamba2: every layer a Mamba2 block) and
+``family="hybrid"`` (Zamba2: chunks of ``attn_period`` Mamba2 blocks, each
+chunk followed by one attention block whose weights all chunks share).
 
 API (functional, as the reference):
 
@@ -13,17 +16,21 @@ API (functional, as the reference):
     logits, caches = lm.decode_step(params, caches, tokens, pos)
 
 Params keep the reference's names, shapes and leaf order: ``tok_embed``,
-``ln_f``, ``head`` (untied only), ``layers = {"first": [], "stack": {...}}``
-with every stack leaf on a leading layers axis; the ``first``
-``first_dense_layers`` layers are the family's dense kind (``mla_dense``
-for DeepSeek). The reference's ``lax.scan`` over the stack is a Python
-loop over that axis, summing the layers' MoE aux losses in its order; its
-``jax.checkpoint`` (``cfg.remat``) is ``torch.utils.checkpoint`` around
-each layer under plain autograd. Under ``torch.func`` transforms (the
-cohort trainer's ``vmap(grad_and_value)``) torch's checkpoint raises
-("don't yet support saved tensor hooks"), so there the layers run without
-it; remat changes no value either way. The SSM, hybrid and VLM families
-come with later slices and raise.
+``ln_f``, ``head`` (untied only), and ``layers``: ``{"first": [],
+"stack": {...}}`` for dense and moe, every stack leaf on a leading layers
+axis, the ``first`` ``first_dense_layers`` layers the family's dense kind
+(``mla_dense`` for DeepSeek); ``{"stack": {...}}`` for ssm; ``{"shared":
+{...}, "stack": {...}}`` for hybrid, the stack's leaves ``[n_chunks,
+attn_period, ...]`` (views of one ``[L, ...]`` allocation). The
+reference's ``lax.scan`` over the stack is a Python loop over that axis,
+summing the layers' MoE aux losses in its order; its ``jax.checkpoint``
+(``cfg.remat``) is ``torch.utils.checkpoint`` under plain autograd, around
+each layer, and for hybrid around each whole chunk, as the reference's
+scopes. Under ``torch.func`` transforms (the cohort trainer's
+``vmap(grad_and_value)``) torch's checkpoint raises ("don't yet support
+saved tensor hooks"), so there the layers run without it; remat changes
+no value either way. The VLM and enc-dec families come with a later
+slice and raise.
 """
 from __future__ import annotations
 
@@ -36,14 +43,15 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ops import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamFactory, init_stacked, rms_norm,
                                        softmax_cross_entropy)
 
 Params = Any
 
-FAMILY_SLICE = {"ssm": blk.SSM_SLICE, "hybrid": blk.SSM_SLICE,
-                "vlm": attn.CROSS_SLICE, "encdec": attn.CROSS_SLICE}
-FAMILIES = ("dense", "moe")
+FAMILY_SLICE = {"vlm": attn.CROSS_SLICE, "encdec": attn.CROSS_SLICE}
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+MAMBA_FAMILIES = ("ssm", "hybrid")
 
 
 def _dtype(name: str):
@@ -54,6 +62,10 @@ def _dtype(name: str):
 def block_kind(cfg: ModelConfig) -> str:
     mla = "mla_" if cfg.kv_lora_rank else ""
     return f"{mla}moe" if cfg.n_experts else f"{mla}dense" if mla else "dense"
+
+
+def _stacked(*xs: torch.Tensor) -> torch.Tensor:
+    return torch.stack(xs)
 
 
 def _remat_active(cfg: ModelConfig) -> bool:
@@ -68,6 +80,10 @@ class DecoderLM:
                 f"DecoderLM family {cfg.family!r} ({cfg.name}) comes with a "
                 f"later slice of the port "
                 f"({FAMILY_SLICE.get(cfg.family, 'not planned')})")
+        if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_period:
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_layers} layers do not split into "
+                f"chunks of attn_period {cfg.attn_period}")
         self.cfg = cfg
         self.kind = block_kind(cfg)
         self.dense_kind = self.kind.replace("moe", "dense")
@@ -79,8 +95,9 @@ class DecoderLM:
              device=None) -> Params:
         """Params drawn from ``generator`` on its device (or on ``device``;
         ``"meta"`` draws nothing): the embedding factory's params first
-        (``tok_embed``, ``ln_f``, ``head``), then the layers, in the order
-        of the reference's key split."""
+        (``tok_embed``, ``ln_f``, ``head``), then the layers (for hybrid
+        the stack, then the shared block), in the order of the reference's
+        key split."""
         cfg = self.cfg
         pf = ParamFactory(generator, self.pdtype, device)
         pf.param("tok_embed", (cfg.vocab_size, cfg.d_model), init="embed")
@@ -88,6 +105,20 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             pf.param("head", (cfg.d_model, cfg.vocab_size))
         params = pf.params
+        if cfg.family in MAMBA_FAMILIES:
+            stack = init_stacked(lambda pf_: blk.init_mamba_block(pf_, cfg),
+                                 generator, cfg.n_layers, self.pdtype,
+                                 device=pf.device)
+            params["layers"] = {"stack": stack}
+            if cfg.family == "hybrid":
+                n_chunks = cfg.n_layers // cfg.attn_period
+                params["layers"]["stack"] = tree_map(
+                    lambda t: t.view(n_chunks, cfg.attn_period,
+                                     *t.shape[1:]), stack)
+                pf_s = ParamFactory(generator, self.pdtype, pf.device)
+                blk.init_zamba_shared(pf_s, cfg)
+                params["layers"]["shared"] = pf_s.params
+            return params
         first = []
         for _ in range(cfg.first_dense_layers):
             pf1 = ParamFactory(generator, self.pdtype, pf.device)
@@ -144,23 +175,105 @@ class DecoderLM:
         if caches is None:
             return x, None, aux
         return x, {"first": new_first,
-                   "stack": tree_map(lambda *xs: torch.stack(xs),
-                                     *new_stack)}, aux
+                   "stack": tree_map(_stacked, *new_stack)}, aux
+
+    def _mamba_layers(self, params, x, positions, caches, pos,
+                      decode: bool):
+        """The ssm and hybrid families' layers in order. ``caches`` None
+        (no cache) or ``{"stack": ..., "shared": ...}`` (``shared`` for
+        hybrid only): in a prefill (not ``decode``) ``stack`` is None, each
+        mamba layer making its state from the forward, and ``shared`` the
+        zeroed K/V of every shared-block application; in decode both hold
+        the states the step reads. Returns (x, new caches or None)."""
+        cfg = self.cfg
+        stack = params["layers"]["stack"]
+        remat = _remat_active(cfg)
+
+        def mamba(p_i, x, c_i):
+            return blk.mamba_block(p_i, x, cfg, cache=c_i, decode=decode)
+
+        def state(c, i=None):
+            """The mamba state of layer ``c`` (of chunk ``c``'s layer
+            ``i``) for the call: None without a cache, {} in a prefill."""
+            if caches is None:
+                return None
+            if caches["stack"] is None:
+                return {}
+            idx = (c,) if i is None else (c, i)
+            return tree_map(lambda t: t[idx], caches["stack"])
+
+        if cfg.family == "ssm":
+            new = []
+            for i in range(cfg.n_layers):
+                p_i = tree_map(lambda t: t[i], stack)
+                if remat:
+                    x, nc = checkpoint(mamba, p_i, x, state(i),
+                                       use_reentrant=False)
+                else:
+                    x, nc = mamba(p_i, x, state(i))
+                new.append(nc)
+            if caches is None:
+                return x, None
+            return x, {"stack": tree_map(_stacked, *new)}
+
+        x0 = x
+        shared = params["layers"]["shared"]
+
+        def chunk(c, x, kv):
+            m_new = []
+            for i in range(cfg.attn_period):
+                x, nc = mamba(tree_map(lambda t: t[c, i], stack), x,
+                              state(c, i))
+                m_new.append(nc)
+            y, kv = blk.zamba_shared_block(shared, x, x0, cfg, positions,
+                                           cache=kv, pos=pos)
+            return y, m_new, kv
+
+        new_m, new_kv = [], []
+        for c in range(cfg.n_layers // cfg.attn_period):
+            kv = (tree_map(lambda t: t[c], caches["shared"])
+                  if caches is not None else None)
+            if remat:
+                x, m_new, kv = checkpoint(chunk, c, x, kv,
+                                          use_reentrant=False)
+            else:
+                x, m_new, kv = chunk(c, x, kv)
+            new_m.append(tree_map(_stacked, *m_new)
+                         if caches is not None else None)
+            new_kv.append(kv)
+        if caches is None:
+            return x, None
+        return x, {"stack": tree_map(_stacked, *new_m),
+                   "shared": tree_map(_stacked, *new_kv)}
 
     # ---------------------------------------------------- full-sequence pass
     def apply(self, params: Params, batch: dict, *, make_cache: bool = False,
               cache_len: Optional[int] = None):
         """batch: {'tokens': [B,S] int}. Returns (logits [B,S,V],
         caches_or_None, aux_loss); with ``make_cache`` the K/V of the S
-        tokens are written at 0 into caches of ``cache_len`` (default S)."""
+        tokens are written at 0 into caches of ``cache_len`` (default S),
+        and the mamba layers hand over their final states."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = torch.arange(S, device=x.device)
+        pos = 0 if make_cache else None
+        if self.cfg.family in MAMBA_FAMILIES:
+            caches = None
+            if make_cache:
+                caches = {"stack": None}
+                if self.cfg.family == "hybrid":
+                    caches["shared"] = tree_map(
+                        lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=x.device),
+                        self.cache_struct(B, cache_len or S)["shared"])
+            x, caches = self._mamba_layers(params, x, positions, caches, pos,
+                                           decode=False)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return self._head(params, x), caches, aux
         caches = (self._attn_cache_zeros(B, cache_len or S, x.device)
                   if make_cache else None)
-        x, caches, aux = self._layers(params, x, positions, caches,
-                                      0 if make_cache else None)
+        x, caches, aux = self._layers(params, x, positions, caches, pos)
         return self._head(params, x), caches, aux
 
     # ------------------------------------------------------------------ loss
@@ -173,19 +286,36 @@ class DecoderLM:
 
     # ----------------------------------------------------------- cache utils
     def cache_struct(self, batch: int, cache_len: int) -> dict:
-        """The cache tree as ``meta`` tensors (shapes and dtypes):
-        ``{"first": [one] * first_dense_layers, "stack": [L, ...] one}``,
-        ``one`` the MLA cache (``c``, ``k_pe``) when ``kv_lora_rank``,
-        else the GQA cache (``k``, ``v``)."""
+        """The cache tree as ``meta`` tensors (shapes and dtypes). dense /
+        moe: ``{"first": [one] * first_dense_layers, "stack": [L, ...]
+        one}``, ``one`` the MLA cache (``c``, ``k_pe``) when
+        ``kv_lora_rank``, else the GQA cache (``k``, ``v``). ssm:
+        ``{"stack": [L, ...]}`` of the mamba state (``conv`` in the compute
+        dtype, ``h`` fp32). hybrid: ``{"stack": [n_chunks, attn_period,
+        ...]}`` of it and ``"shared"``, the GQA cache ``[n_chunks, ...]``,
+        one per application of the shared block."""
         cfg = self.cfg
+
+        def stacked(one, lead):
+            return {k: torch.empty(lead + tuple(v.shape), dtype=v.dtype,
+                                   device="meta") for k, v in one.items()}
+
+        if cfg.family == "ssm":
+            return {"stack": stacked(ssm_mod.mamba2_cache_shape(
+                cfg, batch, self.cdtype), (cfg.n_layers,))}
+        if cfg.family == "hybrid":
+            n_chunks = cfg.n_layers // cfg.attn_period
+            return {"stack": stacked(
+                        ssm_mod.mamba2_cache_shape(cfg, batch, self.cdtype),
+                        (n_chunks, cfg.attn_period)),
+                    "shared": stacked(attn.gqa_cache_shape(
+                        cfg, batch, cache_len, self.cdtype), (n_chunks,))}
         shape = (attn.mla_cache_shape if cfg.kv_lora_rank
                  else attn.gqa_cache_shape)
         one = shape(cfg, batch, cache_len, self.cdtype)
         n = cfg.n_layers - cfg.first_dense_layers
         return {"first": [dict(one) for _ in range(cfg.first_dense_layers)],
-                "stack": {k: torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
-                                         device="meta")
-                          for k, v in one.items()}}
+                "stack": stacked(one, (n,))}
 
     def _attn_cache_zeros(self, B: int, T: int, device) -> dict:
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
@@ -201,5 +331,9 @@ class DecoderLM:
         x = self._embed(params, tokens)
         pos = int(pos)
         positions = pos + torch.arange(1, device=x.device)
-        x, new_caches, _ = self._layers(params, x, positions, caches, pos)
+        if self.cfg.family in MAMBA_FAMILIES:
+            x, new_caches = self._mamba_layers(params, x, positions, caches,
+                                               pos, decode=True)
+        else:
+            x, new_caches, _ = self._layers(params, x, positions, caches, pos)
         return self._head(params, x), new_caches

@@ -1495,3 +1495,166 @@ def test_moe_kernel_entry_takes_the_training_steps_width(monkeypatch):
                                      "(3 layers) launch.train, 3 steps")
     assert entry["bytes"] == 216_096 * 7 * 4 + 4
     assert set(cs.KERNEL_KEYS) <= set(entry)
+
+
+SSM_ARCHS = ("mamba2-370m", "zamba2-2.7b")
+SSM_SMALL = dict(
+    serve={a: dict(layers=None, batch=2, prompt=16, cache=24, smoke=True)
+           for a in SSM_ARCHS},
+    fp32={a: dict(layers=None, batch=2, prompt=16, cache=24, smoke=True)
+          for a in SSM_ARCHS},
+    # 40 tokens prefill in chunks of 10; the full forward over 47 (prime)
+    # runs the scan one token a chunk
+    long=dict(arch="mamba2-370m", layers=None, batch=1, prompt=40, cache=48,
+              smoke=True),
+    train={"mamba2-370m": dict(smoke=True, layers=None, steps=3, batch=2,
+                               seq=33),
+           "zamba2-2.7b": dict(smoke=True, layers=2, steps=3, batch=2,
+                               seq=33)},
+    smoke_train=tuple(("--arch", a, "--smoke", "--steps", "3", "--batch",
+                       "2", "--seq", "17") for a in SSM_ARCHS),
+    fl=tuple(dict(arch=a, clients=6, rounds=2, data_vocab=64, full=False)
+             for a in SSM_ARCHS),
+    trace_argv=tuple(("--arch", a, "--clients", "6", "--rounds", "2")
+                     for a in SSM_ARCHS))
+
+
+def _ssm_rehearsal(cs, monkeypatch, count=True):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if count:
+        _count_plain_calls(monkeypatch)
+    return cs.ssm_phase(torch.device("cpu"), **SSM_SMALL)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ssm_phase_on_the_cpu(monkeypatch, capsys):
+    """The ssm phase's contract on the smoke configs: both archs served in
+    bf16 and fp32 (each decoded position, the recurrent step from the
+    prefill's state, against the full forward's chunked scan), Mamba2 at a
+    long prompt whose full forward takes chunk 1; Mamba2 and Zamba2's cut
+    trained through ``launch.train`` (one ``fused_adam`` a step, the first
+    batch's loss falling); both smoke runs card against CPU from one
+    checkpointed init; both federated examples' launches and host traces;
+    one JSON line."""
+    cs = _load()
+    rec = _ssm_rehearsal(cs, monkeypatch)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"phase": "ssm", **json.loads(json.dumps(rec))}
+    serve = rec["serve"]
+    assert list(serve) == ["bfloat16", "float32"]
+    for dt, runs in serve.items():
+        assert list(runs) == list(SSM_ARCHS)
+        for s in runs.values():
+            assert s["dtype"] == dt
+            assert s["decode_rtol"] == cs.SSM_DECODE_RTOL[dt]
+            assert s["decode_rel_l2_max"] <= s["decode_rtol"]
+            assert s["decoded_tokens"] == 8 and s["logits_finite"]
+            assert (s["chunk_prefill"], s["chunk_full_forward"]) == (16, 1)
+        if dt == "float32":
+            assert max(s["decode_rel_l2_max"] for s in runs.values()) < 1e-5
+    assert serve["bfloat16"]["zamba2-2.7b"]["n_layers"] == 4
+    long = rec["long"]
+    assert (long["prompt"], long["decode_steps"]) == (40, 7)
+    assert (long["chunk_prefill"], long["chunk_full_forward"]) == (10, 1)
+    assert long["decode_rel_l2_max"] <= long["decode_rtol"] == 0.15
+    assert cs.SSM_DECODE_RTOL["float32"] == cs.LM_DECODE_RTOL["float32"]
+    for arch, t in rec["train"].items():
+        assert t["launches"]["fused_adam"] == 3 == len(t["losses"])
+        assert t["optimizer"] == "adam" and t["remat"]
+        assert t["step0_batch_loss_after"] < t["losses"][0]
+    assert rec["train"]["zamba2-2.7b"]["n_layers"] == 2
+    assert list(rec["smoke_train"]) == list(SSM_ARCHS)
+    for smoke in rec["smoke_train"].values():
+        assert smoke["losses_card"] == smoke["losses_cpu"]
+        assert len(smoke["losses_cpu"]) == 3
+        assert smoke["opt_state_keys"] == ["m", "t", "v"]
+    assert list(rec["fl"]) == list(SSM_ARCHS)
+    for arch, fl in rec["fl"].items():
+        assert fl["phase"] == "ssm" and fl["trace_equal"]
+        assert fl["trace_metrics_equal"] and fl["params_finite"]
+        assert fl["launches"] == {**fl["launches"], **fl["launches_wanted"]}
+        assert fl["launches_wanted"]["fused_adam"] == \
+            sum(fl["cohort_step_budgets"])
+        assert cs.main_run(fl).startswith(f"ssm phase: {arch}, ")
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ssm_phase_fails_without_its_launches(monkeypatch):
+    """On the CPU no kernel launches: uncounted, the first training run's
+    missing ``fused_adam`` launches fail the phase."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="fused_adam launched 0 times"):
+        _ssm_rehearsal(cs, monkeypatch, count=False)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_ssm_serve_fails_on_a_planted_state_fault(monkeypatch):
+    """A decode step that drops the prefill's SSM state (zeros it) strays
+    from the full forward and fails the serve check."""
+    from repro_torch.models import ssm
+
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    step = ssm.mamba2_decode_step
+    monkeypatch.setattr(ssm, "mamba2_decode_step", lambda p, x, cfg, c: step(
+        p, x, cfg, {"h": torch.zeros_like(c["h"]), "conv": c["conv"]}))
+    with pytest.raises(AssertionError, match="relative L2"):
+        cs.ssm_serve(torch.device("cpu"), "mamba2-370m", None, 2, 16, 24,
+                     smoke=True)
+
+
+def test_ssm_card_runs_take_the_published_shapes():
+    """The card's runs: both archs uncut at 4 x 512 into 576, Mamba2's
+    32,768-token prompt, the chunks each scan takes (575: 115; 32,775:
+    115; 4,095: 195; 1,023: 93), Zamba2's 36-layer training cut and
+    12-layer fp32 cut, whole chunks of its attn_period."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import chunk_for
+
+    cs = _load()
+    mamba, zamba = get_config("mamba2-370m"), get_config("zamba2-2.7b")
+    assert all(kw == dict(layers=None, batch=4, prompt=512, cache=576)
+               for kw in cs.SSM_SERVE.values())
+    assert [chunk_for(mamba, n) for n in (512, 575, 32768, 32775, 4095,
+                                          1023)] == [256, 115, 256, 115,
+                                                     195, 93]
+    assert chunk_for(zamba, 1023) == 93
+    assert cs.SSM_LONG["prompt"] == 32768 and cs.SSM_LONG["cache"] == 32776
+    assert cs.SSM_TRAIN["zamba2-2.7b"]["layers"] % zamba.attn_period == 0
+    assert cs.SSM_FP32["zamba2-2.7b"]["layers"] % zamba.attn_period == 0
+    assert cs.SSM_TRAIN["mamba2-370m"]["seq"] == 4096
+    assert [a[1] for a in cs.SSM_SMOKE_TRAIN] == list(SSM_ARCHS)
+
+
+def test_ssm_kernel_entry_takes_the_training_steps_width(monkeypatch):
+    """CPU rehearsal: ``fused_adam`` at the Mamba2 step's one lane of every
+    param (padded to the kernel's 4), with its run's launches, held to its
+    plain version a chunk of columns at a time."""
+    cs = _load()
+    _stub_entry_timers(cs, monkeypatch)
+    rec = {"train": {"mamba2-370m": {"arch": "mamba2-370m", "n_layers": 2,
+                                     "n_params": 73_158, "steps": 3,
+                                     "launches": {"fused_adam": 3}}}}
+    (entry,) = cs.ssm_kernel_entries(rec, torch.device("cpu"))
+    assert entry["name"] == "fused_adam[mamba2-370m]"
+    assert entry["shape"] == {"Kp": 1, "W": 73_160, "active_lanes": 1}
+    assert entry["launches"] == 3 and entry["max_abs_err"] < 1e-6
+    assert entry["launches_run"] == ("ssm phase: mamba2-370m (2 layers) "
+                                     "launch.train, 3 steps")
+    assert entry["bytes"] == 73_160 * 7 * 4 + 4
+    assert set(cs.KERNEL_KEYS) <= set(entry)
+
+
+@pytest.mark.parametrize("script", ["ssm_phase_probe.py",
+                                    "ssm_time_split.py"])
+def test_ssm_phase_probe_fails_without_a_card(script):
+    """``scripts/ssm_phase_probe.py`` and ``scripts/ssm_time_split.py`` run
+    only on a card: with none visible each exits non-zero and prints no
+    phase line."""
+    import os
+    proc = subprocess.run([sys.executable, f"scripts/{script}"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr

@@ -1383,3 +1383,135 @@ def test_adafactor_both_forms_card_equal_cpu(card):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(out["cuda"][1].cpu(), out["cpu"][1],
                                rtol=1e-5, atol=1e-6)
+
+
+# -- the SSM + hybrid families ---------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk, with_h0", [(8, False), (16, True),
+                                            (64, False)])
+def test_ssd_chunked_card_equal_cpu(no_tf32, chunk, with_h0):
+    """The chunked SSD scan on the card within rtol 1e-4 / atol 1e-5 of the
+    CPU, y and the final state, and within 1e-4 of the O(S^2) oracle."""
+    from repro_torch.models import ssm
+
+    rng = np.random.default_rng(20)
+    B, S, H, P, N = 2, 64, 3, 4, 5
+    xd = torch.as_tensor(rng.normal(size=(B, S, H, P)).astype(np.float32))
+    a = torch.as_tensor(-rng.uniform(0.01, 0.6, size=(B, S, H))
+                        .astype(np.float32))
+    Bm, Cm = (torch.as_tensor(rng.normal(size=(B, S, N)).astype(np.float32))
+              for _ in range(2))
+    h0 = (torch.as_tensor(rng.normal(size=(B, H, P, N)).astype(np.float32))
+          if with_h0 else None)
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        args = [t.to(dev) for t in (xd, a, Bm, Cm)]
+        out[dev.type] = ssm.ssd_chunked(*args, chunk,
+                                        None if h0 is None else h0.to(dev))
+        if dev.type == "cuda" and h0 is None:
+            torch.testing.assert_close(out["cuda"][0],
+                                       ssm.ssd_reference(*args),
+                                       rtol=1e-4, atol=1e-4)
+    for c, h in zip(out["cuda"], out["cpu"]):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [2, 17, 48])
+def test_mamba2_forward_and_decode_card_equal_cpu(no_tf32, S):
+    """The Mamba2 mixer on the card against the CPU from one set of
+    params: the full sequence with its new cache (S = 2: the conv tail
+    padded; 17: chunk 1), then one decode step from that cache; out and
+    the states within rtol 1e-4 / atol 1e-5."""
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import ssm
+
+    cfg, p = _smoke_params("mamba2-370m", ssm.init_mamba2)
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor(rng.normal(size=(2, S + 1, cfg.d_model))
+                        .astype(np.float32))
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        q = tree_map(lambda t: t.to(dev), p)
+        y, cache = ssm.mamba2_forward(q, x[:, :S].to(dev), cfg, cache={})
+        d, cache2 = ssm.mamba2_decode_step(q, x[:, S:].to(dev), cfg, cache)
+        out[dev.type] = [y, d, cache["h"], cache["conv"], cache2["h"],
+                         cache2["conv"]]
+    for c, h in zip(out["cuda"], out["cpu"]):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uncached", "prefill", "decode"])
+def test_zamba_shared_block_card_equal_cpu(no_tf32, mode):
+    """Zamba2's shared block on (x, x0) on the card within rtol 1e-4 /
+    atol 1e-5 of the CPU: without a cache, prefilled at 0, decoding at 6;
+    the new K/V too."""
+    from repro_torch.kernels.ops import tree_map
+    from repro_torch.models import blocks
+
+    cfg, p = _smoke_params("zamba2-2.7b", blocks.init_zamba_shared)
+    S, pos = {"uncached": (7, 0), "prefill": (7, 0), "decode": (1, 6)}[mode]
+    rng = np.random.default_rng(22)
+    x, x0 = (torch.as_tensor(rng.normal(size=(2, S, cfg.d_model))
+                             .astype(np.float32)) for _ in range(2))
+    cache = None if mode == "uncached" else {
+        k: torch.as_tensor(rng.normal(size=(2, 10, cfg.n_kv_heads, cfg.hd()))
+                           .astype(np.float32)) for k in ("k", "v")}
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        c = None if cache is None else tree_map(lambda t: t.to(dev), cache)
+        out[dev.type] = blocks.zamba_shared_block(
+            tree_map(lambda t: t.to(dev), p), x.to(dev), x0.to(dev), cfg,
+            torch.arange(S, device=dev) + pos, cache=c,
+            pos=None if cache is None else pos)
+    (yc, cc), (yh, ch) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(yc.cpu(), yh, rtol=1e-4, atol=1e-5)
+    if cache is not None:
+        for k in ("k", "v"):
+            torch.testing.assert_close(cc[k].cpu(), ch[k], rtol=1e-4,
+                                       atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_lm_loss_grads_and_decode_card_equal_cpu(no_tf32, arch):
+    """A smoke-config ``DecoderLM`` of the SSM (mamba2) and the hybrid
+    (zamba2) family on the card against the CPU from one set of params:
+    the loss and every grad (remat on, as the config sets it) within rtol
+    1e-4 / atol 1e-5; then a prefill into a cache and one decode step, the
+    logits and every cache leaf likewise, and the decode within the
+    reference's 2e-3 of the full forward on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models.lm import DecoderLM
+
+    lm = DecoderLM(get_config(arch, smoke=True))
+    assert lm.cfg.remat
+    params = lm.init(torch.Generator().manual_seed(0))
+    tok, tgt = _lm_batch(lm.cfg.vocab_size)
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        loss, _ = lm.loss(p, {"tokens": torch.as_tensor(tok, device=dev),
+                              "targets": torch.as_tensor(tgt, device=dev)})
+        loss.backward()
+        t = torch.as_tensor(tok, device=dev)
+        with torch.no_grad():
+            full, _, _ = lm.apply(p, {"tokens": t[:, :12]})
+            _, caches, _ = lm.apply(p, {"tokens": t[:, :11]},
+                                    make_cache=True, cache_len=13)
+            dec, caches = lm.decode_step(p, caches, t[:, 11:12], 11)
+        out[dev.type] = [loss.detach()] + [x.grad for x in tree_leaves(p)] \
+            + [dec] + tree_leaves(caches)
+        if dev.type == "cuda":
+            torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=2e-3,
+                                       atol=2e-3)
+    assert len(out["cuda"]) == len(out["cpu"])
+    for c, h in zip(out["cuda"], out["cpu"]):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)

@@ -103,6 +103,18 @@ def test_serve_lm_twin_serves_the_moe_family(arch, capsys):
     """The MoE archs through the serving example: each decoded token the
     greedy pick of the full forward (the smoke configs route at capacity
     factor 8, so no token drops in either path)."""
+    _serve_picks_the_full_forwards_argmax(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_serve_lm_twin_serves_the_ssm_families(arch, capsys):
+    """The SSM and hybrid archs through the serving example: each decoded
+    token (the recurrent step from the prefill's state) the greedy pick of
+    the full forward (the chunked scan)."""
+    _serve_picks_the_full_forwards_argmax(arch, capsys)
+
+
+def _serve_picks_the_full_forwards_argmax(arch, capsys):
     from repro_torch.configs.base import get_config
     from repro_torch.models import build_model
 
@@ -129,6 +141,18 @@ def test_train_fl_lm_twin_federates_the_moe_family(arch, capsys):
     (selections, invocation records, round boundaries, simulated clock)
     equal to the reference example's setup run through the reference's
     ``Controller``, the port's params finite."""
+    _federated_trace_is_the_references(arch, capsys)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_train_fl_lm_twin_federates_the_ssm_families(arch, capsys):
+    """The federated example with ``--arch`` the SSM or the hybrid arch:
+    its host trace equal to the reference example's setup run through the
+    reference's ``Controller``, the port's params finite."""
+    _federated_trace_is_the_references(arch, capsys)
+
+
+def _federated_trace_is_the_references(arch, capsys):
     import jax
     import numpy as np
 
@@ -158,7 +182,8 @@ def test_train_fl_lm_twin_federates_the_moe_family(arch, capsys):
     assert host_trace(ctl) == host_trace(ref)
     for key in ("total_time", "total_cost_usd", "n_invocations"):
         assert m[key] == m_ref[key], key
-    assert len(ctl.params["layers"]["first"]) == jcfg.first_dense_layers
+    assert len(ctl.params["layers"].get("first", [])) == \
+        jcfg.first_dense_layers
     assert all(bool(torch.isfinite(t).all())
                for t in tree_leaves(ctl.params))
     assert np.isfinite(m["final_accuracy"]) and jax is not None
@@ -257,8 +282,9 @@ def test_launch_train_cuts_the_depth(capsys):
 def test_launch_train_takes_the_card_by_default_and_raises_unported(
         monkeypatch):
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="SSM"):
-        train.main(["--arch", "mamba2-370m", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="VLM"):
+        train.main(["--arch", "llama-3.2-vision-11b", "--smoke", "--device",
+                    "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])

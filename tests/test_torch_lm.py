@@ -1,6 +1,7 @@
 """The decoder-LM families against the reference: dense (Qwen3, Granite,
-Yi) and, since the MoE + MLA slice, moe (DeepSeek-V2-Lite, Arctic; their
-SMOKE configs route at capacity factor 8, so no token drops).
+Yi), since the MoE + MLA slice moe (DeepSeek-V2-Lite, Arctic; their SMOKE
+configs route at capacity factor 8, so no token drops), and since the SSM
++ hybrid slice ssm (Mamba2) and hybrid (Zamba2).
 
 Every comparison starts from the reference's params, carried over as numpy
 (``params_from_numpy``), on seeded numpy inputs. fp32: rtol 1e-4 / atol
@@ -47,6 +48,7 @@ RTOL, ATOL = 1e-4, 1e-5
 BF16_LOGITS, BF16_GRADS, BF16_LOSS = 3e-2, 5e-2, 1e-2
 DENSE = ("qwen3-1.7b", "granite-8b", "yi-6b", "qwen3-4b")
 MOE = ("deepseek-v2-lite-16b", "arctic-480b")
+SSM = ("mamba2-370m", "zamba2-2.7b")
 CONFIG_FILES = sorted(p.name for p in (ROOT / "src/repro/configs").glob("*.py"))
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -216,8 +218,9 @@ def test_gqa_forward_matches_the_reference(kv, qk_norm, cached):
 
 def test_gqa_cache_shape_and_unported_attention_raise():
     """The GQA and (since the MoE + MLA slice) MLA cache shapes equal the
-    reference's; cross attention and the SSM blocks still raise, naming
-    their slice."""
+    reference's; cross attention and the cross block still raise, naming
+    their slice (the mamba and Zamba blocks run since the SSM + hybrid
+    slice: ``tests/test_torch_ssm.py``)."""
     jcfg, cfg = _gqa_cfg(True, 2)
     s = attention.gqa_cache_shape(cfg, 3, 11, torch.bfloat16)
     js = jattn.gqa_cache_shape(jcfg, 3, 11, jnp.bfloat16)
@@ -235,7 +238,7 @@ def test_gqa_cache_shape_and_unported_attention_raise():
         [(k, tuple(v.shape)) for k, v in _paths(_ref_params(
             jattn.init_mla, jcfg))]
     for fn, slice_ in ((attention.cross_forward, "VLM"),
-                       (blocks.mamba_block, "SSM"),
+                       (blocks.init_cross_block, "VLM"),
                        (blocks.cross_block, "VLM")):
         with pytest.raises(NotImplementedError, match=slice_):
             fn()
@@ -283,13 +286,17 @@ def _lm_pair(arch, dtype="float32", seed=0):
     return jlm, lm, jp, _to_torch(jp)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_param_names_shapes_and_order_equal_the_references_init(arch):
+    """Names, shapes and leaf order; the ssm and hybrid layers have no
+    ``first`` list, the hybrid's stack is ``[n_chunks, attn_period, ...]``
+    beside its ``shared`` block."""
     jcfg, cfg = _cfgs(arch)
     jp = JaxDecoderLM(jcfg).init(jax.random.PRNGKey(0))[0]
     p = DecoderLM(cfg).init(torch.Generator().manual_seed(0))
-    assert len(p["layers"]["first"]) == len(jp["layers"]["first"]) == \
-        cfg.first_dense_layers
+    assert set(p["layers"]) == set(jp["layers"])
+    assert len(p["layers"].get("first", [])) == \
+        len(jp["layers"].get("first", [])) == cfg.first_dense_layers
     assert [(k, tuple(v.shape)) for k, v in _paths(p)] == \
         [(k, tuple(v.shape)) for k, v in _paths(jp)]
     assert ("head" in p) == (not cfg.tie_embeddings)
@@ -322,13 +329,15 @@ def _port_loss_and_grads(lm, p, batch):
     return logits, loss, [leaf.grad for leaf in tree_leaves(p)], metrics
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_lm_logits_loss_and_grads_match_the_reference_fp32(arch):
-    """Tied (qwen3) and untied (granite, yi) heads, qk-norm on (qwen3) and
-    off, MLA with an MLA-dense first layer and shared experts (deepseek),
-    GQA with a dense residual FFN (arctic): logits, loss (CE plus the
-    MoE aux loss) and every grad leaf, the tied embedding's grad summing
-    its two uses."""
+    """Tied (qwen3, mamba2) and untied (granite, yi, zamba2) heads,
+    qk-norm on (qwen3) and off, MLA with an MLA-dense first layer and
+    shared experts (deepseek), GQA with a dense residual FFN (arctic), the
+    Mamba2 stack (mamba2) and mamba chunks around a shared attention block
+    (zamba2): logits, loss (CE plus the MoE aux loss) and every grad leaf,
+    the tied embedding's grad summing its two uses, the shared block's
+    its applications'."""
     jlm, lm, jp, p = _lm_pair(arch)
     batch = _lm_batch(lm.cfg)
     wlogits, wloss, wgrads = _ref_loss_and_grads(jlm, jp, batch)
@@ -346,7 +355,7 @@ def test_lm_logits_loss_and_grads_match_the_reference_fp32(arch):
                                    err_msg=str(path))
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_lm_logits_loss_and_grads_match_the_reference_bf16(arch):
     jlm, lm, jp, p = _lm_pair(arch, "bfloat16")
     assert all(v.dtype == torch.bfloat16 for v in tree_leaves(p))
@@ -361,11 +370,13 @@ def test_lm_logits_loss_and_grads_match_the_reference_bf16(arch):
         assert _rel_l2(g, w) <= BF16_GRADS, path
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b"] + list(MOE))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-8b"] + list(MOE)
+                         + list(SSM))
 def test_decode_step_matches_the_references(arch):
     """Prefill into a cache, then one decode step, in both packages: the
     logits and every cache leaf (MLA's compressed ``c`` and ``k_pe`` for
-    deepseek, its first layer's among them)."""
+    deepseek, its first layer's among them; the mamba states, and the
+    shared block's K/V for zamba2)."""
     jlm, lm, jp, p = _lm_pair(arch)
     tok = _tokens(lm.cfg, (2, 9), seed=5)
     wl, wc, _ = jlm.apply(jp, {"tokens": jnp.asarray(tok[:, :8])},
@@ -374,26 +385,36 @@ def test_decode_step_matches_the_references(arch):
                          make_cache=True, cache_len=12)
     _close(gl, wl)
     wd, wc2 = jlm.decode_step(jp, wc, jnp.asarray(tok[:, 8:9]), jnp.int32(8))
+    before = tree_map(torch.clone, gc)
     gd, gc2 = lm.decode_step(p, gc, torch.as_tensor(tok[:, 8:9]), 8)
     _close(gd, wd)
-    assert len(gc["first"]) == len(gc2["first"]) == lm.cfg.first_dense_layers
+    assert len(gc.get("first", [])) == len(gc2.get("first", [])) == \
+        lm.cfg.first_dense_layers
+    assert [k for k, _ in _paths(gc2)] == [k for k, _ in _paths(gc)]
     for (path, g), w in zip(_paths(gc2), jax.tree.leaves(wc2)):
         np.testing.assert_allclose(_np(g), _np(w), rtol=RTOL, atol=ATOL,
                                    err_msg=str(path))
     # the caller's caches are not written
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(gc),
+                                                 tree_leaves(before)))
+    if arch == "mamba2-370m":
+        return
+    kv = gc["shared"] if arch == "zamba2-2.7b" else gc["stack"]
     key = "c" if lm.cfg.kv_lora_rank else "k"
-    assert float(gc["stack"][key][:, :, 8].abs().max()) == 0.0
+    assert float(kv[key][:, :, 8].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_prefill_then_decode_matches_full_forward(arch):
     """The twin of the reference's ``tests/test_models.py`` case: the full
     forward's logits at position S-1 equal a prefill of S-1 tokens into a
     cache of S+1 and one decode step at S-1 (tolerance 2e-3, the
     reference's); for MLA this holds the absorbed branch (prefill, decode)
-    against the expanded one (the full forward), at cf 8 (no drops)."""
+    against the expanded one (the full forward), at cf 8 (no drops); for
+    the mamba layers the recurrent step against the chunked scan, the
+    state handed over by the prefill."""
     _, lm, _, p = _lm_pair(arch)
-    assert lm.cfg.capacity_factor == 8.0 or arch in DENSE
+    assert lm.cfg.capacity_factor == 8.0 or arch in DENSE + SSM
     S = 12
     tok = torch.as_tensor(_tokens(lm.cfg, (1, S + 1), seed=9))
     with torch.no_grad():
@@ -409,13 +430,20 @@ def test_prefill_then_decode_matches_full_forward(arch):
         tree_map(lambda t: (tuple(t.shape), t.dtype), struct)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_cache_struct_equals_the_references(arch):
     """GQA's ``k`` / ``v``, or MLA's ``c`` / ``k_pe`` (deepseek), per
-    ``first`` layer and stacked."""
+    ``first`` layer and stacked; the mamba states (``conv`` bf16, ``h``
+    fp32) stacked per layer (mamba2) or ``[n_chunks, attn_period, ...]``
+    beside the shared block's K/V per application (zamba2)."""
     jcfg = jbase.get_config(arch)
     struct = DecoderLM(base.get_config(arch)).cache_struct(4, 576)
     jstruct, _ = JaxDecoderLM(jcfg).cache_struct(4, 576)
+    if arch in SSM:
+        assert [(k, tuple(v.shape), str(v.dtype).removeprefix("torch."),
+                 v.is_meta) for k, v in _paths(struct)] == \
+            [(k, v.shape, str(v.dtype), True) for k, v in _paths(jstruct)]
+        return
     assert len(struct["first"]) == len(jstruct["first"]) == \
         jcfg.first_dense_layers
     keys = ("c", "k_pe") if jcfg.kv_lora_rank else ("k", "v")
@@ -427,7 +455,7 @@ def test_cache_struct_equals_the_references(arch):
             assert one[k].dtype == torch.bfloat16 and one[k].is_meta
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_published_count_on_meta_equals_the_references_eval_shape(arch):
     """The FULL config counted on the ``meta`` device (nothing allocated,
     nothing drawn) equals the reference's ``jax.eval_shape`` count, leaf by
@@ -460,6 +488,47 @@ def test_moe_counts_of_the_card_runs(arch, layers, n):
     if layers:
         cfg = cfg.with_(n_layers=layers)
     assert common.count_params(DecoderLM(cfg).init(device="meta")) == n
+
+
+@pytest.mark.parametrize("arch, layers, n", [
+    ("mamba2-370m", None, 368_338_432),
+    ("zamba2-2.7b", None, 2_435_782_560),
+    ("zamba2-2.7b", 36, 1_717_794_240),
+    ("zamba2-2.7b", 24, 1_239_135_360),
+    ("zamba2-2.7b", 12, 760_476_480)])
+def test_ssm_counts_of_the_card_runs(arch, layers, n):
+    """The counts of the SSM and hybrid runs on the card (both uncut,
+    Zamba2's 36-layer training cut, its 24-layer fallback, its 12-layer
+    fp32 cut), on the ``meta`` device."""
+    cfg = base.get_config(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
+    params = DecoderLM(cfg).init(device="meta")
+    assert common.count_params(params) == n
+    if arch == "zamba2-2.7b":
+        assert params["layers"]["stack"]["ln"].shape == \
+            (cfg.n_layers // 6, 6, cfg.d_model)
+
+
+def test_hybrid_depth_must_split_into_chunks():
+    """A hybrid's layers come in chunks of ``attn_period``; any other depth
+    raises, as the reference's reshape would, and the launcher refuses
+    ``--layers`` that is not a multiple."""
+    from repro_torch.launch import train
+
+    jcfg, cfg = _cfgs("zamba2-2.7b")
+    assert cfg.attn_period == 2
+    with pytest.raises(TypeError):
+        JaxDecoderLM(jcfg.with_(n_layers=5)).init(jax.random.PRNGKey(0))
+    with pytest.raises(ValueError, match="attn_period 2"):
+        DecoderLM(cfg.with_(n_layers=5))
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "zamba2-2.7b", "--smoke", "--layers", "3",
+                    "--steps", "1", "--device", "cpu"])
+    out = train.main(["--arch", "zamba2-2.7b", "--smoke", "--layers", "2",
+                      "--steps", "1", "--batch", "2", "--seq", "9",
+                      "--device", "cpu"])
+    assert out["params"]["layers"]["stack"]["ln"].shape == (1, 2, 64)
 
 
 # -- remat ---------------------------------------------------------------------
@@ -500,19 +569,22 @@ def test_remat_changes_no_value_under_autograd_and_under_vmap():
 
 
 def test_build_model_raises_for_the_families_not_ported():
-    """The dense and (since the MoE + MLA slice) moe families build a
-    ``DecoderLM``; the SSM, hybrid, VLM and enc-dec families raise, naming
-    their slice."""
+    """The dense, moe (since the MoE + MLA slice), ssm and hybrid (since
+    the SSM + hybrid slice) families build a ``DecoderLM``; the VLM and
+    enc-dec families raise, naming their slice."""
+    built = set()
     for arch in base.ARCH_IDS:
         cfg = base.get_config(arch)
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "ssm", "hybrid"):
             assert isinstance(api.build_model(cfg), DecoderLM)
+            built.add(cfg.family)
             continue
         with pytest.raises(NotImplementedError, match="later slice") as err:
             api.build_model(cfg)
-        assert re.search(r"SSM|VLM", str(err.value)), arch
+        assert re.search(r"VLM \+ enc-dec", str(err.value)), arch
         with pytest.raises(NotImplementedError, match="later slice"):
             DecoderLM(cfg)
+    assert built == {"dense", "moe", "ssm", "hybrid"}
     assert isinstance(api.build_model(base.get_config("paper-mnist")),
                       MnistCNN)
 
@@ -693,7 +765,8 @@ def test_init_repair_keeps_every_value(arch, dtype, monkeypatch):
 # -- the centralized training driver ---------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "yi-6b"] + list(MOE))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "yi-6b"] + list(MOE)
+                         + list(SSM))
 def test_launch_train_steps_match_the_references(arch):
     """Three steps of ``launch.train``'s step on its token stream, from the
     reference's params, against the reference driver's step (value and

@@ -56,6 +56,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.attention", "repro_torch.models.blocks",
             "repro_torch.models.lm", "repro_torch.launch",
             "repro_torch.launch.train", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.zamba2_2p7b",
             "repro_torch.configs.deepseek_v2_lite_16b"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
