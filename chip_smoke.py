@@ -224,7 +224,33 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      once an aggregation, ``fused_adam`` once a local step of each
      cohort's largest budget, then the host trace and the host's metrics
      card against CPU;
- 14. kernels: each kernel at the shapes its path gave it, against its
+ 14. xattn: the VLM and enc-dec LM families. Serving: ``DecoderLM`` of
+     Llama-3.2-Vision uncut (32 self layers in 8 chunks, each after one
+     gated cross-attention block: 9,775,157,256 params) over random
+     patches at all 1,601 positions, its gates set to 1.0 after init
+     (drawn as zeros, they would hide cross attention from the check),
+     and ``EncDecLM`` of SeamlessM4T-large-v2 uncut (24 encoder and 24
+     decoder layers, 2,034,784,256 params) over 4 x 512 random frames, in
+     bf16, prefill 4 x 512 into a cache of 576 (the cross K/V over the
+     patches or the encoded frames computed once, in the cache) and decode
+     greedily to fill it (init s, prefill ms first and second, decode ms a
+     step and tokens/s, init and run peak GB); each decoded position's
+     logits within ``LM_DECODE_RTOL`` of the full forward's over the same
+     patches or frames; the same check in fp32 (1e-3) for the VLM cut to 8
+     layers and SeamlessM4T uncut. Training: ``launch.train.main`` for the
+     VLM cut to 4 layers (2,141,237,249 params) and SeamlessM4T uncut, 3
+     steps of 4 x 1,024 tokens each (the reference's batches: zero
+     patches, normal frames): each loss finite, the first batch's loss
+     lower after, exactly 3 ``fused_adam`` launches; step ms and peak GB.
+     Both archs' ``launch.train --smoke`` card against CPU, each loss
+     within 1e-4 relative. Under the zero patches and the drawn zero
+     gates the VLM's cross attention takes no grad, so its smoke config
+     is also trained 3 steps through ``launch.train.train_step`` with
+     its gates at 1.0 over normal patches, card against CPU from one
+     init: each loss, and each cross-attention leaf's Adam moments
+     (relative L2), within 1e-4; each leaf moved. Neither is federated:
+     the reference's client adapter passes tokens alone;
+ 15. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
      phase's check), and timed (median of CUDA-event times) beside the
@@ -272,7 +298,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      The moe phase's entry: ``fused_adam[deepseek-v2-lite-16b]`` (the
      centralized step at the 3-layer cut, one lane of 1,670,135,296); the
      ssm phase's: ``fused_adam[mamba2-370m]`` (the centralized Mamba2
-     step, one lane of 368,338,432).
+     step, one lane of 368,338,432); the xattn phase's:
+     ``fused_adam[llama-3.2-vision-11b]`` and
+     ``fused_adam[seamless-m4t-large-v2]`` (each centralized step, one lane
+     of 2,141,237,249 and of 2,034,784,256). Every ``fused_adam`` entry
+     times its plain version 2^29 columns at a time, the pieces' times
+     summed: at 2.1 B columns its temporaries would not fit beside its
+     inputs.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1271,6 +1303,9 @@ LM_FL_EXAMPLE = ROOT / "examples" / "torch_train_fl_lm.py"
 # default for matmuls): only the reductions' order differs, ~1e-6 a layer
 LM_DECODE_RTOL = {"bfloat16": 5e-2, "float32": 1e-3}
 LM_CHECK_CHUNK = 1 << 27      # columns a plain-version check takes at once
+# columns the plain Adam is timed over at once: at 2.1 B columns its ~24 B
+# a column of temporaries would not fit beside its 16 B a column of inputs
+ADAM_PLAIN_PIECE = 1 << 29
 
 
 def load_example(path: Path):
@@ -1295,18 +1330,20 @@ def peak_gb(dev):
             else None)
 
 
-def greedy_serve(lm, params, prompts, cache: int, prefills: int = 2
-                 ) -> tuple:
-    """Prefill ``prompts`` into a cache of ``cache`` slots ``prefills``
-    times (the first warms cuBLAS and the allocator), then decode greedily
-    to fill the cache. Returns (each prefill's ms, the decode's seconds,
-    the logits of every picked position [B, n, V], the picks [B, n])."""
+def greedy_serve(lm, params, prompts, cache: int, prefills: int = 2,
+                 memory=None) -> tuple:
+    """Prefill ``prompts`` (with the ``memory`` inputs, patches or frames)
+    into a cache of ``cache`` slots ``prefills`` times (the first warms
+    cuBLAS and the allocator), then decode greedily to fill the cache.
+    Returns (each prefill's ms, the decode's seconds, the logits of every
+    picked position [B, n, V], the picks [B, n])."""
     prompt = prompts.shape[1]
     prefill_ms = []
     for _ in range(prefills):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches, _ = lm.apply(params, {"tokens": prompts},
+        logits, caches, _ = lm.apply(params, {"tokens": prompts,
+                                              **(memory or {})},
                                      make_cache=True, cache_len=cache)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
@@ -1337,42 +1374,63 @@ def serve_capacities(cfg, batch: int, prompt: int, cache: int) -> dict:
             for k, t in calls.items()}
 
 
+def serve_config(arch: str, layers, smoke: bool = False, dtype=None):
+    """``arch``'s config (its smoke config with ``smoke``) cut to
+    ``layers`` as ``launch.train --layers`` cuts it, in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+
+    cfg = get_config(arch, smoke=smoke)
+    if layers:
+        cfg = cut_depth(cfg, layers)
+    if dtype:
+        cfg = cfg.with_(param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
 def lm_serve(dev, cfg, batch: int, prompt: int, cache: int,
              check_cfg=None, decode_rtol=LM_DECODE_RTOL) -> dict:
-    """``DecoderLM`` at ``cfg``'s width and dtype, initialized on ``dev``:
-    prefill (twice), greedy decode to fill the cache, then the full forward
-    over the decoded sequence; each decoded position's logits within
-    ``decode_rtol[dtype]`` of the full forward's. With ``check_cfg``
-    (an MoE config at a capacity that drops no token) the timed run is
+    """``build_model(cfg)`` at ``cfg``'s width and dtype, initialized on
+    ``dev``: prefill (twice), greedy decode to fill the cache, then the
+    full forward over the decoded sequence; each decoded position's logits
+    within ``decode_rtol[dtype]`` of the full forward's. A VLM's gates are
+    set to ``VLM_GATE`` after init and it sees random patches, an enc-dec
+    random frames (``launch.train.memory_inputs``, drawn after the
+    prompts), so cross attention moves the logits. With ``check_cfg`` (an
+    MoE config at a capacity that drops no token) the timed run is
     ``cfg``'s and the decode and the full forward of the check are
     ``check_cfg``'s, on the same params; every call's capacity must hold
     all its tokens."""
+    from repro_torch.launch.train import memory_inputs
+    from repro_torch.models import build_model
     from repro_torch.models.common import count_params
-    from repro_torch.models.lm import DecoderLM
 
     reset_peak(dev)
-    lm = DecoderLM(cfg)
+    lm = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
     params = lm.init(gen)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = peak_gb(dev)
+    if cfg.family == "vlm":
+        params["layers"]["cross"]["xattn"]["gate"].fill_(VLM_GATE)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
                             device=dev)
+    memory = memory_inputs(cfg, batch, prompt, gen, dev)
     caps = None
     with torch.no_grad():
         prefill_ms, decode_s, dec, seqs = greedy_serve(lm, params, prompts,
-                                                       cache)
+                                                       cache, memory=memory)
         if check_cfg is not None:
             caps = serve_capacities(check_cfg, batch, prompt, cache)
             if any(c["capacity"] < c["tokens"] for c in caps.values()):
                 raise AssertionError(f"lm serve: a check call can drop "
                                      f"tokens: {caps}")
-            lm = DecoderLM(check_cfg)
+            lm = build_model(check_cfg)
             _, _, dec, seqs = greedy_serve(lm, params, prompts, cache, 1)
         full, _, _ = lm.apply(params, {"tokens": torch.cat(
-            [prompts, seqs[:, :-1]], dim=1)})
+            [prompts, seqs[:, :-1]], dim=1), **memory})
         full = full[:, prompt - 1:].float()
         rel = (dec - full).norm(dim=-1) / full.norm(dim=-1)
         agree = (dec.argmax(-1) == full.argmax(-1)).float().mean()
@@ -1393,11 +1451,15 @@ def lm_serve(dev, cfg, batch: int, prompt: int, cache: int,
            "argmax_agreement": float(agree),
            "logits_finite": bool(torch.isfinite(dec).all()),
            "init_peak_gb": init_peak, "peak_gb": peak_gb(dev)}
+    if memory:
+        rec["memory"] = {k: list(v.shape) for k, v in memory.items()}
+    if cfg.family == "vlm":
+        rec["gate"] = VLM_GATE
     if check_cfg is not None:
         rec["capacity_factor"] = cfg.capacity_factor
         rec["check_capacity_factor"] = check_cfg.capacity_factor
         rec["check_capacities"] = caps
-    del params, full, dec
+    del params, full, dec, memory
     if not rec["logits_finite"]:
         raise AssertionError(f"lm serve: {cfg.name} decoded non-finite logits")
     if rec["decode_rel_l2_max"] > rtol:
@@ -1432,9 +1494,8 @@ def lm_train(dev, arch: str, smoke: bool, steps: int, batch: int,
     launches = read_counts()
     cfg = get_config(arch, smoke=smoke)
     if layers:
-        cfg = cfg.with_(n_layers=layers)
-    first = train.token_batch(np.random.default_rng(0), cfg.vocab_size,
-                              batch, seq, dev)
+        cfg = train.cut_depth(cfg, layers)
+    first = train.step_batch(np.random.default_rng(0), cfg, batch, seq, dev)
     with torch.no_grad():
         again = float(build_model(cfg).loss(out["params"], first)[0])
     rec = {"arch": arch, "smoke": smoke, "n_layers": cfg.n_layers,
@@ -1618,13 +1679,7 @@ def no_drop_cf(cfg) -> int:
 
 def moe_serve(dev, arch: str, layers, batch: int, prompt: int, cache: int,
               smoke: bool = False, dtype=None) -> dict:
-    from repro_torch.configs import get_config
-
-    cfg = get_config(arch, smoke=smoke)
-    if layers:
-        cfg = cfg.with_(n_layers=layers)
-    if dtype:
-        cfg = cfg.with_(param_dtype=dtype, compute_dtype=dtype)
+    cfg = serve_config(arch, layers, smoke, dtype)
     return lm_serve(dev, cfg, batch, prompt, cache,
                     check_cfg=cfg.with_(capacity_factor=no_drop_cf(cfg)))
 
@@ -1644,22 +1699,21 @@ def moe_adafactor(dev, arch: str, smoke: bool, layers, steps: int,
 
     cfg = get_config(arch, smoke=smoke)
     if layers:
-        cfg = cfg.with_(n_layers=layers)
+        cfg = train.cut_depth(cfg, layers)
     reset_peak(dev)
     model = build_model(cfg)
     opt = build_optimizer("adafactor", lr)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     state = opt.init(params)
     rng = np.random.default_rng(0)
-    first = train.token_batch(np.random.default_rng(0), cfg.vocab_size,
-                              batch, seq, dev)
+    first = train.step_batch(np.random.default_rng(0), cfg, batch, seq, dev)
     losses, step_s = [], []
     zero_counts()
     for _ in range(steps):
         t0 = time.perf_counter()
         params, state, loss = train.train_step(
             model, opt, params, state,
-            train.token_batch(rng, cfg.vocab_size, batch, seq, dev))
+            train.step_batch(rng, cfg, batch, seq, dev))
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
     launches = read_counts()
@@ -1784,7 +1838,7 @@ def moe_kernel_entries(rec: dict, dev) -> list:
 # prefill round otherwise than the full forward (the conv an einsum over
 # the window against the unrolled sum, dt * x in fp32 against bf16) and the
 # random-init stack amplifies the difference with depth. The reference's
-# own largest deviation (scripts/ssm_bf16_drift.py, CPU, 2 x 64 tokens
+# own largest deviation (scripts/bf16_decode_drift.py, CPU, 2 x 64 tokens
 # then 16 steps): Mamba2 1.90 / 2.80 / 4.51 % at 4 / 8 / 16 layers, Zamba2
 # 2.25 / 3.49 % at 6 / 12, growing as about depth^0.6: ~9 % at 48 and 54
 # layers. 15 % is that times 1.7, the headroom LM_DECODE_RTOL took over
@@ -1827,14 +1881,9 @@ def ssm_serve(dev, arch: str, layers, batch: int, prompt: int, cache: int,
               smoke: bool = False, dtype=None) -> dict:
     """``lm_serve`` of ``arch`` (cut to ``layers``, in ``dtype``), with the
     scan's chunk of the prefill and of the check's full forward."""
-    from repro_torch.configs import get_config
     from repro_torch.models.ssm import chunk_for
 
-    cfg = get_config(arch, smoke=smoke)
-    if layers:
-        cfg = cfg.with_(n_layers=layers)
-    if dtype:
-        cfg = cfg.with_(param_dtype=dtype, compute_dtype=dtype)
+    cfg = serve_config(arch, layers, smoke, dtype)
     rec = lm_serve(dev, cfg, batch, prompt, cache,
                    decode_rtol=SSM_DECODE_RTOL)
     rec["chunk_prefill"] = chunk_for(cfg, prompt)
@@ -1878,6 +1927,174 @@ def ssm_kernel_entries(rec: dict, dev) -> list:
     """The SSM phase's new shape: ``fused_adam`` at the centralized
     Mamba2 step's one lane of every param (368,338,432 uncut)."""
     return [train_adam_entry(rec["train"]["mamba2-370m"], "ssm", dev)]
+
+
+# -------------------------------------------------------------------- xattn
+# Llama-3.2-Vision (32 self layers + 8 gated cross blocks, 9,775,157,256
+# params, 19.55 GB in bf16) and SeamlessM4T-large-v2 (24 encoder + 24
+# decoder layers, 2,034,784,256 params, 4.07 GB) served uncut, 4 x 512
+# into 576, bf16: the VLM over random patches at all 1,601 positions, its
+# gates set to VLM_GATE after init (drawn as zeros, a fresh VLM's cross
+# attention adds nothing and a check at init would pass with it wrong);
+# SeamlessM4T over 4 x 512 random frames. fp32: the VLM cut to 8 layers (2
+# chunks, 3,231,797,250 params, 12.9 GB), SeamlessM4T uncut (8.1 GB)
+VLM_GATE = 1.0
+XATTN_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+XATTN_SERVE = {arch: dict(layers=None, batch=4, prompt=512, cache=576)
+               for arch in XATTN_ARCHS}
+XATTN_FP32 = {"llama-3.2-vision-11b": dict(layers=8, batch=4, prompt=512,
+                                           cache=576),
+              "seamless-m4t-large-v2": dict(layers=None, batch=4,
+                                            prompt=512, cache=576)}
+# training, 3 steps of 4 x 1,024 through the fused Adam (~28 B a param of
+# bf16 params and grads and fp32 rows): the VLM cut to 4 layers (1 chunk,
+# 2,141,237,249 params, ~60 GB; 8 layers would be ~90 GB), SeamlessM4T
+# uncut (~57 GB plus its 256,206-entry logits)
+XATTN_TRAIN = {"llama-3.2-vision-11b": dict(smoke=False, layers=4, steps=3,
+                                            batch=4, seq=1024),
+               "seamless-m4t-large-v2": dict(smoke=False, layers=None,
+                                             steps=3, batch=4, seq=1024)}
+XATTN_SMOKE_TRAIN = tuple(("--arch", arch, "--smoke", "--steps", "4",
+                           "--batch", "4", "--seq", "64")
+                          for arch in XATTN_ARCHS)
+
+
+def xattn_serve(dev, arch: str, layers, batch: int, prompt: int, cache: int,
+                smoke: bool = False, dtype=None) -> dict:
+    """``lm_serve`` of ``arch`` (cut to ``layers``, in ``dtype``)."""
+    return lm_serve(dev, serve_config(arch, layers, smoke, dtype), batch,
+                    prompt, cache)
+
+
+# the VLM's cross attention trained card against CPU, on the smoke config.
+# launch.train feeds the reference's zero patches, under which the gates'
+# drawn zeros leave every cross-attention leaf's grad at exactly 0 (cross
+# K/V of zeros are zeros, tanh(0) = 0): the training runs above pass with
+# cross attention's backward wrong. Here the gates are opened and the
+# patches drawn
+XATTN_CROSS_TRAIN = dict(arch="llama-3.2-vision-11b", steps=3, batch=4,
+                         seq=64)
+
+
+def cross_train_card_cpu(dev, arch: str, steps: int, batch: int,
+                         seq: int) -> dict:
+    """``steps`` steps of ``launch.train.train_step`` (the config's Adam:
+    the fused kernel on the card, its plain version on the CPU) on
+    ``arch``'s smoke config, on the card and on the CPU from one CPU init
+    with every gate at ``VLM_GATE``, over the launcher's token stream with
+    normal patches drawn after each batch's tokens. Each step's loss
+    within ``SMOKE_TRAIN_RTOL`` (relative) card against CPU; each
+    cross-attention leaf's Adam moments after the steps (``m`` a decaying
+    sum of its grads, ``v`` of their squares) within ``SMOKE_TRAIN_RTOL``
+    (relative L2) card against CPU, and ``m`` non-zero; each leaf moved on
+    both. The moments are held rather than the update ``m / (sqrt(v) +
+    eps)``: a grad within rounding of 0 can take the other sign on the
+    other device, which flips its element's update by 2 lr."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import RavelSpec, tree_map
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import build_optimizer
+
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    opt = build_optimizer(cfg.optimizer, cfg.learning_rate)
+    init = model.init(torch.Generator().manual_seed(0))
+    init["layers"]["cross"]["xattn"]["gate"].fill_(VLM_GATE)
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(steps):
+        b = train.step_batch(rng, cfg, batch, seq, "cpu")
+        b["patches"] = torch.as_tensor(
+            rng.normal(size=tuple(b["patches"].shape)), dtype=torch.float32)
+        batches.append(b)
+    runs = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        params = tree_map(lambda p: p.to(where, copy=True), init)
+        state = opt.init(params)
+        losses = []
+        for b in batches:
+            params, state, loss = train.train_step(
+                model, opt, params, state,
+                {k: v.to(where) for k, v in b.items()})
+            losses.append(loss)
+        spec = RavelSpec(params)
+        xattn = params["layers"]["cross"]["xattn"]
+        runs[name] = {
+            "losses": losses,
+            "moved": {k: float((v.cpu() - init["layers"]["cross"]["xattn"][k])
+                               .abs().max()) for k, v in xattn.items()},
+            **{m: spec.unravel(state[m][0].cpu(), restore_dtype=False)[
+                "layers"]["cross"]["xattn"] for m in ("m", "v")}}
+    card, cpu = runs["card"], runs["cpu"]
+    leaves = list(cpu["m"])
+    rec = {"arch": arch, "gate": VLM_GATE, "steps": steps,
+           "tokens_per_step": batch * (seq - 1),
+           "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+           "loss_rel_max": max(abs(a - b) / abs(b) for a, b in
+                               zip(card["losses"], cpu["losses"])),
+           "moments_rel_l2": {k: {m: float((card[m][k] - cpu[m][k]).norm()
+                                           / cpu[m][k].norm())
+                                  for m in ("m", "v")} for k in leaves},
+           "m_norm_cpu": {k: float(cpu["m"][k].norm()) for k in leaves},
+           "moved_card": card["moved"], "moved_cpu": cpu["moved"],
+           "rtol": SMOKE_TRAIN_RTOL}
+    if not rec["loss_rel_max"] <= SMOKE_TRAIN_RTOL:
+        raise AssertionError(f"cross train: card vs CPU losses "
+                             f"{card['losses']} / {cpu['losses']}")
+    for k in leaves:
+        if not (rec["m_norm_cpu"][k] > 0 and card["moved"][k] > 0
+                and cpu["moved"][k] > 0):
+            raise AssertionError(f"cross train: {k} took no grad or did not "
+                                 f"move ({rec['m_norm_cpu'][k]}, "
+                                 f"{card['moved'][k]}, {cpu['moved'][k]})")
+        if not max(rec["moments_rel_l2"][k].values()) <= SMOKE_TRAIN_RTOL:
+            raise AssertionError(f"cross train: {k}'s moments card vs CPU "
+                                 f"{rec['moments_rel_l2'][k]}")
+    return rec
+
+
+def xattn_phase(dev, serve=None, fp32=None, train=None,
+                smoke_train=XATTN_SMOKE_TRAIN,
+                cross_train=XATTN_CROSS_TRAIN) -> dict:
+    """The VLM and enc-dec LM families on the card: Llama-3.2-Vision and
+    SeamlessM4T served uncut in bf16, the fp32 checks (the VLM's 8-layer
+    cut, SeamlessM4T uncut); the VLM's 4-layer cut and SeamlessM4T trained
+    through ``launch.train`` (fused Adam); both smoke runs card against
+    CPU; the VLM's smoke config trained with its gates open over random
+    patches, card against CPU (``xattn_serve``, ``lm_train``,
+    ``smoke_train_card_cpu``, ``cross_train_card_cpu``). Neither
+    family is federated: the reference's client adapter passes tokens
+    alone. The sizes cut it for a rehearsal. One JSON line."""
+    t0 = time.perf_counter()
+    serve_rec = {
+        "bfloat16": {arch: xattn_serve(dev, arch, **kw, dtype="bfloat16")
+                     for arch, kw in (serve or XATTN_SERVE).items()},
+        "float32": {arch: xattn_serve(dev, arch, **kw, dtype="float32")
+                    for arch, kw in (fp32 or XATTN_FP32).items()}}
+    train_rec = {arch: lm_train(dev, arch, **kw)
+                 for arch, kw in (train or XATTN_TRAIN).items()}
+    smoke_rec = {argv[1]: smoke_train_card_cpu(dev, argv)
+                 for argv in smoke_train}
+    cross_rec = cross_train_card_cpu(dev, **cross_train)
+    rec = {"serve": serve_rec, "train": train_rec, "smoke_train": smoke_rec,
+           "cross_train": cross_rec, "wall_s": time.perf_counter() - t0}
+    emit("xattn", **rec)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def xattn_kernel_entries(rec: dict, dev) -> list:
+    """The xattn phase's new shapes: ``fused_adam`` at each centralized
+    step's one lane of every param (the VLM's 4-layer cut, SeamlessM4T
+    uncut)."""
+    entries = []
+    for arch in rec["train"]:
+        entries.append(train_adam_entry(rec["train"][arch], "xattn", dev))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return entries
 
 
 # -------------------------------------------------------------------- sweep
@@ -3186,7 +3403,8 @@ def adam_entry(name: str, kp: int, k: int, W: int, launches: int,
     ``LM_CHECK_CHUNK`` columns at a time (an elementwise step: each column
     is the whole function), so a width of 1.72 B needs no more than the
     inputs and the kernel's copies of p, m, v; the plain version is timed
-    at the full shape once those copies are gone."""
+    once those copies are gone, ``ADAM_PLAIN_PIECE`` columns at a time,
+    the pieces' times summed (one piece below that width)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fused_adam import fused_adam
 
@@ -3222,8 +3440,12 @@ def adam_entry(name: str, kp: int, k: int, W: int, launches: int,
     del mine, call
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    entry["plain_ms"] = time_ms(
-        lambda: ref.fused_adam(p, m, v, g, steps, s, **hyper))
+    pieces = [slice(a, min(a + ADAM_PLAIN_PIECE, W))
+              for a in range(0, W, ADAM_PLAIN_PIECE)]
+    entry["plain_ms"] = sum(time_ms(
+        lambda c=c: ref.fused_adam(p[:, c], m[:, c], v[:, c], g[:, c], steps,
+                                   s, **hyper)) for c in pieces)
+    entry["plain_pieces"] = len(pieces)
 
     # yardstick: PyTorch's own fused Adam over the active lanes' rows, in
     # pieces of at most 2^30 elements
@@ -3776,12 +3998,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = timed("lm", lm_phase, dev)
     # timed now, while the card holds nothing else: the 1.72 B-wide Adam
-    # step's plain version needs ~69 GB
+    # entry holds ~48 GB of inputs and kernel copies
     lm_entries = timed("lm_kernel_entries", lm_kernel_entries, lm, dev)
     moe = timed("moe", moe_phase, dev)
     moe_entries = timed("moe_kernel_entries", moe_kernel_entries, moe, dev)
     ssm = timed("ssm", ssm_phase, dev)
     ssm_entries = timed("ssm_kernel_entries", ssm_kernel_entries, ssm, dev)
+    xattn = timed("xattn", xattn_phase, dev)
+    xattn_entries = timed("xattn_kernel_entries", xattn_kernel_entries,
+                          xattn, dev)
     if tf32_flags() != tf32:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
                              f"{tf32} before: a scope leaked")
@@ -3824,7 +4049,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels += paper_kernel_entries(paper, dev)
     kernels.append(pytree_agg_entry(profiles["pytree_run"], dev))
-    kernels += lm_entries + moe_entries + ssm_entries
+    kernels += lm_entries + moe_entries + ssm_entries + xattn_entries
     phase_s["kernel_entries"] = time.perf_counter() - t0
     for e in kernels:
         emit("kernel", **e)

@@ -8,10 +8,15 @@ Runs the smoke-sized config of the chosen architecture (the dense family:
 Qwen3, Granite, Yi; the MoE family: DeepSeek-V2-Lite, whose MLA caches the
 compressed KV, and Arctic; the SSM family, Mamba2, whose cache is a
 fixed-size recurrent state; the hybrid family, Zamba2, mamba states plus
-the shared attention block's KV; the VLM and enc-dec families come with a
-later slice and raise) on the CUDA card, or the CPU with ``--device
-cpu``: prefills a batch of prompts into a cache of prompt + tokens slots,
-then decodes greedily against it, one token a step.
+the shared attention block's KV; the VLM, Llama-3.2-Vision, whose cache
+also holds its cross blocks' K/V over the image patches; the enc-dec,
+SeamlessM4T, whose cache holds its decoder's K/V over the encoded frames)
+on the CUDA card, or the CPU with ``--device cpu``: prefills a batch of
+prompts into a cache of prompt + tokens slots, then decodes greedily
+against it, one token a step. The frontends are stubs, as in the
+reference: the VLM gets normal patch embeddings ``[batch, n_patches,
+d_model]`` and the enc-dec normal frame embeddings ``[batch, prompt-len,
+d_model]``, drawn after the prompts from the same generator.
 """
 import argparse
 import time
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import memory_inputs
 from repro_torch.models import build_model
 
 
@@ -41,11 +47,12 @@ def main(argv=None) -> torch.Tensor:
     B, P, T = args.batch, args.prompt_len, args.tokens
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
                             device=device)
+    batch = {"tokens": prompts, **memory_inputs(cfg, B, P, gen, device)}
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, caches, _ = model.apply(params, {"tokens": prompts},
-                                        make_cache=True, cache_len=P + T)
+        logits, caches, _ = model.apply(params, batch, make_cache=True,
+                                        cache_len=P + T)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         print(f"prefill {B}x{P} in {time.perf_counter() - t0:.2f}s "
               f"({args.arch}, {cfg.n_layers}L smoke config, {device})")

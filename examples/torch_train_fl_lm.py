@@ -12,8 +12,9 @@ async aggregation, local training on the CUDA card (or the CPU with
 ``--device cpu``). Any dense, MoE, SSM or hybrid config id of
 ``repro_torch.configs`` works via ``--arch`` (an MoE LM's client loss is
 cross entropy plus the router's load-balancing loss; ``mamba2-370m`` and
-``zamba2-2.7b`` federate their smoke configs' Mamba2 layers); the VLM and
-enc-dec families come with a later slice and raise.
+``zamba2-2.7b`` federate their smoke configs' Mamba2 layers). The VLM
+and enc-dec configs fail as in the reference: its client adapter passes
+only tokens, and their models need patches or frames (``KeyError``).
 """
 import argparse
 

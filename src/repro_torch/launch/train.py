@@ -1,6 +1,7 @@
 """Training driver (twin of ``repro.launch.train``): centralized training
-of a decoder LM (the ``dense``, ``moe``, ``ssm`` and ``hybrid``
-families), with checkpointing and restart.
+of any LM config (the ``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm``
+decoder families and the ``encdec`` family), with checkpointing and
+restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 20 --smoke --batch 4 --seq 64 --ckpt-dir /tmp/ckpt \\
@@ -9,21 +10,23 @@ families), with checkpointing and restart.
 Runs on the CUDA card unless ``--device cpu``; ``--smoke`` takes the
 arch's reduced config, ``--layers N`` keeps the config's widths and cuts
 its depth to N layers (DeepSeek-V2-Lite's first, dense layer among them;
-for a hybrid, Zamba2, N must be a multiple of its ``attn_period``).
-Params are initialized from ``torch.Generator`` seed 0 on the device, the
-token stream is the reference's
-(``numpy.random.default_rng(0)``, ``[batch, seq]`` uniform tokens a step,
-inputs ``[:, :-1]``, targets ``[:, 1:]``), and the optimizer is the
+for a hybrid, Zamba2, N must be a multiple of its ``attn_period``, for the
+VLM of its ``cross_attn_period``; for the enc-dec, SeamlessM4T, N must be
+even and is split into N/2 encoder and N/2 decoder layers). Params are
+initialized from ``torch.Generator`` seed 0 on the device, the batches are
+the reference's (``step_batch``: from ``numpy.random.default_rng(0)``,
+``[batch, seq]`` uniform tokens a step, inputs ``[:, :-1]``, targets ``[:,
+1:]``; the VLM's patches zeros, the enc-dec's frames normal draws after
+the tokens), and the optimizer is the
 config's (``adam``: the fused kernel, ``optim.adam_fused``; ``adafactor``,
 Arctic's, ``optim.adafactor``). A checkpoint holds the params and the
 optimizer state (``checkpoint.CheckpointManager``, every ``--ckpt-every``
 steps and at the end: Adam's flat moments, or Adafactor's per-leaf
 factored state, a tree shaped as the params; the step count as an int);
 ``--resume`` restarts from the newest one and skips the batches its steps
-consumed, so a resumed run ends where the uninterrupted run ends (the
-reference draws the stream again from its first batch). The VLM and
-enc-dec families raise, naming their slice. For federated LM training see
-``examples/torch_train_fl_lm.py``.
+consumed, frames included, so a resumed run ends where the uninterrupted
+run ends (the reference draws the stream again from its first batch). For
+federated LM training see ``examples/torch_train_fl_lm.py``.
 """
 from __future__ import annotations
 
@@ -62,6 +65,53 @@ def token_batch(data_rng: np.random.Generator, vocab: int, batch: int,
             "targets": torch.as_tensor(tokens[:, 1:]).to(device)}
 
 
+def step_batch(data_rng: np.random.Generator, cfg, batch: int, seq: int,
+               device) -> dict:
+    """One step's batch of ``cfg``, drawn as the reference's launcher draws
+    it: the tokens (``token_batch``); for ``vlm`` zero patches ``[batch,
+    n_patches, d_model]``; for ``encdec`` frames ``[batch, seq - 1,
+    d_model]`` of ``data_rng.normal``, drawn after the tokens. On the
+    ``meta`` device the draws advance ``data_rng`` and nothing is kept."""
+    out = token_batch(data_rng, cfg.vocab_size, batch, seq, device)
+    if cfg.family == "vlm":
+        out["patches"] = torch.zeros((batch, cfg.n_patches, cfg.d_model),
+                                     dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        frames = data_rng.normal(size=(batch, seq - 1, cfg.d_model))
+        out["frames"] = torch.as_tensor(frames, dtype=torch.float32).to(
+            device)
+    return out
+
+
+def memory_inputs(cfg, batch: int, length: int, gen: torch.Generator,
+                  device) -> dict:
+    """A serving run's stub-frontend inputs, drawn from ``gen``: normal
+    patches at all ``n_patches`` positions for ``vlm``, normal frames
+    ``[batch, length, d_model]`` for ``encdec``; none for the other
+    families."""
+    if cfg.family == "vlm":
+        return {"patches": torch.randn((batch, cfg.n_patches, cfg.d_model),
+                                       generator=gen, device=device)}
+    if cfg.family == "encdec":
+        return {"frames": torch.randn((batch, length, cfg.d_model),
+                                      generator=gen, device=device)}
+    return {}
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers, an enc-dec's split evenly between
+    its encoder and its decoder (``ValueError`` for an odd count; a
+    hybrid's or a VLM's count that is not whole chunks raises when the
+    model is built)."""
+    if cfg.family != "encdec":
+        return cfg.with_(n_layers=layers)
+    if layers % 2:
+        raise ValueError(f"{cfg.name} takes an even count, split between "
+                         "its encoder and its decoder")
+    return cfg.with_(n_layers=layers, enc_layers=layers // 2,
+                     dec_layers=layers // 2)
+
+
 def train_step(model, opt, params, opt_state, batch):
     """One optimizer step; returns (params, opt_state, loss as a float)."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -96,12 +146,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.layers is not None:
-        if cfg.family == "hybrid" and args.layers % cfg.attn_period:
-            ap.error(f"--layers {args.layers}: {args.arch} takes a multiple "
-                     f"of its attn_period, {cfg.attn_period}")
-        cfg = cfg.with_(n_layers=args.layers)
-    model = build_model(cfg)
+    try:
+        if args.layers is not None:
+            cfg = cut_depth(cfg, args.layers)
+        model = build_model(cfg)
+    except ValueError as err:           # a depth the model cannot take
+        ap.error(f"--layers {args.layers}: {err}")
     opt = build_optimizer(cfg.optimizer, cfg.learning_rate)
 
     params = model.init(torch.Generator(device=device).manual_seed(0))
@@ -116,16 +166,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     data_rng = np.random.default_rng(0)
     for _ in range(start_step):          # the batches the resumed steps took
-        data_rng.integers(0, cfg.vocab_size, (args.batch, args.seq),
-                          dtype=np.int32)
+        step_batch(data_rng, cfg, args.batch, args.seq, "meta")
     n_params = count_params(params)
     print(f"training {args.arch} ({n_params/1e6:.1f}M params, "
           f"{cfg.optimizer}) for {args.steps} steps on {device}")
     losses, step_s = [], []
     for step in range(start_step, args.steps):
         t0 = time.perf_counter()
-        batch = token_batch(data_rng, cfg.vocab_size, args.batch, args.seq,
-                            device)
+        batch = step_batch(data_rng, cfg, args.batch, args.seq, device)
         params, opt_state, loss = train_step(model, opt, params, opt_state,
                                              batch)
         step_s.append(time.perf_counter() - t0)

@@ -7,22 +7,20 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models.lm import FAMILIES, FAMILY_SLICE
 
 
 def build_model(cfg: ModelConfig):
-    """``paper-*`` configs get the paper's model, ``dense``, ``moe``,
-    ``ssm`` and ``hybrid`` a ``DecoderLM``; the VLM and enc-dec families
-    come with a later slice and raise."""
+    """``encdec`` configs get an ``EncDecLM``, ``paper-*`` configs the
+    paper's model, every other family (``dense``, ``moe``, ``ssm``,
+    ``hybrid``, ``vlm``) a ``DecoderLM``."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+        return EncDecLM(cfg)
     if cfg.family.startswith("paper"):
         from repro_torch.models.paper_models import build_paper_model
         return build_paper_model(cfg.name)
-    if cfg.family in FAMILIES:
-        from repro_torch.models.lm import DecoderLM
-        return DecoderLM(cfg)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} ({cfg.name}) comes with a later slice "
-        f"of the port ({FAMILY_SLICE.get(cfg.family, 'not planned')})")
+    from repro_torch.models.lm import DecoderLM
+    return DecoderLM(cfg)
 
 
 def _cdtype(cfg: ModelConfig):
@@ -35,7 +33,10 @@ class LMClientAdapter:
     {'x': tokens [B,S], 'y': targets [B,S]}, targets < 0 masked), so the
     Apodotiko controller can federate an LM
     (``examples/torch_train_fl_lm.py``). ``init`` returns the params alone,
-    as the port's other client models do."""
+    as the port's other client models do. As the reference's, it passes
+    only the tokens: the ``vlm`` and ``encdec`` families need patches or
+    frames, and their ``loss`` raises ``KeyError`` as the reference's
+    does."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg

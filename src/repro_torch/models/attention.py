@@ -1,6 +1,7 @@
-"""Self attention: grouped-query attention with optional qk-norm, and
-DeepSeek's multi-head latent attention (MLA) with its compressed KV cache
-(twin of the GQA and MLA parts of ``repro.models.attention``).
+"""Attention: grouped-query self attention with optional qk-norm,
+DeepSeek's multi-head latent attention (MLA) with its compressed KV cache,
+and cross attention over a memory (image patches, encoder states), gated
+or plain (twin of ``repro.models.attention``).
 
 Functional, as the reference: ``gqa_forward(params, x, ...)`` takes and
 returns a KV cache dict for decode. A cache is a fixed-length sequence
@@ -17,7 +18,7 @@ with a cache (prefill into a cache, and decode) the absorbed form, which
 never expands per-head K/V over the cache; without one the expanded form.
 The reference's sharding hints (``shard_act``, ``seq_parallel``) change no
 value and have no twin here, nor have ``gqa_cache_axes`` and
-``mla_cache_axes``. Cross attention comes with a later slice.
+``mla_cache_axes``.
 """
 from __future__ import annotations
 
@@ -26,12 +27,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (ParamFactory, apply_rope,
-                                       later_slice, rms_norm)
+from repro_torch.models.common import ParamFactory, apply_rope, rms_norm
 
 NEG_INF = -2.0**30
-
-CROSS_SLICE = "the VLM + enc-dec slice"
 
 
 def init_gqa(pf: ParamFactory, cfg: ModelConfig) -> None:
@@ -204,6 +202,39 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
                                 dtype=dtype, device="meta")}
 
 
-init_cross = later_slice("init_cross", CROSS_SLICE)
-cross_kv = later_slice("cross_kv", CROSS_SLICE)
-cross_forward = later_slice("cross_forward", CROSS_SLICE)
+# ----------------------------------------------------------------------------
+# Cross attention (vision / encoder-decoder)
+# ----------------------------------------------------------------------------
+
+
+def init_cross(pf: ParamFactory, cfg: ModelConfig, *,
+               gated: bool = False) -> None:
+    """GQA's projections without qk-norm; ``gated`` adds a scalar ``gate``
+    drawn as zero, so a fresh gated block adds nothing until it trains."""
+    d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    pf.param("wq", (d, h, hd))
+    pf.param("wk", (d, k, hd))
+    pf.param("wv", (d, k, hd))
+    pf.param("wo", (h, hd, d))
+    if gated:
+        pf.param("gate", (), init="zeros")
+
+
+def cross_kv(p: dict, memory: torch.Tensor) -> dict:
+    """K/V over the memory [B, M, d] (image patches, encoder states), in
+    the memory's dtype: computed once a prefill and kept in the cache."""
+    k = torch.einsum("bmd,dhk->bmhk", memory, p["wk"].to(memory.dtype))
+    v = torch.einsum("bmd,dhk->bmhk", memory, p["wv"].to(memory.dtype))
+    return {"k": k, "v": v}
+
+
+def cross_forward(p: dict, x: torch.Tensor, kv: dict, *,
+                  gated: bool = False) -> torch.Tensor:
+    """Every query attends to every memory slot (no mask, no rope); with
+    ``gated`` the output is scaled by ``tanh(gate)``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    out = _gqa_core(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), causal=False)
+    y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    if gated:
+        y = y * torch.tanh(p["gate"].to(y.dtype))
+    return y

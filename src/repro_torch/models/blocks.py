@@ -1,8 +1,8 @@
 """Residual blocks (twin of ``repro.models.blocks``): the SwiGLU FFN, the
 pre-norm decoder block of GQA or MLA attention and a dense FFN or an MoE
-(with Arctic's parallel dense residual FFN), the Mamba2 block and
-Zamba2's shared attention block. The cross-attention block comes with a
-later slice and raises."""
+(with Arctic's parallel dense residual FFN), the Mamba2 block,
+Zamba2's shared attention block and the cross-attention block (gated for
+the VLM's image layers)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -13,8 +13,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamFactory, later_slice, rms_norm,
-                                       swiglu)
+from repro_torch.models.common import ParamFactory, rms_norm, swiglu
 
 
 # -- dense FFN ----------------------------------------------------------------
@@ -125,5 +124,25 @@ def zamba_shared_block(p: dict, x: torch.Tensor, x0: torch.Tensor,
     return x + (y - h), new_cache
 
 
-init_cross_block = later_slice("init_cross_block", attn.CROSS_SLICE)
-cross_block = later_slice("cross_block", attn.CROSS_SLICE)
+# -- cross-attention block (vision / enc-dec) ----------------------------------
+
+
+def init_cross_block(pf: ParamFactory, cfg: ModelConfig, *,
+                     gated: bool) -> None:
+    d = cfg.d_model
+    pf.param("ln", (d,), init="ones")
+    with pf.scope("xattn"):
+        attn.init_cross(pf, cfg, gated=gated)
+    pf.param("ln_mlp", (d,), init="ones")
+    with pf.scope("mlp"):
+        init_ffn(pf, d, cfg.d_ff)
+
+
+def cross_block(p: dict, x: torch.Tensor, kv: dict, cfg: ModelConfig, *,
+                gated: bool) -> torch.Tensor:
+    """Pre-norm cross attention over ``kv`` (gated when ``gated``), then
+    the SwiGLU FFN, which no gate scales."""
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    x = x + attn.cross_forward(p["xattn"], h, kv, gated=gated)
+    h = rms_norm(x, p["ln_mlp"], cfg.norm_eps)
+    return x + ffn_forward(p["mlp"], h)

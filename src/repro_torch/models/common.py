@@ -207,14 +207,3 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def count_params(params: Params) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))
-
-
-def later_slice(name: str, slice_name: str) -> Callable:
-    """A stand-in for the reference's function ``name``, which a later slice
-    of the port brings: calling it raises ``NotImplementedError`` naming
-    that slice."""
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} comes with a later slice of the port ({slice_name})")
-    fn.__name__ = name
-    return fn

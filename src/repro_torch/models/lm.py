@@ -2,15 +2,19 @@
 ``family="dense"`` (Qwen3, Granite, Yi), ``family="moe"``
 (DeepSeek-V2-Lite: MLA attention, an MLA-dense first layer, shared +
 routed experts; Arctic: GQA, 128 experts top-2 and a parallel dense
-residual FFN), ``family="ssm"`` (Mamba2: every layer a Mamba2 block) and
+residual FFN), ``family="ssm"`` (Mamba2: every layer a Mamba2 block),
 ``family="hybrid"`` (Zamba2: chunks of ``attn_period`` Mamba2 blocks, each
-chunk followed by one attention block whose weights all chunks share).
+chunk followed by one attention block whose weights all chunks share) and
+``family="vlm"`` (Llama-3.2-Vision: chunks of one gated cross-attention
+block over the image patches, then ``cross_attn_period`` dense self
+layers). The enc-dec family is ``models.encdec.EncDecLM``.
 
 API (functional, as the reference):
 
     lm = DecoderLM(cfg)
     params = lm.init(generator)                    # or device="meta"
     logits, caches, aux = lm.apply(params, batch)  # train / prefill
+                                                   # (vlm: batch["patches"])
     loss, metrics = lm.loss(params, batch)
     struct = lm.cache_struct(batch, cache_len)     # meta tensors
     logits, caches = lm.decode_step(params, caches, tokens, pos)
@@ -21,16 +25,18 @@ Params keep the reference's names, shapes and leaf order: ``tok_embed``,
 axis, the ``first`` ``first_dense_layers`` layers the family's dense kind
 (``mla_dense`` for DeepSeek); ``{"stack": {...}}`` for ssm; ``{"shared":
 {...}, "stack": {...}}`` for hybrid, the stack's leaves ``[n_chunks,
-attn_period, ...]`` (views of one ``[L, ...]`` allocation). The
-reference's ``lax.scan`` over the stack is a Python loop over that axis,
-summing the layers' MoE aux losses in its order; its ``jax.checkpoint``
-(``cfg.remat``) is ``torch.utils.checkpoint`` under plain autograd, around
-each layer, and for hybrid around each whole chunk, as the reference's
-scopes. Under ``torch.func`` transforms (the cohort trainer's
+attn_period, ...]`` (views of one ``[L, ...]`` allocation); ``{"cross":
+{...}, "stack": {...}}`` for vlm, the self layers' stack ``[n_cross,
+cross_attn_period, ...]`` (views likewise) beside the ``n_cross`` gated
+cross blocks stacked on a leading axis. The reference's ``lax.scan`` over
+the stack is a Python loop over that axis, summing the layers' MoE aux
+losses in its order; its ``jax.checkpoint`` (``cfg.remat``) is
+``torch.utils.checkpoint`` under plain autograd, around each layer, and
+for hybrid and vlm around each whole chunk, as the reference's scopes.
+Under ``torch.func`` transforms (the cohort trainer's
 ``vmap(grad_and_value)``) torch's checkpoint raises ("don't yet support
 saved tensor hooks"), so there the layers run without it; remat changes
-no value either way. The VLM and enc-dec families come with a later
-slice and raise.
+no value either way.
 """
 from __future__ import annotations
 
@@ -49,8 +55,7 @@ from repro_torch.models.common import (ParamFactory, init_stacked, rms_norm,
 
 Params = Any
 
-FAMILY_SLICE = {"vlm": attn.CROSS_SLICE, "encdec": attn.CROSS_SLICE}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 MAMBA_FAMILIES = ("ssm", "hybrid")
 
 
@@ -68,6 +73,12 @@ def _stacked(*xs: torch.Tensor) -> torch.Tensor:
     return torch.stack(xs)
 
 
+def _zeros(struct, device):
+    """Zeros shaped as a tree of ``meta`` tensors, on ``device``."""
+    return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                          device=device), struct)
+
+
 def _remat_active(cfg: ModelConfig) -> bool:
     return (cfg.remat and torch.is_grad_enabled()
             and not torch._C._are_functorch_transforms_active())
@@ -76,14 +87,15 @@ def _remat_active(cfg: ModelConfig) -> bool:
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"DecoderLM family {cfg.family!r} ({cfg.name}) comes with a "
-                f"later slice of the port "
-                f"({FAMILY_SLICE.get(cfg.family, 'not planned')})")
-        if cfg.family == "hybrid" and cfg.n_layers % cfg.attn_period:
+            raise ValueError(f"DecoderLM does not handle family "
+                             f"{cfg.family} ({cfg.name})")
+        period = {"hybrid": ("attn_period", cfg.attn_period),
+                  "vlm": ("cross_attn_period", cfg.cross_attn_period)}
+        if cfg.family in period and cfg.n_layers % period[cfg.family][1]:
+            name, n = period[cfg.family]
             raise ValueError(
                 f"{cfg.name}: {cfg.n_layers} layers do not split into "
-                f"chunks of attn_period {cfg.attn_period}")
+                f"chunks of {name} {n}")
         self.cfg = cfg
         self.kind = block_kind(cfg)
         self.dense_kind = self.kind.replace("moe", "dense")
@@ -96,8 +108,8 @@ class DecoderLM:
         """Params drawn from ``generator`` on its device (or on ``device``;
         ``"meta"`` draws nothing): the embedding factory's params first
         (``tok_embed``, ``ln_f``, ``head``), then the layers (for hybrid
-        the stack, then the shared block), in the order of the reference's
-        key split."""
+        the stack, then the shared block; for vlm the self layers, then
+        the cross blocks), in the order of the reference's key split."""
         cfg = self.cfg
         pf = ParamFactory(generator, self.pdtype, device)
         pf.param("tok_embed", (cfg.vocab_size, cfg.d_model), init="embed")
@@ -118,6 +130,19 @@ class DecoderLM:
                 pf_s = ParamFactory(generator, self.pdtype, pf.device)
                 blk.init_zamba_shared(pf_s, cfg)
                 params["layers"]["shared"] = pf_s.params
+            return params
+        if cfg.family == "vlm":
+            n_cross = cfg.n_layers // cfg.cross_attn_period
+            stack = init_stacked(
+                lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense"),
+                generator, cfg.n_layers, self.pdtype, device=pf.device)
+            cross = init_stacked(
+                lambda pf_: blk.init_cross_block(pf_, cfg, gated=True),
+                generator, n_cross, self.pdtype, device=pf.device)
+            params["layers"] = {
+                "stack": tree_map(lambda t: t.view(
+                    n_cross, cfg.cross_attn_period, *t.shape[1:]), stack),
+                "cross": cross}
             return params
         first = []
         for _ in range(cfg.first_dense_layers):
@@ -246,13 +271,62 @@ class DecoderLM:
         return x, {"stack": tree_map(_stacked, *new_m),
                    "shared": tree_map(_stacked, *new_kv)}
 
+    def _vlm_layers(self, params, x, positions, caches, pos, memory=None):
+        """The vlm family's chunks in order: each chunk's gated cross block
+        over the patches' K/V (computed from ``memory`` in a full pass,
+        read from ``caches["cross"]`` in decode), then its
+        ``cross_attn_period`` dense self layers. ``caches`` None (no
+        cache) or ``{"stack": [n_cross, period, ...] self caches, "cross":
+        [n_cross, ...] K/V or None}`` (None in a prefill). Returns (x, new
+        caches or None); the new ``cross`` holds each chunk's K/V."""
+        cfg = self.cfg
+        stack, cross = params["layers"]["stack"], params["layers"]["cross"]
+        remat = _remat_active(cfg)
+
+        def chunk(c, x, c_self, kv):
+            p_cross = tree_map(lambda t: t[c], cross)
+            if kv is None:
+                kv = attn.cross_kv(p_cross["xattn"], memory)
+            x = blk.cross_block(p_cross, x, kv, cfg, gated=True)
+            new = []
+            for i in range(cfg.cross_attn_period):
+                c_i = (tree_map(lambda t: t[i], c_self)
+                       if c_self is not None else None)
+                x, nc, _ = blk.decoder_block(
+                    tree_map(lambda t: t[c, i], stack), x, cfg, positions,
+                    kind="dense", cache=c_i, pos=pos)
+                new.append(nc)
+            return x, new, kv
+
+        new_self, new_kv = [], []
+        for c in range(cfg.n_layers // cfg.cross_attn_period):
+            c_self = kv = None
+            if caches is not None:
+                c_self = tree_map(lambda t: t[c], caches["stack"])
+                if caches["cross"] is not None:
+                    kv = tree_map(lambda t: t[c], caches["cross"])
+            if remat:
+                x, new, kv = checkpoint(chunk, c, x, c_self, kv,
+                                        use_reentrant=False)
+            else:
+                x, new, kv = chunk(c, x, c_self, kv)
+            if caches is not None:
+                new_self.append(tree_map(_stacked, *new))
+                new_kv.append(kv)
+        if caches is None:
+            return x, None
+        return x, {"stack": tree_map(_stacked, *new_self),
+                   "cross": (tree_map(_stacked, *new_kv)
+                             if caches["cross"] is None else caches["cross"])}
+
     # ---------------------------------------------------- full-sequence pass
     def apply(self, params: Params, batch: dict, *, make_cache: bool = False,
               cache_len: Optional[int] = None):
-        """batch: {'tokens': [B,S] int}. Returns (logits [B,S,V],
-        caches_or_None, aux_loss); with ``make_cache`` the K/V of the S
-        tokens are written at 0 into caches of ``cache_len`` (default S),
-        and the mamba layers hand over their final states."""
+        """batch: {'tokens': [B,S] int; vlm: 'patches' [B,P,d]}. Returns
+        (logits [B,S,V], caches_or_None, aux_loss); with ``make_cache`` the
+        K/V of the S tokens are written at 0 into caches of ``cache_len``
+        (default S), the mamba layers hand over their final states and the
+        vlm's cross blocks their K/V over the patches."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self._embed(params, tokens)
@@ -263,12 +337,20 @@ class DecoderLM:
             if make_cache:
                 caches = {"stack": None}
                 if self.cfg.family == "hybrid":
-                    caches["shared"] = tree_map(
-                        lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                              device=x.device),
-                        self.cache_struct(B, cache_len or S)["shared"])
+                    caches["shared"] = _zeros(self.cache_struct(
+                        B, cache_len or S)["shared"], x.device)
             x, caches = self._mamba_layers(params, x, positions, caches, pos,
                                            decode=False)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return self._head(params, x), caches, aux
+        if self.cfg.family == "vlm":
+            memory = batch["patches"].to(self.cdtype)
+            caches = None
+            if make_cache:
+                caches = {"stack": _zeros(self.cache_struct(
+                    B, cache_len or S)["stack"], x.device), "cross": None}
+            x, caches = self._vlm_layers(params, x, positions, caches, pos,
+                                         memory)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             return self._head(params, x), caches, aux
         caches = (self._attn_cache_zeros(B, cache_len or S, x.device)
@@ -293,7 +375,10 @@ class DecoderLM:
         ``{"stack": [L, ...]}`` of the mamba state (``conv`` in the compute
         dtype, ``h`` fp32). hybrid: ``{"stack": [n_chunks, attn_period,
         ...]}`` of it and ``"shared"``, the GQA cache ``[n_chunks, ...]``,
-        one per application of the shared block."""
+        one per application of the shared block. vlm: ``{"stack":
+        [n_cross, cross_attn_period, ...]}`` of the GQA cache and
+        ``"cross"``, each chunk's K/V over the ``n_patches`` patches
+        ``[n_cross, B, n_patches, K, hd]``."""
         cfg = self.cfg
 
         def stacked(one, lead):
@@ -310,6 +395,13 @@ class DecoderLM:
                         (n_chunks, cfg.attn_period)),
                     "shared": stacked(attn.gqa_cache_shape(
                         cfg, batch, cache_len, self.cdtype), (n_chunks,))}
+        if cfg.family == "vlm":
+            n_cross = cfg.n_layers // cfg.cross_attn_period
+            kv = attn.gqa_cache_shape(cfg, batch, cfg.n_patches, self.cdtype)
+            return {"stack": stacked(attn.gqa_cache_shape(
+                        cfg, batch, cache_len, self.cdtype),
+                        (n_cross, cfg.cross_attn_period)),
+                    "cross": stacked(kv, (n_cross,))}
         shape = (attn.mla_cache_shape if cfg.kv_lora_rank
                  else attn.gqa_cache_shape)
         one = shape(cfg, batch, cache_len, self.cdtype)
@@ -318,22 +410,23 @@ class DecoderLM:
                 "stack": stacked(one, (n,))}
 
     def _attn_cache_zeros(self, B: int, T: int, device) -> dict:
-        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
-                                              device=device),
-                        self.cache_struct(B, T))
+        return _zeros(self.cache_struct(B, T), device)
 
     # ----------------------------------------------------------- decode step
     def decode_step(self, params: Params, caches: Params,
                     tokens: torch.Tensor, pos):
         """tokens [B, 1]; pos the write index (an int or a 0-d tensor).
         Returns (logits [B,1,V], new caches); the caller's caches are not
-        written."""
+        written (the vlm's cross K/V are handed on as they are)."""
         x = self._embed(params, tokens)
         pos = int(pos)
         positions = pos + torch.arange(1, device=x.device)
         if self.cfg.family in MAMBA_FAMILIES:
             x, new_caches = self._mamba_layers(params, x, positions, caches,
                                                pos, decode=True)
+        elif self.cfg.family == "vlm":
+            x, new_caches = self._vlm_layers(params, x, positions, caches,
+                                             pos)
         else:
             x, new_caches, _ = self._layers(params, x, positions, caches, pos)
         return self._head(params, x), new_caches

@@ -1658,3 +1658,240 @@ def test_ssm_phase_probe_fails_without_a_card(script):
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr
+
+
+# -------------------------------------------------------------------- xattn
+XATTN_ARCHS = ("llama-3.2-vision-11b", "seamless-m4t-large-v2")
+XATTN_SMALL = dict(
+    serve={a: dict(layers=None, batch=2, prompt=16, cache=24, smoke=True)
+           for a in XATTN_ARCHS},
+    fp32={a: dict(layers=None, batch=2, prompt=16, cache=24, smoke=True)
+          for a in XATTN_ARCHS},
+    train={"llama-3.2-vision-11b": dict(smoke=True, layers=2, steps=3,
+                                        batch=2, seq=33),
+           "seamless-m4t-large-v2": dict(smoke=True, layers=None, steps=3,
+                                         batch=2, seq=33)},
+    smoke_train=tuple(("--arch", a, "--smoke", "--steps", "3", "--batch",
+                       "2", "--seq", "17") for a in XATTN_ARCHS),
+    cross_train=dict(arch="llama-3.2-vision-11b", steps=2, batch=2, seq=17))
+XATTN_LEAVES = ["gate", "wk", "wo", "wq", "wv"]
+
+
+def _xattn_rehearsal(cs, monkeypatch, count=True):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if count:
+        _count_plain_calls(monkeypatch)
+    return cs.xattn_phase(torch.device("cpu"), **XATTN_SMALL)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_xattn_phase_on_the_cpu(monkeypatch, capsys):
+    """The xattn phase's contract on the smoke configs: both archs served
+    in bf16 and fp32 over random patches (all positions, the VLM's gates
+    at 1.0) or frames (the prompt's length), each decoded position against
+    the full forward over the same inputs; the VLM's one-chunk cut and
+    SeamlessM4T trained through ``launch.train`` (one ``fused_adam`` a
+    step, the first batch's loss falling); both smoke runs card against
+    CPU from one checkpointed init; the VLM's smoke config trained with
+    its gates open over random patches, card against CPU, every
+    cross-attention leaf taking a grad and moving; no federated run; one
+    JSON line."""
+    cs = _load()
+    rec = _xattn_rehearsal(cs, monkeypatch)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == {"phase": "xattn", **json.loads(json.dumps(rec))}
+    serve = rec["serve"]
+    assert list(serve) == ["bfloat16", "float32"]
+    for dt, runs in serve.items():
+        assert list(runs) == list(XATTN_ARCHS)
+        for arch, s in runs.items():
+            assert s["dtype"] == dt and s["logits_finite"]
+            assert s["decode_rtol"] == cs.LM_DECODE_RTOL[dt]
+            assert s["decode_rel_l2_max"] <= s["decode_rtol"]
+            assert s["decoded_tokens"] == 8 and s["decode_steps"] == 7
+        vlm, encdec = runs["llama-3.2-vision-11b"], runs[
+            "seamless-m4t-large-v2"]
+        assert vlm["memory"] == {"patches": [2, 16, 64]}
+        assert vlm["gate"] == cs.VLM_GATE == 1.0
+        assert encdec["memory"] == {"frames": [2, 16, 64]}
+        assert "gate" not in encdec
+        assert (vlm["n_params"], encdec["n_params"]) == (238_402, 213_760)
+    assert set(rec) == {"serve", "train", "smoke_train", "cross_train",
+                        "wall_s"}
+    cross = rec["cross_train"]
+    assert cross["gate"] == cs.VLM_GATE and cross["steps"] == 2
+    assert cross["losses_card"] == cross["losses_cpu"]
+    assert cross["loss_rel_max"] == 0.0 and cross["rtol"] == 1e-4
+    assert sorted(cross["moments_rel_l2"]) == XATTN_LEAVES
+    assert all(v == {"m": 0.0, "v": 0.0}
+               for v in cross["moments_rel_l2"].values())
+    assert all(cross["m_norm_cpu"][k] > 0 and cross["moved_card"][k] > 0
+               for k in XATTN_LEAVES)
+    for arch, t in rec["train"].items():
+        assert t["launches"]["fused_adam"] == 3 == len(t["losses"])
+        assert t["optimizer"] == "adam" and t["remat"]
+        assert t["step0_batch_loss_after"] < t["losses"][0]
+    assert rec["train"]["llama-3.2-vision-11b"]["n_layers"] == 2
+    assert list(rec["smoke_train"]) == list(XATTN_ARCHS)
+    for smoke in rec["smoke_train"].values():
+        assert smoke["losses_card"] == smoke["losses_cpu"]
+        assert len(smoke["losses_cpu"]) == 3
+        assert smoke["opt_state_keys"] == ["m", "t", "v"]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_xattn_phase_fails_without_its_launches(monkeypatch):
+    """On the CPU no kernel launches: uncounted, the first training run's
+    missing ``fused_adam`` launches fail the phase."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="fused_adam launched 0 times"):
+        _xattn_rehearsal(cs, monkeypatch, count=False)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("arch", XATTN_ARCHS)
+def test_xattn_serve_fails_when_decode_loses_the_memory(monkeypatch, arch):
+    """A decode step whose cross attention reads zeroed K/V (the patches
+    or the encoded frames lost between prefill and decode) strays from the
+    full forward and fails the serve check; with the VLM's gates left at
+    their drawn zeros the same fault would pass unseen."""
+    from repro_torch.models import attention
+
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    forward = attention.cross_forward
+
+    def lossy(p, x, kv, gated=False):
+        if x.shape[1] == 1:                        # a decode step
+            kv = {k: torch.zeros_like(v) for k, v in kv.items()}
+        return forward(p, x, kv, gated=gated)
+
+    monkeypatch.setattr(attention, "cross_forward", lossy)
+    with pytest.raises(AssertionError, match="relative L2"):
+        cs.xattn_serve(torch.device("cpu"), arch, None, 2, 16, 24,
+                       smoke=True)
+    if arch == "llama-3.2-vision-11b":
+        monkeypatch.setattr(cs, "VLM_GATE", 0.0)
+        rec = cs.xattn_serve(torch.device("cpu"), arch, None, 2, 16, 24,
+                             smoke=True, dtype="float32")
+        assert rec["decode_rel_l2_max"] < 1e-5
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("fault", ["zero-memory-gates-shut",
+                                   "card-backward-lost"])
+def test_cross_train_fails_without_cross_attentions_grads(monkeypatch,
+                                                          fault):
+    """The cross-attention training check fails where cross attention
+    takes no grad: over zero K/V (the launcher's zero patches) with the
+    gates at their drawn zeros, where every cross-attention grad is 0 on
+    both devices; or with the K/V's backward lost in the first (the
+    card's) run alone (the forward unchanged), which leaves ``wk`` and
+    ``wv`` unmoved there while the CPU's move and the runs part."""
+    from repro_torch.launch import train
+    from repro_torch.models import attention
+
+    cs = _load()
+    kw = XATTN_SMALL["cross_train"]
+    calls, step, kv = [], train.train_step, attention.cross_kv
+
+    def counted(*a):
+        calls.append(1)
+        return step(*a)
+
+    def faulty(p, memory):
+        out = kv(p, memory)
+        if fault == "zero-memory-gates-shut":
+            return {k: v * 0 for k, v in out.items()}
+        if len(calls) <= kw["steps"]:
+            return {k: v * 0 + v.detach() for k, v in out.items()}
+        return out
+
+    if fault == "zero-memory-gates-shut":
+        monkeypatch.setattr(cs, "VLM_GATE", 0.0)
+    monkeypatch.setattr(train, "train_step", counted)
+    monkeypatch.setattr(attention, "cross_kv", faulty)
+    # the lost backward shows first in the next step's loss, or else in
+    # wk's and wv's moments and updates
+    match = ("gate took no grad" if fault == "zero-memory-gates-shut" else
+             r"card vs CPU losses|w[kv]('s moments| took no grad)")
+    with pytest.raises(AssertionError, match=f"cross train: ({match})"):
+        cs.cross_train_card_cpu(torch.device("cpu"), **kw)
+
+
+def test_xattn_card_runs_take_the_published_shapes():
+    """The card's runs: both archs uncut at 4 x 512 into 576, the VLM's
+    fp32 check at 8 layers (2 chunks) and its training cut at 4 (1 chunk),
+    SeamlessM4T uncut in every run, with the counts the meta device
+    gives; the plain Adam timed in pieces that cover its width."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    cs = _load()
+    assert all(kw == dict(layers=None, batch=4, prompt=512, cache=576)
+               for kw in cs.XATTN_SERVE.values())
+    assert list(cs.XATTN_SERVE) == list(XATTN_ARCHS)
+    vlm = get_config("llama-3.2-vision-11b")
+    assert vlm.n_patches == 1601
+    counts = {}
+    for table in (cs.XATTN_FP32, cs.XATTN_TRAIN):
+        for arch, kw in table.items():
+            cfg = get_config(arch)
+            if kw["layers"]:
+                assert kw["layers"] % vlm.cross_attn_period == 0
+                cfg = cut_depth(cfg, kw["layers"])
+            counts[(arch, kw["layers"])] = count_params(
+                build_model(cfg).init(device="meta"))
+    assert counts == {("llama-3.2-vision-11b", 8): 3_231_797_250,
+                      ("llama-3.2-vision-11b", 4): 2_141_237_249,
+                      ("seamless-m4t-large-v2", None): 2_034_784_256}
+    assert all(kw["steps"] == 3 and kw["seq"] == 1024
+               for kw in cs.XATTN_TRAIN.values())
+    assert -(-2_141_237_252 // cs.ADAM_PLAIN_PIECE) == 4
+    assert [a[1] for a in cs.XATTN_SMOKE_TRAIN] == list(XATTN_ARCHS)
+
+
+def test_xattn_kernel_entries_take_the_training_steps_widths(monkeypatch):
+    """CPU rehearsal: ``fused_adam`` at each centralized step's one lane of
+    every param (padded to the kernel's 4), with its run's launches, held
+    to its plain version a chunk of columns at a time, the plain version
+    timed in pieces that cover the width."""
+    cs = _load()
+    _stub_entry_timers(cs, monkeypatch)
+    monkeypatch.setattr(cs, "ADAM_PLAIN_PIECE", 50_000)
+    rec = {"train": {
+        "llama-3.2-vision-11b": {"arch": "llama-3.2-vision-11b",
+                                 "n_layers": 2, "n_params": 127_425,
+                                 "steps": 3, "launches": {"fused_adam": 3}},
+        "seamless-m4t-large-v2": {"arch": "seamless-m4t-large-v2",
+                                  "n_layers": 4, "n_params": 213_760,
+                                  "steps": 3,
+                                  "launches": {"fused_adam": 3}}}}
+    entries = cs.xattn_kernel_entries(rec, torch.device("cpu"))
+    assert [e["name"] for e in entries] == [
+        "fused_adam[llama-3.2-vision-11b]", "fused_adam[seamless-m4t-large-v2]"]
+    vlm, encdec = entries
+    assert vlm["shape"] == {"Kp": 1, "W": 127_428, "active_lanes": 1}
+    assert encdec["shape"]["W"] == 213_760
+    assert (vlm["plain_pieces"], encdec["plain_pieces"]) == (3, 5)
+    assert vlm["plain_ms"] == 3 * 0.5 and encdec["plain_ms"] == 5 * 0.5
+    for e in entries:
+        assert e["launches"] == 3 and e["max_abs_err"] < 1e-6
+        assert set(cs.KERNEL_KEYS) <= set(e)
+        assert e["bytes"] == e["shape"]["W"] * 7 * 4 + 4
+    assert vlm["launches_run"] == ("xattn phase: llama-3.2-vision-11b (2 "
+                                   "layers) launch.train, 3 steps")
+
+
+def test_xattn_phase_probe_fails_without_a_card():
+    """``scripts/xattn_phase_probe.py`` runs only on a card: with none
+    visible it exits non-zero and prints no phase line."""
+    import os
+    proc = subprocess.run([sys.executable, "scripts/xattn_phase_probe.py"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr

@@ -1515,3 +1515,55 @@ def test_ssm_lm_loss_grads_and_decode_card_equal_cpu(no_tf32, arch):
     for c, h in zip(out["cuda"], out["cpu"]):
         assert c.is_cuda
         torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b",
+                                  "seamless-m4t-large-v2"])
+def test_xattn_lm_loss_grads_and_decode_card_equal_cpu(no_tf32, arch):
+    """A smoke-config model of the VLM (``DecoderLM``, its gates set to 0.5:
+    drawn as zeros they hide cross attention) and of the enc-dec
+    (``EncDecLM``) on the card against the CPU from one set of params and
+    one set of seeded patches or frames: the loss and every grad (remat on)
+    within rtol 1e-4 / atol 1e-5; then a prefill into a cache and one
+    decode step, the logits and every cache leaf (the cross K/V among
+    them) likewise, and the decode within the reference's 2e-3 of the
+    full forward on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models import build_model
+
+    lm = build_model(get_config(arch, smoke=True))
+    assert lm.cfg.remat
+    params = lm.init(torch.Generator().manual_seed(0))
+    if lm.cfg.family == "vlm":
+        params["layers"]["cross"]["xattn"]["gate"].fill_(0.5)
+    tok, tgt = _lm_batch(lm.cfg.vocab_size)
+    gen = torch.Generator().manual_seed(2)
+    memory = ({"patches": torch.randn(2, lm.cfg.n_patches, lm.cfg.d_model,
+                                      generator=gen)}
+              if lm.cfg.family == "vlm" else
+              {"frames": torch.randn(2, 9, lm.cfg.d_model, generator=gen)})
+    out = {}
+    for dev in (no_tf32, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        mem = {k: v.to(dev) for k, v in memory.items()}
+        loss, _ = lm.loss(p, {"tokens": torch.as_tensor(tok, device=dev),
+                              "targets": torch.as_tensor(tgt, device=dev),
+                              **mem})
+        loss.backward()
+        t = torch.as_tensor(tok, device=dev)
+        with torch.no_grad():
+            full, _, _ = lm.apply(p, {"tokens": t[:, :12], **mem})
+            _, caches, _ = lm.apply(p, {"tokens": t[:, :11], **mem},
+                                    make_cache=True, cache_len=13)
+            dec, caches = lm.decode_step(p, caches, t[:, 11:12], 11)
+        out[dev.type] = [loss.detach()] + [x.grad for x in tree_leaves(p)] \
+            + [dec] + tree_leaves(caches)
+        if dev.type == "cuda":
+            torch.testing.assert_close(dec[:, 0], full[:, -1], rtol=2e-3,
+                                       atol=2e-3)
+    assert len(out["cuda"]) == len(out["cpu"])
+    for c, h in zip(out["cuda"], out["cpu"]):
+        assert c.is_cuda
+        torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)

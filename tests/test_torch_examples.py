@@ -3,6 +3,7 @@ driver (``python -m repro_torch.launch.train``) run end to end on the CPU
 at a reduced size, through the ``main`` a user calls, and print what their
 reference examples print."""
 import importlib.util
+import math
 import shutil
 from pathlib import Path
 
@@ -280,11 +281,17 @@ def test_launch_train_cuts_the_depth(capsys):
 
 
 def test_launch_train_takes_the_card_by_default_and_raises_unported(
-        monkeypatch):
+        monkeypatch, capsys):
+    """The VLM's smoke config, which raised before the VLM + enc-dec
+    slice, trains (the reference's zero patches a step); without a card
+    the launcher still raises rather than fall back to the CPU."""
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="VLM"):
-        train.main(["--arch", "llama-3.2-vision-11b", "--smoke", "--device",
-                    "cpu"])
+    out = train.main(["--arch", "llama-3.2-vision-11b", "--smoke",
+                      "--steps", "2", "--batch", "2", "--seq", "17",
+                      "--device", "cpu"])
+    assert len(out["losses"]) == 2 and all(map(math.isfinite, out["losses"]))
+    assert set(out["params"]["layers"]) == {"cross", "stack"}
+    assert "training llama-3.2-vision-11b (" in capsys.readouterr().out
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train.main(["--smoke", "--steps", "1"])

@@ -18,7 +18,6 @@ bf16 rounding. Decode against prefill holds at the reference's own
 2e-3 (``tests/test_models.py``)."""
 import dataclasses
 import math
-import re
 from pathlib import Path
 
 import numpy as np
@@ -218,9 +217,10 @@ def test_gqa_forward_matches_the_reference(kv, qk_norm, cached):
 
 def test_gqa_cache_shape_and_unported_attention_raise():
     """The GQA and (since the MoE + MLA slice) MLA cache shapes equal the
-    reference's; cross attention and the cross block still raise, naming
-    their slice (the mamba and Zamba blocks run since the SSM + hybrid
-    slice: ``tests/test_torch_ssm.py``)."""
+    reference's; cross attention and the cross block, which raised before
+    the VLM + enc-dec slice, now run: their params' names and shapes equal
+    the reference's, and a gated block's zero gate leaves only the FFN's
+    residual (values: ``tests/test_torch_xattn.py``)."""
     jcfg, cfg = _gqa_cfg(True, 2)
     s = attention.gqa_cache_shape(cfg, 3, 11, torch.bfloat16)
     js = jattn.gqa_cache_shape(jcfg, 3, 11, jnp.bfloat16)
@@ -237,11 +237,21 @@ def test_gqa_cache_shape_and_unported_attention_raise():
     assert [(k, tuple(v.shape)) for k, v in _paths(pf.params)] == \
         [(k, tuple(v.shape)) for k, v in _paths(_ref_params(
             jattn.init_mla, jcfg))]
-    for fn, slice_ in ((attention.cross_forward, "VLM"),
-                       (blocks.init_cross_block, "VLM"),
-                       (blocks.cross_block, "VLM")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            fn()
+    jcfg, cfg = _gqa_cfg(False, 2)
+    jcfg, cfg = jcfg.with_(d_ff=48), cfg.with_(d_ff=48)
+    for gated in (False, True):
+        pf = common.ParamFactory(torch.Generator().manual_seed(0))
+        blocks.init_cross_block(pf, cfg, gated=gated)
+        assert [(k, tuple(v.shape)) for k, v in _paths(pf.params)] == \
+            [(k, tuple(v.shape)) for k, v in _paths(_ref_params(
+                lambda f: jblk.init_cross_block(f, jcfg, gated=gated)))]
+    x = torch.randn(2, 5, 32, generator=torch.Generator().manual_seed(1))
+    kv = attention.cross_kv(pf.params["xattn"], torch.randn(2, 7, 32))
+    assert tuple(kv["k"].shape) == (2, 7, 2, 8)
+    p = pf.params
+    y = blocks.cross_block(p, x, kv, cfg, gated=True)
+    ffn = blocks.ffn_forward(p["mlp"], common.rms_norm(x, p["ln_mlp"]))
+    torch.testing.assert_close(y, x + ffn, rtol=0, atol=0)
 
 
 def test_decoder_block_matches_the_reference():
@@ -569,24 +579,30 @@ def test_remat_changes_no_value_under_autograd_and_under_vmap():
 
 
 def test_build_model_raises_for_the_families_not_ported():
-    """The dense, moe (since the MoE + MLA slice), ssm and hybrid (since
-    the SSM + hybrid slice) families build a ``DecoderLM``; the VLM and
-    enc-dec families raise, naming their slice."""
-    built = set()
-    for arch in base.ARCH_IDS:
+    """Every one of the fourteen configs builds, as in the reference: the
+    dense, moe, ssm, hybrid and (since the VLM + enc-dec slice) vlm
+    families a ``DecoderLM``, the enc-dec family an ``EncDecLM``, the
+    paper configs their models; no family raises any more. ``DecoderLM``
+    refuses the enc-dec family, as the reference's ``init`` does."""
+    from repro_torch.models.encdec import EncDecLM
+
+    families = {}
+    for arch in sorted(jbase._MODULE_FOR):          # the fourteen configs
         cfg = base.get_config(arch)
-        if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-            assert isinstance(api.build_model(cfg), DecoderLM)
-            built.add(cfg.family)
-            continue
-        with pytest.raises(NotImplementedError, match="later slice") as err:
-            api.build_model(cfg)
-        assert re.search(r"VLM \+ enc-dec", str(err.value)), arch
-        with pytest.raises(NotImplementedError, match="later slice"):
-            DecoderLM(cfg)
-    assert built == {"dense", "moe", "ssm", "hybrid"}
+        model = api.build_model(cfg)
+        if cfg.family.startswith("paper"):
+            assert not isinstance(model, (DecoderLM, EncDecLM)), arch
+        else:
+            want = EncDecLM if cfg.family == "encdec" else DecoderLM
+            assert isinstance(model, want), arch
+        families[arch] = cfg.family
+    assert len(families) == 14
+    assert set(families.values()) > {"dense", "moe", "ssm", "hybrid", "vlm",
+                                     "encdec"}
     assert isinstance(api.build_model(base.get_config("paper-mnist")),
                       MnistCNN)
+    with pytest.raises(ValueError, match="does not handle family encdec"):
+        DecoderLM(base.get_config("seamless-m4t-large-v2"))
 
 
 @pytest.mark.parametrize("shape", sorted(jbase.SHAPES))

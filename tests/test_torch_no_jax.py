@@ -58,7 +58,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.train", "repro_torch.models.moe",
             "repro_torch.models.ssm", "repro_torch.configs.mamba2_370m",
             "repro_torch.configs.zamba2_2p7b",
-            "repro_torch.configs.deepseek_v2_lite_16b"} <= set(mods)
+            "repro_torch.configs.deepseek_v2_lite_16b",
+            "repro_torch.models.encdec",
+            "repro_torch.configs.llama32_vision_11b",
+            "repro_torch.configs.seamless_m4t_large_v2"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -79,6 +82,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
              + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(files) > 20
     assert ROOT / "examples" / "torch_train_fl_lm.py" in files
+    assert PKG / "models" / "encdec.py" in files
     bad = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
