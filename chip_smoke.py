@@ -250,7 +250,29 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      init: each loss, and each cross-attention leaf's Adam moments
      (relative L2), within 1e-4; each leaf moved. Neither is federated:
      the reference's client adapter passes tokens alone;
- 15. kernels: each kernel at the shapes its path gave it, against its
+ 15. launch: the launch tooling (``repro_torch.launch``). Cells executed
+     on the card's 1x1 mesh (``dryrun.execute_cell``),
+     qwen3-1.7b uncut: ``train_4k`` at 1 x 4,096 (remat on; its batch cut
+     from 256), ``prefill_32k`` at 1 x 8,192 (cut from 32 x 32,768: fp32
+     logits would be 68.7 GB a layer), ``decode_32k`` at 4 sequences
+     against the 32,768-token cache (cut from 128: the step holds the
+     caches, each layer's new copy and their stack, 3 x 15 GB), ``fl_round`` at K = 8
+     (cut from 32), and mamba2-370m ``long_500k`` uncut: each run's
+     counted FLOPs equal to its meta trace's, every output finite, the
+     train step one ``fused_adam`` launch, the aggregate within one bf16
+     ulp of an fp64 weighted sum plus the fp32 summation's error bound
+     (where the terms cancel, that error is many ulps of the small sum);
+     a line each with time, peak GB, FLOPs,
+     bytes, model FLOPs, the bound and MFU. The four kinds at qwen3's
+     smoke config card against CPU within 1e-5 relative L2; ``momentum``'s
+     cohort step on [128, 582,656], lanes masked, card against CPU.
+     Last, with the card's work done, the dry run's meta sweep on the
+     abstract 16x16 mesh, every arch x shape cell (``--cost-mode auto``:
+     ssm and hybrid extrapolated from two depths, the rest traced at full
+     depth on ``meta`` tensors) in three child processes that see no
+     card: zero errors, the skips exactly the reference's (``long_500k``
+     of every arch but Mamba2 and Zamba2);
+ 16. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
      the top-k entries and the quant8 kernels exactly; attention by its
      phase's check), and timed (median of CUDA-event times) beside the
@@ -467,27 +489,15 @@ def tf32_flags() -> tuple:
             torch.backends.cuda.matmul.allow_tf32)
 
 
-def kernel_wrappers() -> dict:
-    """Every port kernel's wrapper, by name; each counts its launches."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_adam import fused_adam
-    from repro_torch.kernels.quant8 import (compress_q8, dequantize_q8,
-                                            quantize_q8)
-    from repro_torch.kernels.staleness_agg import staleness_agg
-    from repro_torch.kernels.topk import block_topk
-    return {"staleness_agg": staleness_agg, "fused_adam": fused_adam,
-            "block_topk": block_topk, "quantize_q8": quantize_q8,
-            "dequantize_q8": dequantize_q8, "compress_q8": compress_q8,
-            "flash_attention": flash_attention}
-
-
 def zero_counts() -> None:
-    for fn in kernel_wrappers().values():
+    from repro_torch.kernels import wrappers
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    from repro_torch.kernels import launch_counts
+    return launch_counts()
 
 
 def path_kernels(strategy: str, optimizer: str = "adam") -> tuple:
@@ -1714,8 +1724,8 @@ def moe_adafactor(dev, arch: str, smoke: bool, layers, steps: int,
         params, state, loss = train.train_step(
             model, opt, params, state,
             train.step_batch(rng, cfg, batch, seq, dev))
+        losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)
-        losses.append(loss)
     launches = read_counts()
     with torch.no_grad():
         again = float(model.loss(params, first)[0])
@@ -2017,7 +2027,7 @@ def cross_train_card_cpu(dev, arch: str, steps: int, batch: int,
             params, state, loss = train.train_step(
                 model, opt, params, state,
                 {k: v.to(where) for k, v in b.items()})
-            losses.append(loss)
+            losses.append(float(loss))
         spec = RavelSpec(params)
         xattn = params["layers"]["cross"]["xattn"]
         runs[name] = {
@@ -2095,6 +2105,358 @@ def xattn_kernel_entries(rec: dict, dev) -> list:
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return entries
+
+
+# ------------------------------------------------------------------- launch
+# the meta sweep's children, one a group of archs: the SSM and hybrid
+# families trace their chunk loops (tens of seconds at 32k), so each
+# group holds about a third of the sweep's host time
+LAUNCH_SWEEP_GROUPS = (
+    ("zamba2-2.7b",),
+    ("mamba2-370m", "qwen3-1.7b", "granite-8b", "yi-6b"),
+    ("qwen3-4b", "llama-3.2-vision-11b", "deepseek-v2-lite-16b",
+     "arctic-480b", "seamless-m4t-large-v2"))
+SUBQUADRATIC_ARCHS = ("mamba2-370m", "zamba2-2.7b")  # run long_500k
+# (arch, shape, cut, overrides): the executed cells on the card's 1x1 mesh.
+# decode_32k at 4 sequences: a decode step holds the caches it reads, each
+# layer's out-of-place copy and their stack, 3 x 15 GB at 4 (8 would need
+# 90 GB)
+LAUNCH_CELLS = (
+    ("qwen3-1.7b", "train_4k", dict(global_batch=1), dict(remat=True)),
+    ("qwen3-1.7b", "prefill_32k", dict(global_batch=1, seq_len=8192), None),
+    ("qwen3-1.7b", "decode_32k", dict(global_batch=4), None),
+    ("qwen3-1.7b", "fl_round", dict(global_batch=8), None),
+    ("mamba2-370m", "long_500k", {}, None))
+LAUNCH_SMOKE_ARCH = "qwen3-1.7b"
+# kind -> (seq_len, global_batch) of the smoke cells run card against CPU
+LAUNCH_SMOKE_SHAPES = {"train": (16, 2), "prefill": (16, 2),
+                       "decode": (16, 2), "flround": (0, 3)}
+LAUNCH_SMOKE_RTOL = 1e-5       # relative L2 of each output, card vs CPU
+MOMENTUM_SHAPE = (128, 582_656)   # the main path's cohort rows [Kp, W]
+MOMENTUM_STEPS = 4
+MOMENTUM_RTOL = 1e-6
+BF16_ULP_PIECE = 1 << 24       # columns of the fp64 check at once
+
+
+def meta_sweep(tmp: str, groups=LAUNCH_SWEEP_GROUPS, shapes=None,
+               extra=(), timeout: float = 900.0) -> dict:
+    """The dry run's meta sweep on the abstract 16x16 mesh
+    (``python -m repro_torch.launch.dryrun --cost-mode auto``: every cell
+    of every arch traced on ``meta`` tensors, the ssm and hybrid families
+    extrapolated from two depths), one child process a group of archs,
+    all at once. The children see no card (``CUDA_VISIBLE_DEVICES``
+    empty) and write their records under ``tmp``, which is removed after;
+    a child still running when this returns or raises is killed. Checks
+    the records: every child exits 0 (the dry run exits 1 on any error
+    record), every (arch, shape) has one record, the skipped cells are
+    exactly the reference's (``long_500k`` of every arch but Mamba2 and
+    Zamba2, by ``shape_supported``) and every other cell is ok. Returns
+    the counts, the wall and one compact row a cell."""
+    import shutil
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i, archs in enumerate(groups):
+            out = os.path.join(tmp, f"sweep{i}.jsonl")
+            log = open(os.path.join(tmp, f"sweep{i}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                 ",".join(archs), "--multi-pod", "single", "--cost-mode",
+                 "auto", "--out", out, *extra], env=env, cwd=str(ROOT),
+                stdin=subprocess.DEVNULL, stdout=log,
+                stderr=subprocess.STDOUT), out, log))
+        rec = _check_meta_sweep(procs, [a for g in groups for a in g],
+                                shapes, t0, timeout)
+    finally:
+        for proc, _, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def _check_meta_sweep(procs, archs, shapes, t0: float, timeout: float
+                      ) -> dict:
+    from repro_torch.configs.base import SHAPES
+
+    recs = []
+    for proc, out, log in procs:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        log.flush()
+        if rc:
+            tail = Path(log.name).read_text()[-3000:]
+            raise AssertionError(f"meta sweep child exited {rc}:\n{tail}")
+        recs += [json.loads(l) for l in Path(out).read_text().splitlines()]
+    shapes = list(shapes or SHAPES)
+    want_skip = {(a, "long_500k") for a in archs
+                 if a not in SUBQUADRATIC_ARCHS and "long_500k" in shapes}
+    cells = {(a, s) for a in archs for s in shapes}
+    got = collections.Counter((r["arch"], r["shape"]) for r in recs)
+    if set(got) != cells or max(got.values()) != 1:
+        raise AssertionError(f"meta sweep: records for {sorted(got)}, "
+                             f"wanted one for each of {sorted(cells)}")
+    skipped = {(r["arch"], r["shape"]) for r in recs
+               if r["status"] == "skipped"}
+    errors = [r for r in recs if r["status"] == "error"]
+    if errors or skipped != want_skip:
+        raise AssertionError(f"meta sweep: {len(errors)} errors "
+                             f"({[r.get('error') for r in errors][:3]}), "
+                             f"skipped {sorted(skipped)}, the reference "
+                             f"skips {sorted(want_skip)}")
+    rows = [{"arch": r["arch"], "shape": r["shape"], "kind": r["kind"],
+             "probe_depths": r.get("probe_depths"),
+             "flops_global": r["flops_global"],
+             "bytes_global": r["bytes_global"],
+             "model_flops_global": r["model_flops_global"],
+             "total_params": r["total_params"],
+             "argument_bytes_per_device": r["argument_bytes_per_device"],
+             "fused_adam": r["kernel_traffic"].get("fused_adam"),
+             "build_s": r["compile_s"], "trace_s": r["unroll_compile_s"]}
+            for r in recs if r["status"] == "ok"]
+    return {"mesh": "16x16", "cost_mode": "auto", "n_ok": len(rows),
+            "n_skipped": len(skipped), "n_error": 0,
+            "skipped": sorted(f"{a}:{s}" for a, s in skipped),
+            "children": len(procs), "wall_s": time.perf_counter() - t0,
+            "cells": rows}
+
+
+def aggregate_check(updates, weights, out,
+                    piece: int = BF16_ULP_PIECE) -> dict:
+    """The bf16 aggregate against an fp64 weighted sum of the same
+    updates, taken on their device ``piece`` columns at a time. Each
+    element may stray one bf16 ulp at the sum (2^(floor(log2|sum|) - 7),
+    the cast's rounding) plus the fp32 summation's error bound, K * 2^-24
+    * sum_k |w_k x_k|: where the K terms nearly cancel, the fp32 sum's
+    own error is many ulps of the small result. Returns the largest
+    error over its bound (``bound_ratio_max``, <= 1 to pass) and the
+    count of elements past one ulp at the sum alone."""
+    from repro_torch.kernels.ops import tree_leaves
+
+    w = weights.to(torch.float64)
+    K = w.shape[0]
+    worst, over, n = 0.0, 0, 0
+    for x, o in zip(tree_leaves(updates), tree_leaves(out)):
+        xf, of = x.reshape(x.shape[0], -1), o.reshape(-1)
+        for c in range(0, of.numel(), piece):
+            terms = xf[:, c:c + piece].to(torch.float64) * w[:, None]
+            ref = terms.sum(dim=0)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                ref.abs().clamp_min(2.0 ** -126))) - 7)
+            err = (of[c:c + piece].to(torch.float64) - ref).abs()
+            bound = ulp + K * 2.0 ** -24 * terms.abs().sum(dim=0)
+            worst = max(worst, float((err / bound).max()))
+            over += int((err > ulp).sum())
+            n += ref.numel()
+    return {"bound_ratio_max": worst, "n_past_one_ulp": over, "n": n}
+
+
+def launch_cell(dev, arch: str, shape: str, cut: dict, overrides) -> dict:
+    """One cell through ``launch.dryrun.execute_cell`` on ``dev`` (the
+    card's 1x1 mesh), cut as ``cut`` names: the run's FLOPs equal to its
+    meta trace's (checked inside), every output finite, the train step
+    one ``fused_adam`` launch and no other kernel (the timed run, by the
+    counters), the FL round's aggregate within one bf16 ulp of an fp64
+    weighted sum on the card, plus the fp32 sum's error bound
+    (``aggregate_check``). One JSON line: time, peak GB, counted FLOPs
+    and bytes, model FLOPs at the cut, the bound, MFU, the cut."""
+    from repro_torch.launch import dryrun
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec = dryrun.execute_cell(arch, shape, device=dev, overrides=overrides,
+                              verbose=False, seed=SEED, **cut)
+    if rec["status"] != "ok":
+        raise AssertionError(f"launch cell {arch} x {shape}: "
+                             f"{rec.get('error')}\n{rec.get('traceback')}")
+    args, out = rec.pop("args"), rec.pop("outputs")
+    want = {"fused_adam": 1 if rec["kind"] == "train" else 0}
+    others = {k: v for k, v in rec["kernel_launches"].items()
+              if k not in want}
+    if any(rec["kernel_launches"][k] != n for k, n in want.items()) \
+            or any(others.values()):
+        raise AssertionError(f"launch cell {arch} x {shape}: launches "
+                             f"{rec['kernel_launches']}, wanted {want}")
+    agg = aggregate_check(*args, out) if rec["kind"] == "flround" else None
+    if agg is not None and not agg["bound_ratio_max"] <= 1.0:
+        raise AssertionError(f"launch cell {arch} x {shape}: the aggregate "
+                             f"strays from the fp64 sum: {agg}")
+    del args, out
+    line = {"arch": arch, "shape": shape, "kind": rec["kind"],
+            "cut": rec["cut"], "overrides": overrides,
+            "step_ms": rec["step_s"] * 1e3,
+            "peak_gb": (rec["peak_memory_per_device"] or 0) / 1e9,
+            "flops": rec["card_flops"], "meta_flops": rec["flops_global"],
+            "bytes": rec["bytes_global"],
+            "model_flops": rec["model_flops_global"],
+            "useful_ratio": rec["useful_ratio"],
+            "bound_ms": rec["step_time_s"] * 1e3,
+            "compute_ms": rec["compute_s"] * 1e3,
+            "memory_ms": rec["memory_s"] * 1e3,
+            "bottleneck": rec["bottleneck"], "mfu": rec["mfu"],
+            "measured_mfu": rec["measured_mfu"],
+            "launches": rec["kernel_launches"],
+            "kernel_traffic": rec["kernel_traffic"],
+            "total_params": rec["total_params"],
+            "argument_gb": rec["argument_bytes_per_device"] / 1e9,
+            "trace_s": rec["unroll_compile_s"], "aggregate_check": agg}
+    emit("launch_cell", **line)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+def _to(args: tuple, dev) -> tuple:
+    """A step's arguments on ``dev``: every tensor of each argument's tree
+    but a 0-d one (a decode step's host write index)."""
+    from repro_torch.kernels.ops import tree_map
+    return tuple(tree_map(lambda t: t.to(dev) if isinstance(t, torch.Tensor)
+                          and t.dim() else t, a) for a in args)
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance over every floating leaf of a tree, in fp64;
+    an integer leaf must be equal (else inf)."""
+    from repro_torch.kernels.ops import tree_leaves
+
+    num = den = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        if not isinstance(a, torch.Tensor) or not a.is_floating_point():
+            if (int(a) if not isinstance(a, torch.Tensor)
+                    else a.cpu().tolist()) != (
+                    int(b) if not isinstance(b, torch.Tensor)
+                    else b.cpu().tolist()):
+                return float("inf")
+            continue
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    return (num / den) ** 0.5 if den else num ** 0.5
+
+
+def launch_smoke_card_cpu(dev, arch: str = LAUNCH_SMOKE_ARCH,
+                          shapes=LAUNCH_SMOKE_SHAPES) -> dict:
+    """Each cell kind's step at ``arch``'s smoke config on the card and on
+    the CPU from the same arguments (``Cell.make_args`` on the CPU, moved
+    to the card): every output (the loss, the params, the optimizer
+    state; the logits tail and the caches; the aggregate) within
+    ``LAUNCH_SMOKE_RTOL`` relative L2; the train step one ``fused_adam``
+    launch on the card."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.launch.steps import build_cell
+
+    smoke = get_config(arch, smoke=True)
+    ov = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)
+          if f.name != "name"}
+    out = {}
+    for kind, (seq, batch) in shapes.items():
+        cell = build_cell(arch, ShapeConfig(f"smoke_{kind}", seq, batch,
+                                            kind), make_card_mesh(),
+                          overrides=ov)
+        args = cell.make_args("cpu", seed=SEED)
+        card_args = _to(args, dev)
+        want = cell.fn(*args)
+        zero_counts()
+        got = cell.fn(*card_args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        launches = read_counts()
+        on = {t.device.type for t in tree_leaves(list(got) if isinstance(
+            got, tuple) else got) if isinstance(t, torch.Tensor)}
+        if on != {dev.type}:
+            raise AssertionError(f"launch smoke {kind}: outputs on {on}")
+        parts = (("params", "opt_state", "loss") if kind == "train" else
+                 ("logits", "caches") if kind in ("prefill", "decode")
+                 else ("aggregate",))
+        pairs = zip(got, want) if len(parts) > 1 else [(got, want)]
+        rels = {name: rel_l2(a, b) for name, (a, b) in zip(parts, pairs)}
+        rec = {"rel_l2": rels, "fused_adam": launches["fused_adam"]}
+        if max(rels.values()) > LAUNCH_SMOKE_RTOL:
+            raise AssertionError(f"launch smoke {kind}: card vs CPU {rels}")
+        if launches["fused_adam"] != (1 if kind == "train" else 0):
+            raise AssertionError(f"launch smoke {kind}: fused_adam launched "
+                                 f"{launches['fused_adam']} times")
+        out[kind] = rec
+    return {"arch": arch, "rtol": LAUNCH_SMOKE_RTOL, "kinds": out}
+
+
+def momentum_card_cpu(dev, shape=MOMENTUM_SHAPE,
+                      steps: int = MOMENTUM_STEPS) -> dict:
+    """``build_optimizer("momentum")``'s cohort step on ``[Kp, W]`` rows
+    on the card and on the CPU from the same rows and grads (drawn on the
+    card, copied), lanes of 0 to ``steps`` steps: params and ``m`` within
+    ``MOMENTUM_RTOL`` of the CPU's (max abs over max abs), bit-equal or
+    not as found; every lane of 0 steps untouched on the card."""
+    from repro_torch.optim import build_optimizer
+
+    Kp, W = shape
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    lane_steps = torch.arange(Kp, dtype=torch.int32) % (steps + 1)
+    flat = torch.randn((Kp, W), generator=gen, device=dev)
+    flat0 = flat.clone()
+    cpu = flat.cpu()
+    opt = build_optimizer("momentum", 1e-2)
+    st, st_cpu = opt.cohort_init(flat), opt.cohort_init(cpu)
+    t_card = 0.0
+    for s in range(steps):
+        g = torch.randn((Kp, W), generator=gen, device=dev)
+        g_cpu = g.cpu()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        opt.cohort_step(flat, st, g, lane_steps.to(dev), s)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_card += time.perf_counter() - t0
+        opt.cohort_step(cpu, st_cpu, g_cpu, lane_steps, s)
+    res = {}
+    for name, a, b in (("params", flat, cpu), ("m", st["m"], st_cpu["m"])):
+        a = a.cpu()
+        res[name] = {"bit_equal": bool(torch.equal(a, b)),
+                     "max_abs_diff": float((a - b).abs().max()),
+                     "rel": float((a - b).abs().max() / b.abs().max())}
+    idle = lane_steps.to(dev) == 0
+    untouched = bool(torch.equal(flat[idle], flat0[idle]))
+    rec = {"shape": [Kp, W], "steps": steps, "rtol": MOMENTUM_RTOL,
+           "lanes_idle": int(idle.sum()), "idle_untouched": untouched,
+           "card_step_ms": t_card / steps * 1e3, **res}
+    if not untouched or max(r["rel"] for r in res.values()) > MOMENTUM_RTOL:
+        raise AssertionError(f"momentum card vs CPU: {rec}")
+    return rec
+
+
+def launch_phase(dev, cells=LAUNCH_CELLS, smoke=None, momentum=None,
+                 sweep=None, sweep_dir=None) -> dict:
+    """The launch tooling on the card: the executed cells on the 1x1 mesh
+    (``launch_cell``, each its own line), the smoke cells card against
+    CPU, momentum card against CPU, then the meta sweep (``meta_sweep``,
+    its keyword arguments ``sweep``, in ``sweep_dir`` or a new folder),
+    which runs after the card's work so that no timing shares the host
+    with it. The sizes cut it for a rehearsal. One JSON line."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    cells_rec = [launch_cell(dev, *c) for c in cells]
+    smoke_rec = launch_smoke_card_cpu(dev, **(smoke or {}))
+    mom_rec = momentum_card_cpu(dev, **(momentum or {}))
+    sweep_rec = meta_sweep(sweep_dir or tempfile.mkdtemp(
+        prefix="chip_smoke_sweep_"), **(sweep or {}))
+    rec = {"cells": [f"{c['arch']}:{c['shape']}" for c in cells_rec],
+           "smoke_card_cpu": smoke_rec, "momentum": mom_rec,
+           "meta_sweep": sweep_rec, "wall_s": time.perf_counter() - t0}
+    emit("launch", **rec)
+    rec["cell_records"] = cells_rec
+    return rec
 
 
 # -------------------------------------------------------------------- sweep
@@ -4007,6 +4369,7 @@ def main() -> int:
     xattn = timed("xattn", xattn_phase, dev)
     xattn_entries = timed("xattn_kernel_entries", xattn_kernel_entries,
                           xattn, dev)
+    timed("launch", launch_phase, dev)
     if tf32_flags() != tf32:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
                              f"{tf32} before: a scope leaked")

@@ -29,7 +29,8 @@ is the route's one predicate, shared with the fused-round megastep, whose
 aggregation (``kernels.ops.aggregate_rows_traced``) takes the same route
 on row ids and weights that are already on the card. ``last_path()`` names
 the route of the latest aggregate, ``guard_recomputes()`` counts the
-finiteness guard's recomputes.
+finiteness guard's recomputes. ``incremental_aggregate`` is the
+reference's streaming form, a running fp32 sum of weighted trees.
 """
 from __future__ import annotations
 
@@ -119,3 +120,13 @@ def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,
     if out_dtype is not None:
         out = kernel_ops.tree_map(lambda x: x.to(out_dtype), out)
     return out
+
+
+def incremental_aggregate(acc, update: Params, weight: float) -> Params:
+    """Streaming form: ``acc += w * update`` in fp32 (callers normalize at
+    the end); ``acc`` None starts the sum. For a K too large to stack."""
+    if acc is None:
+        return kernel_ops.tree_map(lambda x: x.to(torch.float32) * weight,
+                                   update)
+    return kernel_ops.tree_map(lambda a, x: a + x.to(torch.float32) * weight,
+                               acc, update)

@@ -11,6 +11,12 @@ wrapper's call does no ctypes set-up.
 
 Nothing here runs at import: the CPU tests import every module, and the
 CPU has no ``nvcc``.
+
+A wrapper given ``meta`` tensors builds and launches nothing: it calls
+``meta_launch`` with the bytes its kernel reads and writes, and returns
+``meta`` outputs of the kernel's shapes. A meta trace
+(``launch.roofline.MetaTrace``) listens there, so it counts a hand kernel
+as the kernel's own traffic, not as the passes of its plain version.
 """
 from __future__ import annotations
 
@@ -33,6 +39,19 @@ SOURCES = ("staleness_agg", "fused_adam", "topk", "quant8", "flash_attention")
 _LIBS: dict[str, ctypes.CDLL] = {}   # loaded libraries, one per source
 _FUNCS: dict[tuple[str, str], object] = {}   # configured C functions
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+LISTENERS: list = []   # fn(name, read_bytes, written_bytes), see meta_launch
+
+
+def meta_launch(name: str, read: int, written: int) -> None:
+    """A kernel launch on ``meta`` tensors: nothing is built or run; each
+    listener is told the kernel's own traffic, ``read`` bytes read once
+    and ``written`` bytes written once."""
+    for fn in LISTENERS:
+        fn(name, int(read), int(written))
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _nvcc() -> str:

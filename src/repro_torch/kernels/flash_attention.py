@@ -13,7 +13,9 @@ The kernels are built for D of 64 and 128; any other D up to 128 is padded
 with zero columns to the next of the two (``pad_head_dim``: the scores are
 unchanged, the extra output columns are zeros and are cut off), a copy
 that is part of the call. The kernels tile by their own sizes, so the block
-sizes only set the contract. ``flash_attention.launches`` counts kernel
+sizes only set the contract. A ``meta`` tensor runs nothing: the output's
+shape, and q, k, v read and the output written reported to
+``_build.meta_launch``. ``flash_attention.launches`` counts kernel
 launches.
 """
 from __future__ import annotations
@@ -73,6 +75,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sm_scale = D ** -0.5
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        _build.meta_launch("flash_attention", _build.nbytes(q, k, v),
+                           _build.nbytes(out))
+        return out
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention runs on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")

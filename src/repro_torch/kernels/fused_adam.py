@@ -4,7 +4,9 @@
 fp32 params and moments in place; lanes with ``s >= steps[lane]`` are left
 untouched (their local training has ended). A CPU tensor takes the plain
 torch version (``ref.fused_adam``); a CUDA tensor launches the kernel or
-raises. ``fused_adam.launches`` counts kernel launches.
+raises; a ``meta`` tensor runs nothing and reports the kernel's traffic
+(p, m, v, g and steps read, p, m and v written: 28 B a param) to
+``_build.meta_launch``. ``fused_adam.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -32,6 +34,10 @@ def fused_adam(p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     if p.device.type == "cpu":
         return ref.fused_adam(p, m, v, g, steps, s, lr=lr, b1=b1, b2=b2,
                               eps=eps)
+    if p.device.type == "meta":
+        return _build.meta_launch("fused_adam", _build.nbytes(p, m, v, g,
+                                                              steps),
+                                  _build.nbytes(p, m, v))
     tensors = (p, m, v, g, steps)
     if any(t.device != p.device for t in tensors):
         raise ValueError("fused_adam takes tensors on one device")

@@ -7,7 +7,9 @@ read as zero-padded, as the reference pads and trims. ``compress_q8(flat,
 ef, n_pad)`` is the two fused with the error feedback of a compressed
 update, what ``ops.compress_update`` runs: one launch. A CPU tensor takes
 the plain torch version (``ref.quantize_q8`` / ``ref.dequantize_q8`` /
-``ref.compress_q8``); a CUDA tensor launches the kernel or raises. Each
+``ref.compress_q8``); a CUDA tensor launches the kernel or raises; a
+``meta`` tensor runs nothing and reports the kernel's traffic to
+``_build.meta_launch``. Each
 wrapper's ``launches`` counts its kernel's launches.
 
 The wrappers are what a call of a few microseconds of device time costs on
@@ -67,6 +69,12 @@ def quantize_q8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"x must be [N], got {tuple(x.shape)}")
     if x.is_cpu:
         return ref.quantize_q8(x)
+    if x.is_meta:
+        q = x.new_empty(x.shape[0], dtype=torch.int8)
+        s = x.new_empty(_n_blocks(x.shape[0]), dtype=torch.float32)
+        _build.meta_launch("quantize_q8", _build.nbytes(x),
+                           _build.nbytes(q, s))
+        return q, s
     dev = x.get_device()
     _on_card(x, torch.float32, "x", dev)
     N = x.shape[0]
@@ -95,6 +103,11 @@ def dequantize_q8(q: torch.Tensor, scales: torch.Tensor, *,
         raise ValueError(f"{ns} scales for {N} codes")
     if q.is_cpu:
         return ref.dequantize_q8(q, scales, dtype)
+    if q.is_meta:
+        out = q.new_empty(N, dtype=dtype)
+        _build.meta_launch("dequantize_q8", _build.nbytes(q, scales),
+                           _build.nbytes(out))
+        return out
     dev = q.get_device()
     _on_card(q, torch.int8, "q", dev)
     _on_card(scales, torch.float32, "scales", dev)
@@ -130,6 +143,13 @@ def compress_q8(flat: torch.Tensor, ef, n_pad: int
         raise ValueError(f"ef must be [{N}], got {tuple(ef.shape)}")
     if flat.is_cpu:
         return ref.compress_q8(flat, ef, n_pad)
+    if flat.is_meta:
+        q = flat.new_empty(n_pad, dtype=torch.int8)
+        s = flat.new_empty(n_pad // QBLOCK, dtype=torch.float32)
+        err = flat.new_empty(N, dtype=torch.float32)
+        _build.meta_launch("compress_q8", _build.nbytes(flat) * (
+            1 if ef is None else 2), _build.nbytes(q, s, err))
+        return q, s, err
     dev = flat.get_device()
     _on_card(flat, torch.float32, "flat", dev)
     if ef is not None:

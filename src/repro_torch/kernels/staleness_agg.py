@@ -3,7 +3,9 @@
 ``staleness_agg(updates, weights, rows=None)`` returns
 ``sum_k weights[k] * updates[rows[k]]`` (``rows[k] = k`` when ``rows`` is
 None) as a flat fp32 ``[N]``. A CPU tensor takes the plain torch version
-(``ref.staleness_agg``); a CUDA tensor launches the kernel or raises.
+(``ref.staleness_agg``); a CUDA tensor launches the kernel or raises; a
+``meta`` tensor runs nothing and reports the kernel's traffic (the K rows
+read, the output written) to ``_build.meta_launch``.
 ``staleness_agg.launches`` counts kernel launches.
 
 The main path's rows-form call is a few tens of microseconds of device
@@ -74,6 +76,15 @@ def staleness_agg(updates: torch.Tensor, weights: torch.Tensor,
     K = _check(updates, weights, rows)
     if updates.is_cpu:
         return ref.staleness_agg(updates, weights, rows)
+    if updates.is_meta:
+        N = updates.shape[1]
+        out = updates.new_empty(N, dtype=torch.float32)
+        _build.meta_launch(
+            "staleness_agg", K * N * updates.element_size()
+            + _build.nbytes(weights) + (0 if rows is None
+                                        else _build.nbytes(rows)),
+            _build.nbytes(out))
+        return out
     tensors = (updates, weights) if rows is None else (updates, weights, rows)
     dev = updates.get_device()
     if not all(t.is_cuda and t.get_device() == dev for t in tensors):

@@ -12,7 +12,9 @@
 
 The order is ``lax.top_k``'s: larger first, equal scores by ascending index,
 no index twice. A CPU tensor takes the plain torch version in ``ref``; a
-CUDA tensor launches the kernel or raises. ``block_topk.launches`` counts
+CUDA tensor launches the kernel or raises; a ``meta`` tensor runs nothing
+and reports the kernel's traffic to ``_build.meta_launch``.
+``block_topk.launches`` counts
 every launch of the source, by all three wrappers.
 
 The kernel takes k <= ``MAX_K``. For a larger k the reference's
@@ -85,6 +87,15 @@ def _card_tensor(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _meta_picks(name: str, scores: torch.Tensor, shape: tuple) -> tuple:
+    """``meta`` (vals, idx) of ``shape``; the scores read once, the picks
+    written once."""
+    vals = torch.empty(shape, dtype=torch.float32, device="meta")
+    idx = torch.empty(shape, dtype=torch.int64, device="meta")
+    _build.meta_launch(name, _build.nbytes(scores), _build.nbytes(vals, idx))
+    return vals, idx
+
+
 def block_topk(scores: torch.Tensor, k: int, block: int = BLOCK_TOPK
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """scores [M] -> (vals [G, k] fp32, idx [G, k] int64);
@@ -97,6 +108,9 @@ def block_topk(scores: torch.Tensor, k: int, block: int = BLOCK_TOPK
                          f"k={k}, block={block}")
     if scores.device.type == "cpu":
         return ref.block_topk(scores, k, block)
+    if scores.device.type == "meta":
+        G = -(-scores.shape[0] // block)
+        return _meta_picks("block_topk", scores, (G, k))
     _card_tensor(scores, torch.float32, "scores")
     M = scores.shape[0]
     G = -(-M // block)
@@ -126,6 +140,8 @@ def masked_topk(scores: torch.Tensor, k: int
         return ref.masked_topk(scores, k)
     if k > MAX_K:
         return sorted_topk(scores, k)
+    if scores.device.type == "meta":
+        return _meta_picks("masked_topk", scores, (k,))
     _card_tensor(scores, torch.float32, "scores")
     stream = _build.stream(scores)
     scratch, ticket = _merge(scores, M, k, stream)
@@ -157,6 +173,14 @@ def scored_topk(num: torch.Tensor, den: torch.Tensor, booster: torch.Tensor,
         return ref.scored_topk(num, den, booster, eligible, ever, beta, k)
     if k > MAX_K:
         return sorted_scored_topk(num, den, booster, eligible, ever, beta, k)
+    if booster.device.type == "meta":
+        idx = torch.empty(k, dtype=torch.int64, device="meta")
+        valid = torch.empty(k, dtype=torch.bool, device="meta")
+        new_booster = torch.empty_like(booster)
+        _build.meta_launch(
+            "scored_topk", _build.nbytes(num, den, booster, eligible, ever),
+            _build.nbytes(idx, valid, new_booster))
+        return idx, valid, new_booster
     for name, t, dtype in (("num", num, torch.float32),
                            ("den", den, torch.float32),
                            ("booster", booster, torch.float32),

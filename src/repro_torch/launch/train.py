@@ -113,7 +113,9 @@ def cut_depth(cfg, layers: int):
 
 
 def train_step(model, opt, params, opt_state, batch):
-    """One optimizer step; returns (params, opt_state, loss as a float)."""
+    """One optimizer step; returns (params, opt_state, loss), the loss a
+    detached 0-d tensor on the params' device (``meta`` tensors run it
+    too: a ``launch.steps`` cell's step)."""
     params = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, _ = model.loss(params, batch)
     loss.backward()
@@ -121,7 +123,7 @@ def train_step(model, opt, params, opt_state, batch):
         grads = tree_map(lambda p: p.grad, params)
         updates, opt_state = opt.update(grads, opt_state, params)
         params = apply_updates(tree_map(torch.Tensor.detach, params), updates)
-    return params, opt_state, float(loss.detach())
+    return params, opt_state, loss.detach()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -176,6 +178,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         batch = step_batch(data_rng, cfg, args.batch, args.seq, device)
         params, opt_state, loss = train_step(model, opt, params, opt_state,
                                              batch)
+        loss = float(loss)
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
         print(f"  step {step:4d} loss={loss:.4f} ({step_s[-1]:.2f}s)")

@@ -23,6 +23,14 @@ def build_model(cfg: ModelConfig):
     return DecoderLM(cfg)
 
 
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of ``cfg``'s params, from its smoke config's
+    ``meta`` init, as the reference's ``launch.steps._param_axes`` takes
+    them (the tree and each leaf's axes do not depend on the widths)."""
+    from repro_torch.configs.base import get_config
+    return build_model(get_config(cfg.name, smoke=True)).param_axes()
+
+
 def _cdtype(cfg: ModelConfig):
     return {"float32": torch.float32,
             "bfloat16": torch.bfloat16}[cfg.compute_dtype]

@@ -17,8 +17,8 @@ probabilities cast to V's dtype. MLA keeps the reference's two branches:
 with a cache (prefill into a cache, and decode) the absorbed form, which
 never expands per-head K/V over the cache; without one the expanded form.
 The reference's sharding hints (``shard_act``, ``seq_parallel``) change no
-value and have no twin here, nor have ``gqa_cache_axes`` and
-``mla_cache_axes``.
+value and have no twin here; the caches' logical axes
+(``gqa_cache_axes``, ``mla_cache_axes``) are the reference's.
 """
 from __future__ import annotations
 
@@ -34,13 +34,13 @@ NEG_INF = -2.0**30
 
 def init_gqa(pf: ParamFactory, cfg: ModelConfig) -> None:
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    pf.param("wq", (d, h, hd))
-    pf.param("wk", (d, k, hd))
-    pf.param("wv", (d, k, hd))
-    pf.param("wo", (h, hd, d))
+    pf.param("wq", (d, h, hd), ("d_model", "heads", "head_dim"))
+    pf.param("wk", (d, k, hd), ("d_model", "kv_heads", "head_dim"))
+    pf.param("wv", (d, k, hd), ("d_model", "kv_heads", "head_dim"))
+    pf.param("wo", (h, hd, d), ("heads", "head_dim", "d_model"))
     if cfg.qk_norm:
-        pf.param("q_norm", (hd,), init="ones")
-        pf.param("k_norm", (hd,), init="ones")
+        pf.param("q_norm", (hd,), ("head_dim",), init="ones")
+        pf.param("k_norm", (hd,), ("head_dim",), init="ones")
 
 
 def _gqa_core(q, k, v, *, causal: bool, q_pos=None):
@@ -114,6 +114,11 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
             "v": torch.empty(shape, dtype=dtype, device="meta")}
 
 
+def gqa_cache_axes() -> dict:
+    return {"k": ("batch", "kv_seq", "kv_heads", None),
+            "v": ("batch", "kv_seq", "kv_heads", None)}
+
+
 # ----------------------------------------------------------------------------
 # MLA (DeepSeek-V2): compressed KV cache, decoupled RoPE key, absorbed decode
 # ----------------------------------------------------------------------------
@@ -123,13 +128,13 @@ def init_mla(pf: ParamFactory, cfg: ModelConfig) -> None:
     d, h = cfg.d_model, cfg.n_heads
     L, nope, rope_d, vd = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
                            cfg.v_head_dim)
-    pf.param("wq", (d, h, nope + rope_d))
-    pf.param("w_dkv", (d, L))
-    pf.param("kv_norm", (L,), init="ones")
-    pf.param("w_uk", (L, h, nope))
-    pf.param("w_uv", (L, h, vd))
-    pf.param("w_kpe", (d, rope_d))
-    pf.param("wo", (h, vd, d))
+    pf.param("wq", (d, h, nope + rope_d), ("d_model", "heads", "head_dim"))
+    pf.param("w_dkv", (d, L), ("d_model", "lora"))
+    pf.param("kv_norm", (L,), ("lora",), init="ones")
+    pf.param("w_uk", (L, h, nope), ("lora", "heads", "head_dim"))
+    pf.param("w_uv", (L, h, vd), ("lora", "heads", "head_dim"))
+    pf.param("w_kpe", (d, rope_d), ("d_model", "head_dim"))
+    pf.param("wo", (h, vd, d), ("heads", "head_dim", "d_model"))
 
 
 def _masked_probs(logits: torch.Tensor, mask: torch.Tensor, dtype):
@@ -202,6 +207,10 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
                                 dtype=dtype, device="meta")}
 
 
+def mla_cache_axes() -> dict:
+    return {"c": ("batch", "kv_seq", "lora"), "k_pe": ("batch", "kv_seq", None)}
+
+
 # ----------------------------------------------------------------------------
 # Cross attention (vision / encoder-decoder)
 # ----------------------------------------------------------------------------
@@ -212,12 +221,12 @@ def init_cross(pf: ParamFactory, cfg: ModelConfig, *,
     """GQA's projections without qk-norm; ``gated`` adds a scalar ``gate``
     drawn as zero, so a fresh gated block adds nothing until it trains."""
     d, h, k, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd()
-    pf.param("wq", (d, h, hd))
-    pf.param("wk", (d, k, hd))
-    pf.param("wv", (d, k, hd))
-    pf.param("wo", (h, hd, d))
+    pf.param("wq", (d, h, hd), ("d_model", "heads", "head_dim"))
+    pf.param("wk", (d, k, hd), ("d_model", "kv_heads", "head_dim"))
+    pf.param("wv", (d, k, hd), ("d_model", "kv_heads", "head_dim"))
+    pf.param("wo", (h, hd, d), ("heads", "head_dim", "d_model"))
     if gated:
-        pf.param("gate", (), init="zeros")
+        pf.param("gate", (), (), init="zeros")
 
 
 def cross_kv(p: dict, memory: torch.Tensor) -> dict:

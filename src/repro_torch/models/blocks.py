@@ -20,9 +20,9 @@ from repro_torch.models.common import ParamFactory, rms_norm, swiglu
 
 
 def init_ffn(pf: ParamFactory, d_model: int, d_ff: int) -> None:
-    pf.param("w_gate", (d_model, d_ff))
-    pf.param("w_up", (d_model, d_ff))
-    pf.param("w_down", (d_ff, d_model))
+    pf.param("w_gate", (d_model, d_ff), ("d_model", "ffn"))
+    pf.param("w_up", (d_model, d_ff), ("d_model", "ffn"))
+    pf.param("w_down", (d_ff, d_model), ("ffn", "d_model"))
 
 
 def ffn_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -38,8 +38,8 @@ def init_decoder_block(pf: ParamFactory, cfg: ModelConfig, *,
                        kind: str) -> None:
     """kind: 'dense' | 'moe' | 'mla_dense' | 'mla_moe'."""
     d = cfg.d_model
-    pf.param("ln_attn", (d,), init="ones")
-    pf.param("ln_mlp", (d,), init="ones")
+    pf.param("ln_attn", (d,), ("d_model",), init="ones")
+    pf.param("ln_mlp", (d,), ("d_model",), init="ones")
     with pf.scope("attn"):
         if kind.startswith("mla"):
             attn.init_mla(pf, cfg)
@@ -79,7 +79,7 @@ def decoder_block(p: dict, x: torch.Tensor, cfg: ModelConfig, positions, *,
 
 
 def init_mamba_block(pf: ParamFactory, cfg: ModelConfig) -> None:
-    pf.param("ln", (cfg.d_model,), init="ones")
+    pf.param("ln", (cfg.d_model,), ("d_model",), init="ones")
     with pf.scope("mixer"):
         ssm_mod.init_mamba2(pf, cfg)
 
@@ -105,8 +105,8 @@ def mamba_block(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
 
 def init_zamba_shared(pf: ParamFactory, cfg: ModelConfig) -> None:
     d = cfg.d_model
-    pf.param("w_concat", (2 * d, d))
-    pf.param("ln_in", (2 * d,), init="ones")
+    pf.param("w_concat", (2 * d, d), ("d_model", None))
+    pf.param("ln_in", (2 * d,), ("d_model",), init="ones")
     init_decoder_block(pf, cfg, kind="dense")
 
 
@@ -130,10 +130,10 @@ def zamba_shared_block(p: dict, x: torch.Tensor, x0: torch.Tensor,
 def init_cross_block(pf: ParamFactory, cfg: ModelConfig, *,
                      gated: bool) -> None:
     d = cfg.d_model
-    pf.param("ln", (d,), init="ones")
+    pf.param("ln", (d,), ("d_model",), init="ones")
     with pf.scope("xattn"):
         attn.init_cross(pf, cfg, gated=gated)
-    pf.param("ln_mlp", (d,), init="ones")
+    pf.param("ln_mlp", (d,), ("d_model",), init="ones")
     with pf.scope("mlp"):
         init_ffn(pf, d, cfg.d_ff)
 

@@ -3,13 +3,15 @@ parameter factory and its initializers, the stacked-layer initializer,
 norms, the SwiGLU activation, rotary embeddings and the classifier loss.
 
 Parameters are plain nested dicts of tensors, named under nested scopes as
-in the reference. The reference's factory also records logical sharding
-axes per leaf; the port has no sharding yet, so it keeps only the values.
-Values are drawn from a ``torch.Generator`` and differ from the reference's
-``jax.random`` draws: tests that compare the two packages start the port
-from the reference's params (``models.convert``). A factory on the ``meta``
-device draws nothing and allocates nothing: it gives every leaf's shape and
-dtype, the twin of the reference's ``jax.eval_shape`` over ``init``.
+in the reference. Beside the values the factory records each leaf's
+*logical axis names* (``factory.axes``, a tree of tuples of the same
+structure), which ``sharding.rules`` maps to mesh axes; the paper models
+pass none (no cell shards them). Values are drawn from a
+``torch.Generator`` and differ from the reference's ``jax.random`` draws:
+tests that compare the two packages start the port from the reference's
+params (``models.convert``). A factory on the ``meta`` device draws
+nothing and allocates nothing: it gives every leaf's shape and dtype, the
+twin of the reference's ``jax.eval_shape`` over ``init``.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ class ParamFactory:
     scopes, drawn in creation order from one generator on ``device`` (the
     generator's device by default). With ``into`` (a tree of preallocated
     tensors of the same names and shapes) each leaf is drawn into its
-    tensor there, which ``params`` then holds."""
+    tensor there, which ``params`` then holds. ``axes`` holds the logical
+    axes of every leaf registered with them."""
 
     def __init__(self, generator: Optional[torch.Generator],
                  dtype=torch.float32, device=None,
@@ -41,6 +44,7 @@ class ParamFactory:
             device if device is not None
             else generator.device if generator is not None else "cpu")
         self.params: dict = {}
+        self.axes: dict = {}
         self._path: list[str] = []
         self._into = into
 
@@ -52,14 +56,24 @@ class ParamFactory:
         finally:
             self._path.pop()
 
-    def param(self, name: str, shape: tuple[int, ...], init: str = "normal",
-              scale: Optional[float] = None) -> torch.Tensor:
-        node = self.params
+    def _node(self, tree: dict) -> dict:
         for p in self._path:
-            node = node.setdefault(p, {})
+            tree = tree.setdefault(p, {})
+        return tree
+
+    def param(self, name: str, shape: tuple[int, ...],
+              logical_axes: Optional[tuple] = None, init: str = "normal",
+              scale: Optional[float] = None) -> torch.Tensor:
+        """One leaf of ``shape`` under the current scope; ``logical_axes``
+        (one name or None a dim) are recorded in ``axes``."""
+        node = self._node(self.params)
         if name in node:
             raise ValueError(
                 f"duplicate param {'/'.join(self._path + [name])}")
+        if logical_axes is not None:
+            assert len(shape) == len(logical_axes), (name, shape,
+                                                     logical_axes)
+            self._node(self.axes)[name] = tuple(logical_axes)
         out = None
         if self._into is not None:
             out = self._into
@@ -108,6 +122,26 @@ def _initialize(gen: Optional[torch.Generator], shape, dtype, init: str,
         # "ssm_a", A_log: log of uniform in [1, 16)
         x.uniform_(1.0, 16.0, generator=gen).log_()
     return out if x is out else out.copy_(x)
+
+
+def map_axes(axes_tree: Any, fn: Callable[[tuple], tuple]) -> Any:
+    """``fn`` over every leaf of an axes tree (tuples of axis names), the
+    tree's dicts and lists kept."""
+    if isinstance(axes_tree, tuple):
+        return fn(axes_tree)
+    if isinstance(axes_tree, dict):
+        return {k: map_axes(v, fn) for k, v in axes_tree.items()}
+    if isinstance(axes_tree, list):
+        return [map_axes(v, fn) for v in axes_tree]
+    raise TypeError(f"not an axes tree: {type(axes_tree).__name__}")
+
+
+def stacked_axes(init_fn: Callable, *args) -> dict:
+    """The logical axes of ``init_stacked``'s stack of ``init_fn``'s
+    block: each leaf's axes with ``"layers"`` in front."""
+    meta = ParamFactory(None, device="meta")
+    init_fn(meta, *args)
+    return map_axes(meta.axes, lambda a: ("layers",) + a)
 
 
 def init_stacked(init_fn: Callable, generator: Optional[torch.Generator],

@@ -38,7 +38,7 @@ from repro_torch.kernels.ops import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models.common import (ParamFactory, init_stacked, rms_norm,
-                                       softmax_cross_entropy)
+                                       softmax_cross_entropy, stacked_axes)
 from repro_torch.models.lm import _dtype, _remat_active, _stacked, _zeros
 
 Params = Any
@@ -46,13 +46,13 @@ Params = Any
 
 def _init_dec_block(pf: ParamFactory, cfg: ModelConfig) -> None:
     d = cfg.d_model
-    pf.param("ln_self", (d,), init="ones")
+    pf.param("ln_self", (d,), ("d_model",), init="ones")
     with pf.scope("self"):
         attn.init_gqa(pf, cfg)
-    pf.param("ln_cross", (d,), init="ones")
+    pf.param("ln_cross", (d,), ("d_model",), init="ones")
     with pf.scope("cross"):
         attn.init_cross(pf, cfg, gated=False)
-    pf.param("ln_mlp", (d,), init="ones")
+    pf.param("ln_mlp", (d,), ("d_model",), init="ones")
     with pf.scope("mlp"):
         blk.init_ffn(pf, d, cfg.d_ff)
 
@@ -83,20 +83,30 @@ class EncDecLM:
         ``"meta"`` draws nothing): the factory's four leaves, then the
         encoder, then the decoder, in the order of the reference's key
         split."""
+        return self._init(generator, device)[0]
+
+    def param_axes(self) -> dict:
+        """The logical axes of every param, shaped as the params (the
+        reference's second return of ``init``)."""
+        return self._init(None, "meta")[1]
+
+    def _init(self, generator, device) -> tuple[Params, dict]:
         cfg = self.cfg
         pf = ParamFactory(generator, self.pdtype, device)
-        pf.param("tok_embed", (cfg.vocab_size, cfg.d_model), init="embed")
-        pf.param("ln_enc", (cfg.d_model,), init="ones")
-        pf.param("ln_f", (cfg.d_model,), init="ones")
-        pf.param("head", (cfg.d_model, cfg.vocab_size))
-        params = pf.params
-        params["encoder"] = init_stacked(
-            lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense"),
-            generator, cfg.enc_layers, self.pdtype, device=pf.device)
-        params["decoder"] = init_stacked(
-            lambda pf_: _init_dec_block(pf_, cfg), generator, cfg.dec_layers,
-            self.pdtype, device=pf.device)
-        return params
+        pf.param("tok_embed", (cfg.vocab_size, cfg.d_model),
+                 ("vocab", "d_model"), init="embed")
+        pf.param("ln_enc", (cfg.d_model,), ("d_model",), init="ones")
+        pf.param("ln_f", (cfg.d_model,), ("d_model",), init="ones")
+        pf.param("head", (cfg.d_model, cfg.vocab_size), ("d_model", "vocab"))
+        params, axes = pf.params, pf.axes
+        enc = lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense")
+        dec = lambda pf_: _init_dec_block(pf_, cfg)
+        params["encoder"] = init_stacked(enc, generator, cfg.enc_layers,
+                                         self.pdtype, device=pf.device)
+        params["decoder"] = init_stacked(dec, generator, cfg.dec_layers,
+                                         self.pdtype, device=pf.device)
+        axes["encoder"], axes["decoder"] = stacked_axes(enc), stacked_axes(dec)
+        return params, axes
 
     # ---------------------------------------------------------------- encode
     def encode(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -206,6 +216,14 @@ class EncDecLM:
                     cfg, batch, cache_len, self.cdtype)),
                 "cross": stacked(attn.gqa_cache_shape(
                     cfg, batch, enc_len, self.cdtype))}
+
+    def cache_axes(self) -> dict:
+        """The logical axes of ``cache_struct``'s leaves (the reference's
+        second return of ``cache_struct``)."""
+        self_axes = {k: ("layers",) + v
+                     for k, v in attn.gqa_cache_axes().items()}
+        kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+        return {"self": self_axes, "cross": {"k": kv, "v": kv}}
 
     def decode_step(self, params: Params, caches: Params,
                     tokens: torch.Tensor, pos):

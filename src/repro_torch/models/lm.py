@@ -50,8 +50,9 @@ from repro_torch.kernels.ops import tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ParamFactory, init_stacked, rms_norm,
-                                       softmax_cross_entropy)
+from repro_torch.models.common import (ParamFactory, init_stacked, map_axes,
+                                       rms_norm, softmax_cross_entropy,
+                                       stacked_axes)
 
 Params = Any
 
@@ -110,51 +111,71 @@ class DecoderLM:
         (``tok_embed``, ``ln_f``, ``head``), then the layers (for hybrid
         the stack, then the shared block; for vlm the self layers, then
         the cross blocks), in the order of the reference's key split."""
+        return self._init(generator, device)[0]
+
+    def param_axes(self) -> dict:
+        """The logical axes of every param (a tree of tuples shaped as the
+        params), the reference's second return of ``init``."""
+        return self._init(None, "meta")[1]
+
+    def _init(self, generator, device) -> tuple[Params, dict]:
         cfg = self.cfg
         pf = ParamFactory(generator, self.pdtype, device)
-        pf.param("tok_embed", (cfg.vocab_size, cfg.d_model), init="embed")
-        pf.param("ln_f", (cfg.d_model,), init="ones")
+        pf.param("tok_embed", (cfg.vocab_size, cfg.d_model),
+                 ("vocab", "d_model"), init="embed")
+        pf.param("ln_f", (cfg.d_model,), ("d_model",), init="ones")
         if not cfg.tie_embeddings:
-            pf.param("head", (cfg.d_model, cfg.vocab_size))
-        params = pf.params
+            pf.param("head", (cfg.d_model, cfg.vocab_size),
+                     ("d_model", "vocab"))
+        params, axes = pf.params, pf.axes
+        again = lambda a: ("layers",) + a     # a chunked stack's 2nd axis
         if cfg.family in MAMBA_FAMILIES:
-            stack = init_stacked(lambda pf_: blk.init_mamba_block(pf_, cfg),
-                                 generator, cfg.n_layers, self.pdtype,
+            block = lambda pf_: blk.init_mamba_block(pf_, cfg)
+            stack = init_stacked(block, generator, cfg.n_layers, self.pdtype,
                                  device=pf.device)
             params["layers"] = {"stack": stack}
+            axes["layers"] = {"stack": stacked_axes(block)}
             if cfg.family == "hybrid":
                 n_chunks = cfg.n_layers // cfg.attn_period
                 params["layers"]["stack"] = tree_map(
                     lambda t: t.view(n_chunks, cfg.attn_period,
                                      *t.shape[1:]), stack)
+                axes["layers"]["stack"] = map_axes(axes["layers"]["stack"],
+                                                   again)
                 pf_s = ParamFactory(generator, self.pdtype, pf.device)
                 blk.init_zamba_shared(pf_s, cfg)
                 params["layers"]["shared"] = pf_s.params
-            return params
+                axes["layers"]["shared"] = pf_s.axes
+            return params, axes
         if cfg.family == "vlm":
             n_cross = cfg.n_layers // cfg.cross_attn_period
-            stack = init_stacked(
-                lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense"),
-                generator, cfg.n_layers, self.pdtype, device=pf.device)
-            cross = init_stacked(
-                lambda pf_: blk.init_cross_block(pf_, cfg, gated=True),
-                generator, n_cross, self.pdtype, device=pf.device)
+            block = lambda pf_: blk.init_decoder_block(pf_, cfg, kind="dense")
+            cross_block = lambda pf_: blk.init_cross_block(pf_, cfg,
+                                                           gated=True)
+            stack = init_stacked(block, generator, cfg.n_layers, self.pdtype,
+                                 device=pf.device)
+            cross = init_stacked(cross_block, generator, n_cross, self.pdtype,
+                                 device=pf.device)
             params["layers"] = {
                 "stack": tree_map(lambda t: t.view(
                     n_cross, cfg.cross_attn_period, *t.shape[1:]), stack),
                 "cross": cross}
-            return params
-        first = []
+            axes["layers"] = {"stack": map_axes(stacked_axes(block), again),
+                              "cross": stacked_axes(cross_block)}
+            return params, axes
+        first, first_axes = [], []
         for _ in range(cfg.first_dense_layers):
             pf1 = ParamFactory(generator, self.pdtype, pf.device)
             blk.init_decoder_block(pf1, cfg, kind=self.dense_kind)
             first.append(pf1.params)
-        stack = init_stacked(
-            lambda pf_: blk.init_decoder_block(pf_, cfg, kind=self.kind),
-            generator, cfg.n_layers - cfg.first_dense_layers, self.pdtype,
-            device=pf.device)
+            first_axes.append(pf1.axes)
+        block = lambda pf_: blk.init_decoder_block(pf_, cfg, kind=self.kind)
+        stack = init_stacked(block, generator,
+                             cfg.n_layers - cfg.first_dense_layers,
+                             self.pdtype, device=pf.device)
         params["layers"] = {"first": first, "stack": stack}
-        return params
+        axes["layers"] = {"first": first_axes, "stack": stacked_axes(block)}
+        return params, axes
 
     # --------------------------------------------------------------- helpers
     def _embed(self, params, tokens):
@@ -408,6 +429,26 @@ class DecoderLM:
         n = cfg.n_layers - cfg.first_dense_layers
         return {"first": [dict(one) for _ in range(cfg.first_dense_layers)],
                 "stack": stacked(one, (n,))}
+
+    def cache_axes(self) -> dict:
+        """The logical axes of ``cache_struct``'s leaves, the reference's
+        second return of ``cache_struct``: each layer's cache axes with a
+        ``"layers"`` axis for every stacked axis in front."""
+        cfg = self.cfg
+        lead = lambda ax, n: {k: ("layers",) * n + v for k, v in ax.items()}
+        if cfg.family == "ssm":
+            return {"stack": lead(ssm_mod.mamba2_cache_axes(), 1)}
+        if cfg.family == "hybrid":
+            return {"stack": lead(ssm_mod.mamba2_cache_axes(), 2),
+                    "shared": lead(attn.gqa_cache_axes(), 1)}
+        if cfg.family == "vlm":
+            kv = ("batch", "patches", "kv_heads", None)
+            return {"stack": lead(attn.gqa_cache_axes(), 2),
+                    "cross": lead({"k": kv, "v": kv}, 1)}
+        one = (attn.mla_cache_axes() if cfg.kv_lora_rank
+               else attn.gqa_cache_axes())
+        return {"first": [dict(one) for _ in range(cfg.first_dense_layers)],
+                "stack": lead(one, 1)}
 
     def _attn_cache_zeros(self, B: int, T: int, device) -> dict:
         return _zeros(self.cache_struct(B, T), device)

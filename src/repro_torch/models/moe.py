@@ -34,15 +34,15 @@ from repro_torch.models.common import ParamFactory
 
 def init_moe(pf: ParamFactory, cfg: ModelConfig) -> None:
     d, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
-    pf.param("router", (d, E), scale=0.02)
-    pf.param("w_gate", (E, d, Fe))
-    pf.param("w_up", (E, d, Fe))
-    pf.param("w_down", (E, Fe, d))
+    pf.param("router", (d, E), ("d_model", "experts"), scale=0.02)
+    pf.param("w_gate", (E, d, Fe), ("experts", "d_model", "ffn"))
+    pf.param("w_up", (E, d, Fe), ("experts", "d_model", "ffn"))
+    pf.param("w_down", (E, Fe, d), ("experts", "ffn", "d_model"))
     if cfg.n_shared_experts:
         Fs = cfg.n_shared_experts * Fe
-        pf.param("ws_gate", (d, Fs))
-        pf.param("ws_up", (d, Fs))
-        pf.param("ws_down", (Fs, d))
+        pf.param("ws_gate", (d, Fs), ("d_model", "ffn"))
+        pf.param("ws_up", (d, Fs), ("d_model", "ffn"))
+        pf.param("ws_down", (Fs, d), ("ffn", "d_model"))
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:

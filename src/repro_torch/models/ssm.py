@@ -18,8 +18,8 @@ reference's (the two round apart in bf16); the segment sums are masked to
 in the grads); softplus is ``logaddexp(x, 0)``, ``jax.nn.softplus``'s
 form; ``dt`` is cast to ``x``'s dtype before the product, and each
 chunk's output to it after the sum. The reference's sharding hints
-(``shard_act``) change no value and have no twin here, nor has
-``mamba2_cache_axes``.
+(``shard_act``) change no value and have no twin here; the cache's logical
+axes (``mamba2_cache_axes``) are the reference's.
 """
 from __future__ import annotations
 
@@ -48,14 +48,14 @@ def init_mamba2(pf: ParamFactory, cfg: ModelConfig) -> None:
     D, di, H = cfg.d_model, d_inner(cfg), n_ssm_heads(cfg)
     cd, W = conv_dim(cfg), cfg.ssm_conv
     d_proj = 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + H
-    pf.param("in_proj", (D, d_proj))
-    pf.param("conv_w", (W, cd))
-    pf.param("conv_b", (cd,), init="zeros")
-    pf.param("dt_bias", (H,), init="ssm_dt")
-    pf.param("A_log", (H,), init="ssm_a")
-    pf.param("D_skip", (H,), init="ones")
-    pf.param("norm_w", (di,), init="ones")
-    pf.param("out_proj", (di, D))
+    pf.param("in_proj", (D, d_proj), ("d_model", "ffn"))
+    pf.param("conv_w", (W, cd), (None, "ffn"))
+    pf.param("conv_b", (cd,), ("ffn",), init="zeros")
+    pf.param("dt_bias", (H,), ("ssm_heads",), init="ssm_dt")
+    pf.param("A_log", (H,), ("ssm_heads",), init="ssm_a")
+    pf.param("D_skip", (H,), ("ssm_heads",), init="ones")
+    pf.param("norm_w", (di,), ("ffn",), init="ones")
+    pf.param("out_proj", (di, D), ("ffn", "d_model"))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -222,3 +222,8 @@ def mamba2_cache_shape(cfg: ModelConfig, batch: int, dtype) -> dict:
                              device="meta"),
             "conv": torch.empty((batch, W - 1, conv_dim(cfg)), dtype=dtype,
                                 device="meta")}
+
+
+def mamba2_cache_axes() -> dict:
+    return {"h": ("batch", "ssm_heads", None, "state"),
+            "conv": ("batch", None, "ffn")}

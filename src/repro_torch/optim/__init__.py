@@ -1,3 +1,3 @@
 from repro_torch.optim.optimizers import (Optimizer, adafactor,  # noqa: F401
                                           adam, adam_fused, apply_updates,
-                                          build_optimizer, sgd)
+                                          build_optimizer, momentum, sgd)

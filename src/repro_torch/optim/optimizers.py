@@ -1,5 +1,5 @@
 """Optimizers over dicts of tensors (twin of ``repro.optim.optimizers``):
-SGD, plain Adam, the fused-kernel Adam and Adafactor.
+SGD, momentum, plain Adam, the fused-kernel Adam and Adafactor.
 
 Each optimizer has two forms:
 
@@ -63,6 +63,32 @@ def sgd(lr: float) -> Optimizer:
 
     return Optimizer(init, update, "sgd", lambda flat, spec=None: {},
                      cohort_step)
+
+
+def momentum(lr: float, beta: float = 0.9) -> Optimizer:
+    """Heavy-ball momentum, the reference's formula: an fp32 first moment
+    ``m = beta * m + g`` and the update ``-lr * m``. Plain torch: the
+    reference computes it outside any Pallas kernel."""
+
+    def init(params):
+        return {"m": tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32), params)}
+
+    def update(grads, state, params):
+        m = tree_map(lambda m_, g: beta * m_ + g.to(torch.float32),
+                     state["m"], grads)
+        return tree_map(lambda m_: -lr * m_, m), {"m": m}
+
+    def cohort_init(flat, spec=None):
+        return {"m": torch.zeros_like(flat)}
+
+    def cohort_step(flat, state, g, steps, s):
+        act = _active(steps, s)
+        m = beta * state["m"] + g
+        flat.copy_(torch.where(act, flat + (-lr * m), flat))
+        state["m"].copy_(torch.where(act, m, state["m"]))
+
+    return Optimizer(init, update, "momentum", cohort_init, cohort_step)
 
 
 def _moments(flat: torch.Tensor, spec=None) -> dict:
@@ -255,9 +281,8 @@ def build_optimizer(name: str, lr: float) -> Optimizer:
         return sgd(lr)
     if name == "adam":
         return adam_fused(lr)
+    if name == "momentum":
+        return momentum(lr)
     if name == "adafactor":
         return adafactor(lr)
-    if name == "momentum":
-        raise NotImplementedError(
-            f"optimizer {name!r} comes with a later slice of the port")
     raise ValueError(f"unknown optimizer {name}")

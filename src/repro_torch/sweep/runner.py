@@ -12,8 +12,9 @@ populated under a lock and the cached artifacts are read-only for the
 engines (each run gets a *copy* of the fleet list and its own Database).
 
 Optional JSON result caching (``cache_dir``) keys each cell by its
-``RunSpec.key`` + scale + device, so re-running a sweep composes tables
-without re-training.
+``RunSpec.key`` + scale + fidelity + pinned update plane (the reference's
+key) and the device, so re-running a sweep composes tables without
+re-training.
 """
 from __future__ import annotations
 
@@ -45,13 +46,19 @@ OPTIMIZER = {"shakespeare": ("sgd", 0.5)}  # others: (adam, 1e-3)
 class LocalRunner:
     """Callable run executor with shared, thread-safe setup caches.
 
-    ``device`` (None = the CUDA card) is where every cell's engine runs."""
+    ``update_plane`` pins every cell to one client-update transport
+    ("device" = flat-buffer UpdateStore, "blob" = host pytrees) so a sweep
+    compares strategies on identical plumbing; None keeps the engine's
+    default. ``device`` (None = the CUDA card) is where every cell's
+    engine runs."""
 
     def __init__(self, scale: SweepScale, *, fidelity: str = "proxy",
-                 cache_dir: Optional[str] = None, device=None):
+                 cache_dir: Optional[str] = None,
+                 update_plane: Optional[str] = None, device=None):
         self.scale = scale
         self.fidelity = fidelity
         self.cache_dir = cache_dir
+        self.update_plane = update_plane
         self.device = resolve_device(device)
         self._lock = threading.Lock()
         self._models: dict = {}
@@ -115,19 +122,26 @@ class LocalRunner:
             traffic_profile=run.traffic_profile,
             mesh=run.mesh,
             max_sim_time=s.sim_budget or SIM_BUDGET.get(run.dataset, 2_000.0))
+        if self.update_plane:
+            cfg = replace(cfg, update_plane=self.update_plane)
         if run.overrides:
             cfg = replace(cfg, **dict(run.overrides))
         return cfg
 
     # ---------------------------------------------------------------- run
+    def cache_key(self, run: RunSpec) -> str:
+        """The cell's key, the reference's: a hash of the run's key, the
+        scale, the fidelity and the pinned update plane."""
+        key_src = json.dumps([run.key, asdict(self.scale), self.fidelity,
+                              self.update_plane], sort_keys=True)
+        return hashlib.sha1(key_src.encode()).hexdigest()[:16]
+
     def _cache_path(self, run: RunSpec) -> Optional[str]:
+        """The cell's cached result: its key and the device it ran on."""
         if not self.cache_dir:
             return None
-        key_src = json.dumps([run.key, asdict(self.scale), self.fidelity,
-                              self.device.type],
-                             sort_keys=True)
-        key = hashlib.sha1(key_src.encode()).hexdigest()[:16]
-        return os.path.join(self.cache_dir, f"{key}.json")
+        return os.path.join(self.cache_dir,
+                            f"{self.cache_key(run)}-{self.device.type}.json")
 
     def engine(self, run: RunSpec):
         """The cell's engine, built and not yet run."""

@@ -289,12 +289,16 @@ def test_paper_kernel_entries_take_each_runs_own_shapes(monkeypatch):
 
 
 def test_every_kernel_wrapper_counts_its_launches():
+    from repro_torch.kernels import launch_counts, wrappers
+
     cs = _load()
-    wrappers = cs.kernel_wrappers()
+    wrappers = wrappers()
     assert set(wrappers) == {"staleness_agg", "fused_adam", "block_topk",
                              "quantize_q8", "dequantize_q8", "compress_q8",
                              "flash_attention"}
     assert all(isinstance(fn.launches, int) for fn in wrappers.values())
+    cs.zero_counts()
+    assert cs.read_counts() == launch_counts() == dict.fromkeys(wrappers, 0)
 
 
 def test_quant8_entries_are_exact_with_byte_bounds(monkeypatch):
@@ -1895,3 +1899,98 @@ def test_xattn_phase_probe_fails_without_a_card():
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"phase"' not in proc.stdout and "no CUDA card" in proc.stderr
+
+
+# ------------------------------------------------------------------- launch
+def _smoke_fields(arch, **extra):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    smoke = get_config(arch, smoke=True)
+    out = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)
+           if f.name != "name"}
+    out.update(extra)
+    return out
+
+
+LAUNCH_SMALL = dict(
+    cells=(("qwen3-1.7b", "train_4k", dict(global_batch=2, seq_len=16),
+            _smoke_fields("qwen3-1.7b", remat=True)),
+           ("qwen3-1.7b", "prefill_32k", dict(global_batch=1, seq_len=16),
+            _smoke_fields("qwen3-1.7b")),
+           ("qwen3-1.7b", "decode_32k", dict(global_batch=2, seq_len=16),
+            _smoke_fields("qwen3-1.7b")),
+           ("qwen3-1.7b", "fl_round", dict(global_batch=3),
+            _smoke_fields("qwen3-1.7b", param_dtype="bfloat16")),
+           ("mamba2-370m", "long_500k", {}, _smoke_fields("mamba2-370m"))),
+    momentum=dict(shape=(6, 40), steps=3),
+    sweep=dict(groups=(("yi-6b",), ("mamba2-370m",)), shapes=["long_500k"],
+               extra=("--shape", "long_500k")))
+
+
+def _launch_rehearsal(cs, monkeypatch, tmp_path, count=True):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    if count:
+        _count_plain_calls(monkeypatch)
+    return cs.launch_phase(torch.device("cpu"), sweep_dir=str(tmp_path),
+                           **LAUNCH_SMALL)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_launch_phase_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """The launch phase's contract at smoke configs: one line a cell
+    (the run's FLOPs equal to the meta trace's, the cut named, the train
+    step one ``fused_adam``, the bf16 aggregate within one ulp of the
+    fp64 sum), the four smoke kinds card against CPU, momentum card
+    against CPU with its idle lanes untouched, the meta sweep's children
+    joined (a full-attention arch's ``long_500k`` skipped, Mamba2's
+    traced), then the phase's line; the sweep's folder removed."""
+    cs = _load()
+    rec = _launch_rehearsal(cs, monkeypatch, tmp_path)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [l["phase"] for l in lines] == ["launch_cell"] * 5 + ["launch"]
+    cells = {(c["arch"], c["shape"]): c for c in rec["cell_records"]}
+    for c in cells.values():
+        assert c["flops"] == c["meta_flops"]
+        assert c["bound_ms"] > 0 and c["measured_mfu"] > 0
+    train = cells[("qwen3-1.7b", "train_4k")]
+    assert train["cut"] == {"global_batch": [256, 2], "seq_len": [4096, 16]}
+    assert train["launches"]["fused_adam"] == 1
+    assert train["kernel_traffic"]["fused_adam"]["launches"] == 1
+    agg = cells[("qwen3-1.7b", "fl_round")]["aggregate_check"]
+    assert agg["bound_ratio_max"] <= 1.0 and agg["n"] > 0
+    assert cells[("qwen3-1.7b", "fl_round")]["flops"] == 0
+    assert cells[("mamba2-370m", "long_500k")]["cut"] is None
+    assert set(rec["smoke_card_cpu"]["kinds"]) == {"train", "prefill",
+                                                   "decode", "flround"}
+    assert rec["smoke_card_cpu"]["kinds"]["train"]["fused_adam"] == 1
+    mom = rec["momentum"]
+    assert mom["idle_untouched"] and mom["lanes_idle"] == 2
+    assert mom["params"]["bit_equal"] and mom["m"]["bit_equal"]
+    sweep = rec["meta_sweep"]
+    assert (sweep["n_ok"], sweep["n_skipped"], sweep["n_error"]) == (1, 1, 0)
+    assert sweep["skipped"] == ["yi-6b:long_500k"]
+    assert sweep["cells"][0]["probe_depths"] == [4, 8]
+    assert not tmp_path.exists()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_launch_phase_fails_without_its_launches(monkeypatch, tmp_path):
+    """On the CPU no kernel launches: uncounted, the train cell's missing
+    ``fused_adam`` launch fails the phase before its sweep starts."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="launches"):
+        _launch_rehearsal(cs, monkeypatch, tmp_path, count=False)
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_meta_sweep_join_fails_on_an_error_record(tmp_path):
+    """A child whose record is an error exits 1 and fails the sweep; its
+    folder is removed all the same."""
+    cs = _load()
+    with pytest.raises(AssertionError, match="exited 1"):
+        cs.meta_sweep(str(tmp_path), groups=(("qwen3-1.7b",),),
+                      shapes=["fl_round"], extra=(
+                          "--shape", "fl_round", "--variant", "scatter_bf16"))
+    assert not tmp_path.exists()

@@ -1567,3 +1567,61 @@ def test_xattn_lm_loss_grads_and_decode_card_equal_cpu(no_tf32, arch):
     for c, h in zip(out["cuda"], out["cpu"]):
         assert c.is_cuda
         torch.testing.assert_close(c.cpu(), h, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_momentum_cohort_step_on_the_card_matches_the_cpu(card):
+    """``build_optimizer("momentum")``'s cohort step (plain torch, no
+    kernel) on [64, 4096] rows, lanes of 0 to 3 steps: params and ``m``
+    equal to the CPU's (elementwise mul and add in the same order: bit
+    for bit, or within rtol 1e-6); a lane of 0 steps untouched."""
+    from repro_torch.optim import build_optimizer
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    steps = torch.arange(64, dtype=torch.int32) % 4
+    flat = torch.randn(64, 4096, device=card, generator=gen)
+    flat0, cpu = flat.clone(), flat.cpu()
+    opt = build_optimizer("momentum", 1e-2)
+    st, st_cpu = opt.cohort_init(flat), opt.cohort_init(cpu)
+    for s in range(3):
+        g = torch.randn(64, 4096, device=card, generator=gen)
+        opt.cohort_step(flat, st, g, steps.to(card), s)
+        opt.cohort_step(cpu, st_cpu, g.cpu(), steps, s)
+    torch.testing.assert_close(flat.cpu(), cpu, rtol=1e-6, atol=0)
+    torch.testing.assert_close(st["m"].cpu(), st_cpu["m"], rtol=1e-6, atol=0)
+    idle = steps.to(card) == 0
+    assert torch.equal(flat[idle], flat0[idle])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode", "flround"])
+def test_a_cells_flops_on_the_card_equal_its_meta_trace(card, kind):
+    """Each cell kind at qwen3-1.7b's smoke config: the FLOPs the card run
+    counts under ``FlopCounterMode`` equal the ``meta`` trace's exactly
+    (the same ops on the same shapes), and the train step launches
+    ``fused_adam`` once, where the meta trace reported its traffic."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig, get_config
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.launch.steps import build_cell
+
+    smoke = get_config("qwen3-1.7b", smoke=True)
+    ov = {f.name: getattr(smoke, f.name) for f in dataclasses.fields(smoke)
+          if f.name != "name"}
+    seq, batch = (0, 3) if kind == "flround" else (16, 2)
+    cell = build_cell("qwen3-1.7b", ShapeConfig("x", seq, batch, kind),
+                      make_card_mesh(), overrides=ov)
+    meta = cell.trace()
+    args = cell.make_args(card, seed=1)
+    fa.fused_adam.launches = 0
+    with FlopCounterMode(display=False) as counter:
+        cell.fn(*args)
+    torch.cuda.synchronize(card)
+    assert counter.get_total_flops() == meta.flops
+    want = 1 if kind == "train" else 0
+    assert fa.fused_adam.launches == want
+    assert meta.kernels.get("fused_adam", {"launches": 0})["launches"] \
+        == want

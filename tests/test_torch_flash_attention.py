@@ -158,11 +158,16 @@ def test_attention_wrapper_takes_no_plain_fallback_off_the_cpu(monkeypatch):
         raise AssertionError("plain version reached for a non-CPU tensor")
 
     monkeypatch.setattr(ref, "flash_attention", forbidden)
+    from repro_torch.kernels import _build
+    seen = []
+    monkeypatch.setattr(_build, "LISTENERS", [lambda *a: seen.append(a)])
     before = fa.flash_attention.launches
     t = torch.zeros(1, 2, 128, 64, device="meta")
-    with pytest.raises((RuntimeError, TypeError, ValueError,
-                        NotImplementedError)):
-        fa.flash_attention(t, t, t)
+    # a meta tensor (it raised here until the launch slice) takes the
+    # shape-only path: nothing launched, its traffic reported
+    out = fa.flash_attention(t, t, t)
+    assert out.is_meta and out.shape == t.shape
+    assert seen == [("flash_attention", 3 * t.numel() * 4, t.numel() * 4)]
     assert fa.flash_attention.launches == before
 
 

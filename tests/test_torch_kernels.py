@@ -161,21 +161,28 @@ def test_fused_adam_rejects_malformed_input():
 
 # ------------------------------------------ a non-CPU tensor never goes plain
 def test_wrappers_take_no_plain_fallback_off_the_cpu(monkeypatch):
-    """A tensor that is not on the CPU goes to the kernel or raises; the
-    plain versions are never reached (no flag, no try/except fallback)."""
+    """A tensor that is not on the CPU never reaches the plain versions (no
+    flag, no try/except fallback). A ``meta`` tensor (until the launch
+    slice it raised here) takes the shape-only path: nothing is built or
+    launched, the outputs are ``meta`` of the kernel's shapes and the
+    kernel's own traffic goes to ``_build.meta_launch``'s listeners."""
+    from repro_torch.kernels import _build
+
     def forbidden(*a, **k):
         raise AssertionError("plain version reached for a non-CPU tensor")
 
     monkeypatch.setattr(ref, "staleness_agg", forbidden)
     monkeypatch.setattr(ref, "fused_adam", forbidden)
+    seen = []
+    monkeypatch.setattr(_build, "LISTENERS", [lambda *a: seen.append(a)])
     before = (sa.staleness_agg.launches, fa.fused_adam.launches)
     u = torch.zeros(8, 16, device="meta")
-    with pytest.raises((RuntimeError, TypeError, ValueError,
-                        NotImplementedError)):
-        sa.staleness_agg(u, torch.zeros(8, device="meta"))
+    out = sa.staleness_agg(u, torch.zeros(8, device="meta"))
+    assert out.is_meta and out.shape == (16,)
     p = torch.zeros(2, 16, device="meta")
-    with pytest.raises((RuntimeError, TypeError, ValueError,
-                        NotImplementedError)):
-        fa.fused_adam(p, p, p, p, torch.ones(2, dtype=torch.int32,
-                                             device="meta"), 0, lr=LR)
+    fa.fused_adam(p, p, p, p, torch.ones(2, dtype=torch.int32,
+                                         device="meta"), 0, lr=LR)
     assert (sa.staleness_agg.launches, fa.fused_adam.launches) == before
+    assert seen == [("staleness_agg", 8 * 16 * 4 + 8 * 4, 16 * 4),
+                    ("fused_adam", 4 * 2 * 16 * 4 + 2 * 4, 3 * 2 * 16 * 4)]
+    assert not _build._LIBS

@@ -819,7 +819,7 @@ def test_launch_train_steps_match_the_references(arch):
             "tokens": jnp.asarray(tokens[:, :-1]),
             "targets": jnp.asarray(tokens[:, 1:])})
         p, state, loss = train.train_step(lm, opt, p, state, batch)
-        np.testing.assert_allclose(loss, float(jloss), rtol=RTOL)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     assert state["t"] == int(jstate["t"]) == 3
     for (path, a), b in zip(_paths(p), jax.tree.leaves(jp)):
         assert not a.requires_grad

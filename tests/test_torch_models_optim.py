@@ -123,7 +123,7 @@ def test_cohort_step_matches_per_lane_reference(name):
 def test_build_optimizer_sends_adam_to_the_fused_kernel():
     assert optim.build_optimizer("adam", 1e-3).name == "adam-fused"
     assert optim.build_optimizer("sgd", 1e-3).name == "sgd"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        optim.build_optimizer("momentum", 1e-3)
+    # momentum raised until the launch slice; it builds now
+    assert optim.build_optimizer("momentum", 1e-3).name == "momentum"
     with pytest.raises(ValueError):
         optim.build_optimizer("lion", 1e-3)

@@ -62,6 +62,9 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.models.encdec",
             "repro_torch.configs.llama32_vision_11b",
             "repro_torch.configs.seamless_m4t_large_v2"} <= set(mods)
+    assert {"repro_torch.launch.steps", "repro_torch.launch.dryrun",
+            "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+            "repro_torch.sharding", "repro_torch.sharding.rules"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -83,6 +86,10 @@ def test_source_scan_finds_no_jax_or_repro_import():
     assert len(files) > 20
     assert ROOT / "examples" / "torch_train_fl_lm.py" in files
     assert PKG / "models" / "encdec.py" in files
+    for mod in ("launch/steps.py", "launch/dryrun.py", "launch/mesh.py",
+                "launch/roofline.py", "sharding/rules.py",
+                "sharding/__init__.py"):
+        assert PKG / mod in files
     bad = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
            for f in files}
     assert not {f: m for f, m in bad.items() if m}
@@ -240,8 +247,18 @@ def test_training_and_evaluation_run_inside_the_fp32_scope():
     (dict(optimizer="momentum"), "momentum"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
+    """Meshes other than ``1x1`` raise naming their slice. ``momentum``
+    raised too until the launch slice ported it: that case now asserts
+    that its clients train."""
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
     cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1, **kw)
+    if match == "momentum":
+        ctl = Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
+                         device="cpu")
+        assert ctl.trainer.opt.name == "momentum"
+        assert np.isfinite(ctl.run()["total_time"])
+        assert all(torch.isfinite(p).all() for p in ctl.params.values())
+        return
     with pytest.raises(NotImplementedError, match=match) as err:
         Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
                    device="cpu")

@@ -120,12 +120,20 @@ def test_quant8_wrappers_take_no_plain_fallback_off_the_cpu(monkeypatch):
 
     monkeypatch.setattr(ref, "quantize_q8", forbidden)
     monkeypatch.setattr(ref, "dequantize_q8", forbidden)
+    from repro_torch.kernels import _build
+    seen = []
+    monkeypatch.setattr(_build, "LISTENERS", [lambda *a: seen.append(a)])
     before = (quant8.quantize_q8.launches, quant8.dequantize_q8.launches)
-    with pytest.raises((RuntimeError, TypeError, ValueError)):
-        quant8.quantize_q8(torch.zeros(512, device="meta"))
-    with pytest.raises((RuntimeError, TypeError, ValueError)):
-        quant8.dequantize_q8(torch.zeros(512, dtype=torch.int8, device="meta"),
+    # meta tensors (they raised here until the launch slice) take the
+    # shape-only path: meta outputs, nothing launched, traffic reported
+    q, s = quant8.quantize_q8(torch.zeros(512, device="meta"))
+    assert q.is_meta and q.dtype == torch.int8 and s.shape == (2,)
+    x = quant8.dequantize_q8(torch.zeros(512, dtype=torch.int8,
+                                         device="meta"),
                              torch.ones(2, device="meta"))
+    assert x.is_meta and x.shape == (512,) and x.dtype == torch.float32
+    assert seen == [("quantize_q8", 2048, 512 + 8),
+                    ("dequantize_q8", 512 + 8, 2048)]
     assert (quant8.quantize_q8.launches,
             quant8.dequantize_q8.launches) == before
 
@@ -292,6 +300,10 @@ def test_compress_q8_rejects_malformed_input_and_takes_no_fallback(
 
     monkeypatch.setattr(ref, "compress_q8", forbidden)
     before = quant8.compress_q8.launches
-    with pytest.raises((RuntimeError, TypeError, ValueError)):
-        quant8.compress_q8(torch.zeros(300, device="meta"), None, 512)
+    # a meta tensor (it raised here until the launch slice) takes the
+    # shape-only path: meta outputs of the kernel's shapes, no launch
+    q, s, err = quant8.compress_q8(torch.zeros(300, device="meta"), None,
+                                   512)
+    assert (q.shape, s.shape, err.shape) == ((512,), (2,), (300,))
+    assert q.is_meta and s.is_meta and err.is_meta
     assert quant8.compress_q8.launches == before

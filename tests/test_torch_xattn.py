@@ -475,7 +475,7 @@ def test_launch_train_batches_and_steps_match_the_references(arch):
             np.testing.assert_array_equal(batch[k].numpy(), v, err_msg=k)
         jp, jstate, jloss = jstep(jp, jstate, _j(jb))
         p, state, loss = train.train_step(lm, opt, p, state, batch)
-        np.testing.assert_allclose(loss, float(jloss), rtol=RTOL)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=RTOL)
     for (path, a), b in zip(_paths(p), jax.tree.leaves(jp)):
         np.testing.assert_allclose(_np(a), _np(b), rtol=RTOL, atol=ATOL,
                                    err_msg=str(path))
