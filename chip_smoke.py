@@ -27,10 +27,29 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      counted as ``block_topk``: at least once per round, and each
      ``select_topk`` timed). The result
      must be finite, of the model's shapes, with a consistent update store;
+     then the mesh plane (``mesh_phase``): four ranks at ``2x2``, child
+     processes (``scripts/torch_mesh_child.py``) joined over gloo by a
+     ``file://`` rendezvous, all on this one card (NCCL refuses two ranks
+     on one device: the card's tensors are staged through the host), each
+     running ``apodotiko`` and ``apodotiko-topk`` (3 rounds, stepwise) and
+     the megastep config (3 rounds, stepwise then fused) under
+     deterministic algorithms: every rank's host traces equal to the 1x1
+     runs above; ``apodotiko``'s params within rtol 1e-4 / atol 1e-5 of a
+     1x1 run on the card that trains each cohort in two halves and sums
+     each aggregate tile by tile as the mesh does (``split_golden``: on
+     the card the lane count alone moves Adam's first steps by +-lr),
+     and, at the reference mesh test's size, both strategies' params
+     within them of the plain 1x1 runs; params equal to rank 0's
+     bit for bit, the megastep pair bit-equal with a fused round,
+     and per rank ``staleness_agg`` once an aggregation, ``fused_adam``
+     once a local step of each cohort's largest budget and the top-k once
+     a round of the top-k runs; wall s a round (and the 1x1 runs'), the
+     bytes staged through the host and the collectives' ms a round; a
+     rank that exits non-zero fails the phase;
      then the megastep: the reference's megastep bench config at that
      width (``apodotiko-topk``, 100 a round, CR 1.0, no eval, instances
      never cool, on zero-variability hardware of speeds 1.0 / 1.45 / 1.9),
-     6 rounds, run stepwise, fused, fused, stepwise, all under
+     5 rounds, run stepwise, fused, fused, stepwise, all under
      deterministic algorithms: at least 3 rounds fused in each fused run,
      host trace, params, free list, booster and generator bit-equal
      across all four, the same launches in each (``block_topk`` and
@@ -129,7 +148,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      818,402) through ``build_engine(...).run()`` on the paper's IV-A
      settings (``src/repro/configs/paper_*.py``: FEMNIST E=5, B=10, Adam
      1e-3, 1 round; Speech E=5, B=5, Adam 1e-3, 1 round; Shakespeare E=1,
-     B=32, SGD 0.8, 2 rounds), each on 200 clients of the 65/25/10 fleet,
+     B=32, SGD 0.8, 1 round), each on 200 clients of the 65/25/10 fleet,
      100 a round, ``apodotiko``, CR 0.3, data at the paper's shapes and
      ``PAPER_DATA_SCALE``: finite params of the model's shapes, the
      paper's count, the round wall, the cohort's largest step budget, and
@@ -138,7 +157,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
  10. sweep: the ``smoke`` preset, ``paper_tables`` at ``SMOKE_SCALE``
      with ``fedavg`` and ``apodotiko`` (all four datasets on their
      proxies), and ``chaos``, ``production_load`` and
-     ``dataplane_ablation`` at their own scales, through ``run_sweep`` on
+     ``dataplane_ablation`` at their own scales (the ablation's 48 rounds
+     cut to 24), through ``run_sweep`` on
      the card and on the CPU: no ``error`` row, host columns (rounds,
      invocations, cold starts, cost, simulated time, failures, retries)
      equal, accuracies side by side; the ``smoke`` table under
@@ -266,11 +286,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      bytes, model FLOPs, the bound and MFU. The four kinds at qwen3's
      smoke config card against CPU within 1e-5 relative L2; ``momentum``'s
      cohort step on [128, 582,656], lanes masked, card against CPU.
-     Last, with the card's work done, the dry run's meta sweep on the
-     abstract 16x16 mesh, every arch x shape cell (``--cost-mode auto``:
-     ssm and hybrid extrapolated from two depths, the rest traced at full
-     depth on ``meta`` tensors) in three child processes that see no
-     card: zero errors, the skips exactly the reference's (``long_500k``
+     Last, the dry run's meta sweep on the abstract 16x16 mesh, every
+     arch x shape cell (``--cost-mode auto``: ssm and hybrid extrapolated
+     from two depths, the rest traced at full depth on ``meta`` tensors)
+     in three child processes that see no card, started after the mesh
+     phase and running beside the card's phases (one thread each, to
+     keep the script inside its time limit on slow hosts): zero errors, the skips exactly the reference's (``long_500k``
      of every arch but Mamba2 and Zamba2);
  16. kernels: each kernel at the shapes its path gave it, against its
      plain torch version on the same inputs (rtol 1e-5 / atol 1e-6;
@@ -323,7 +344,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      step, one lane of 368,338,432); the xattn phase's:
      ``fused_adam[llama-3.2-vision-11b]`` and
      ``fused_adam[seamless-m4t-large-v2]`` (each centralized step, one lane
-     of 2,141,237,249 and of 2,034,784,256). Every ``fused_adam`` entry
+     of 2,141,237,249 and of 2,034,784,256). The mesh phase's:
+     ``staleness_agg[mesh]``, the sweep form at a rank's tile ``[C/2,
+     W/2]`` of the ``apodotiko`` run's store. Every ``fused_adam`` entry
      times its plain version 2^29 columns at a time, the pieces' times
      summed: at 2.1 B columns its temporaries would not fit beside its
      inputs.
@@ -345,6 +368,7 @@ import sys
 import time
 from dataclasses import asdict
 from pathlib import Path
+from typing import Optional
 
 # deterministic algorithms (the megastep phase) need a fixed cuBLAS
 # workspace, set before the first cuBLAS call
@@ -365,6 +389,9 @@ L2_FLUSH_BYTES = 256 << 20   # scratch written and read between flushed reps
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
 PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-5
 SEED = 0
+# the paper's MNIST data at its published shapes (the main path's)
+MAIN_DATA = dict(name="mnist", n_clients=200, scale=1.0, seed=SEED,
+                 fidelity="paper")
 
 
 def emit(phase: str, **fields) -> None:
@@ -532,15 +559,20 @@ def same(a, b) -> bool:
 
 
 # ---------------------------------------------------------------- main path
+def paper_kw(strategy: str, rounds: int, **over) -> dict:
+    """``paper_cfg``'s fields."""
+    kw = dict(n_clients=200, clients_per_round=100, rounds=rounds,
+              strategy=strategy, concurrency_ratio=0.3, local_epochs=5,
+              batch_size=10, optimizer="adam", lr=1e-3, seed=SEED)
+    return {**kw, **over}
+
+
 def paper_cfg(strategy: str, rounds: int, **over):
     """The paper's MNIST setup (IV-A): 200 clients, 100 per round, E=5,
     B=10, Adam 1e-3, CR=0.3; ``over`` sets other fields."""
     from repro_torch.core.services import FLConfig
 
-    kw = dict(n_clients=200, clients_per_round=100, rounds=rounds,
-              strategy=strategy, concurrency_ratio=0.3, local_epochs=5,
-              batch_size=10, optimizer="adam", lr=1e-3, seed=SEED)
-    return FLConfig(**{**kw, **over})
+    return FLConfig(**paper_kw(strategy, rounds, **over))
 
 
 def paper_engine(strategy: str, rounds: int, data, dev, **over):
@@ -656,7 +688,9 @@ def run_main_path(strategy: str, rounds: int, data, dev):
 
 
 # ----------------------------------------------------------------- megastep
-MEGA_ROUNDS, MEGA_BOOT = 6, 2        # rounds in all; stepwise bootstrap ones
+# rounds in all (6 until the mesh phase: cut to keep the script under
+# 1,000 s; 3 still fuse) and the stepwise bootstrap ones
+MEGA_ROUNDS, MEGA_BOOT = 5, 2
 MEGA_SPEEDS = (1.0, 1.45, 1.9)       # benchmarks/bench_round.py's hardware
 
 
@@ -807,6 +841,392 @@ def straggler_fleet(n: int) -> list:
              + [HARDWARE_PROFILES["gpu"]] * (n - n_slow))
     rng.shuffle(fleet)
     return fleet
+
+
+# --------------------------------------------------------------------- mesh
+MESH_SPEC, MESH_WORLD = "2x2", 4      # four ranks over gloo on one card
+MESH_ROUNDS = 3                       # each run but the megastep pair's
+MESH_MEGA_ROUNDS = 3                  # megastep_cfg: 2 bootstrap + 1 fused
+MESH_STRATEGIES = ("apodotiko", "apodotiko-topk")
+# the wide run held to split_golden: one keeps the phase under 90 s (each
+# split run costs ~9 s); the others run the same mesh code at that width
+MESH_SPLIT_STRATEGY = "apodotiko"
+# the held config: tests/test_mesh_plane.py's size (ProxyCNN, 10 clients,
+# 4 a round, E=1, B=5), where the card's lane split does not flip Adam's
+# steps (see mesh_phase)
+MESH_HELD = dict(n_clients=10, clients_per_round=4, local_epochs=1,
+                 batch_size=5)
+MESH_HELD_DATA = dict(name="mnist", n_clients=10, scale=0.05, seed=SEED)
+MESH_TIMEOUT_S = 240.0
+MESH_CHILD_ARGV = [sys.executable, str(ROOT / "scripts" /
+                                        "torch_mesh_child.py")]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_runs(data_kw: dict, model: str, cfg_over: dict,
+              mega_over: dict) -> list:
+    """The phase's runs, as each rank runs them, stepwise unless named:
+    ``MESH_STRATEGIES`` at ``paper_kw`` on ``data_kw`` / ``model`` (the
+    main path's runs) and at ``MESH_HELD`` (``held_*``), each timed a
+    round; ``megastep_cfg`` stepwise then fused, timed whole."""
+    wide = dict(data=data_kw, model=model, fleet="paper", per_round=True)
+    held = dict(data=MESH_HELD_DATA, model="ProxyCNN", fleet="paper",
+                per_round=True)
+    runs = [dict(wide, name=s, cfg=paper_kw(s, MESH_ROUNDS,
+                                            megastep="stepwise", **cfg_over))
+            for s in MESH_STRATEGIES]
+    runs += [dict(held, name=f"held_{s}", cfg=paper_kw(
+        s, MESH_ROUNDS, megastep="stepwise", **MESH_HELD))
+        for s in MESH_STRATEGIES]
+    runs += [dict(data=data_kw, model=model, fleet="det", per_round=False,
+                  name=f"megastep_{mode}",
+                  cfg=megastep_cfg(**{"rounds": MESH_MEGA_ROUNDS,
+                                      **mega_over}, megastep=mode))
+             for mode in ("stepwise", "fused")]
+    return runs
+
+
+def held_golden(dev) -> dict:
+    """The held config's 1x1 runs on ``dev``."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    data = make_federated_dataset(**MESH_HELD_DATA)
+    out = {}
+    for s in MESH_STRATEGIES:
+        cfg = paper_cfg(s, MESH_ROUNDS, megastep="stepwise", **MESH_HELD)
+        eng = build_engine(cfg, ProxyCNN(10), data,
+                           list(paper_fleet(cfg.n_clients)), device=dev)
+        eng.run()
+        out[f"held_{s}"] = eng
+    return out
+
+
+def mesh_model(name: str):
+    """The phase's models by name, as the ranks build them."""
+    from repro_torch.models.paper_models import MnistCNN
+    from repro_torch.models.proxy_models import ProxyCNN
+    return {"MnistCNN": MnistCNN, "ProxyCNN": lambda: ProxyCNN(10)}[name]()
+
+
+def split_lanes(trainer, d: int) -> None:
+    """Make the un-meshed ``trainer`` train each cohort as a data axis of
+    ``d`` splits it: the whole index table drawn once (the generator moves
+    as at 1x1), then ``d`` calls of Kp/d lanes, each with its rows of the
+    table and the whole cohort's step maximum; rows, losses and variates
+    joined in lane order."""
+    train, draw = trainer._train_lanes, trainer.batch_indices
+
+    def split(global_params, store, sel_t, n_t, steps_t, max_steps, W,
+              c_global=None, c_lanes=None):
+        table = draw(sel_t.shape[0], max_steps, n_t)
+        share = sel_t.shape[0] // d
+        outs = []
+        try:
+            for lo in range(0, sel_t.shape[0], share):
+                sl = slice(lo, lo + share)
+                trainer.batch_indices = lambda *a, part=table[sl]: part
+                outs.append(train(
+                    global_params, store, sel_t[sl], n_t[sl], steps_t[sl],
+                    max_steps, W, c_global,
+                    None if c_lanes is None else c_lanes[sl]))
+        finally:
+            trainer.batch_indices = draw
+        flat, loss, ci = zip(*outs)
+        return (torch.cat(flat), torch.cat(loss),
+                None if ci[0] is None else torch.cat(ci))
+
+    trainer._train_lanes = split
+
+
+@contextlib.contextmanager
+def split_sums(d: int, m: int):
+    """Within the block, ``ops.aggregate_rows`` (and its exact-rows form)
+    sums a whole 1x1 buffer as a ``d x m`` mesh sums its tiles: for each
+    data rank ``i`` and model rank ``j``, the sweep over rows ``i::d`` and
+    column stripe ``j`` (a contiguous copy, as a rank's tile is) with the
+    weights of those rows; the data ranks' partials added in rank order,
+    the stripes joined."""
+    from repro_torch.kernels import ops
+
+    sweep, gather = ops.aggregate_rows, ops.aggregate_rows_gather
+
+    def split(buffer, row_idx, weights):
+        idx = np.asarray(row_idx, np.int64)
+        w = np.asarray(weights, np.float32)
+        wt = buffer.shape[1] // m
+        stripes = []
+        for j in range(m):
+            part = None
+            for i in range(d):
+                mine = idx % d == i
+                p = sweep(buffer[i::d, j * wt:(j + 1) * wt].contiguous(),
+                          idx[mine] // d, w[mine])
+                part = p if part is None else part + p
+            stripes.append(part)
+        return torch.cat(stripes)
+
+    ops.aggregate_rows = ops.aggregate_rows_gather = split
+    try:
+        yield
+    finally:
+        ops.aggregate_rows, ops.aggregate_rows_gather = sweep, gather
+
+
+def split_golden(dev, data_kw: dict, model: str, cfg_over: dict) -> dict:
+    """The wide runs' params reference: ``MESH_SPLIT_STRATEGY`` at
+    ``paper_kw`` (stepwise, as the ranks run it) at 1x1 on ``dev`` under
+    deterministic algorithms, its cohorts trained as ``split_lanes``
+    splits them and its aggregates summed as ``split_sums`` sums them.
+    It shares the mesh's lane split and sum order, and none of its code:
+    the tiles here are slices of one whole buffer, with no ``land_lanes``,
+    no stripe gather and no collective."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.sharding.flmesh import parse_mesh
+
+    d, m = parse_mesh(MESH_SPEC)
+    cfg = paper_cfg(MESH_SPLIT_STRATEGY, MESH_ROUNDS, megastep="stepwise",
+                    **cfg_over)
+    data = make_federated_dataset(**data_kw)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        eng = build_engine(cfg, mesh_model(model), data,
+                           list(paper_fleet(cfg.n_clients)), device=dev)
+        split_lanes(eng.trainer, d)
+        with split_sums(d, m):
+            eng.run()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return {MESH_SPLIT_STRATEGY: {k: v.detach().cpu()
+                                  for k, v in eng.params.items()}}
+
+
+def start_ranks(spec_path: Path, tmp: Path, world: int) -> list:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for r in range(world):
+        log = open(tmp / f"rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            MESH_CHILD_ARGV + [str(spec_path), str(r)], env=env, cwd=ROOT,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def wait_ranks(procs: list, tmp: Path, timeout: float) -> None:
+    """Wait for every rank; the first non-zero exit (or the deadline)
+    kills the rest and fails the phase with each failed rank's log tail."""
+    deadline = time.perf_counter() + timeout
+    try:
+        while True:
+            rcs = [p.poll() for p, _ in procs]
+            if any(rc not in (None, 0) for rc in rcs) or \
+                    all(rc is not None for rc in rcs):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"mesh ranks still running after "
+                                     f"{timeout} s (exit codes {rcs})")
+            time.sleep(0.2)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            log.close()
+    if any(rcs):
+        tails = {r: (tmp / f"rank{r}.log").read_text()[-2000:]
+                 for r, rc in enumerate(rcs) if rc}
+        raise AssertionError(f"mesh ranks exited {rcs}: {tails}")
+
+
+def bits(params: dict) -> dict:
+    """fp32 params as their int32 bit patterns, for ``same``."""
+    return {k: v.contiguous().view(torch.int32) for k, v in params.items()}
+
+
+def close_params(got: dict, want: dict) -> float:
+    """The largest error over its tolerance (PARAM_RTOL / PARAM_ATOL)."""
+    worst = 0.0
+    for name, leaf in want.items():
+        w = leaf.detach().cpu()
+        err = (got[name] - w).abs() / (PARAM_ATOL + PARAM_RTOL * w.abs())
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def max_abs_diff(got: dict, want: dict) -> float:
+    return max(float((got[k] - v.detach().cpu()).abs().max())
+               for k, v in want.items())
+
+
+def check_mesh_launches(rank: int, run: dict) -> None:
+    """``staleness_agg`` once an aggregation, ``fused_adam`` once a local
+    step of each cohort's largest budget, the top-k once a round of the
+    top-k runs (the megastep config's too)."""
+    n = run["launches"]
+    topk = "topk" in run["name"] or run["name"].startswith("megastep")
+    want = {"staleness_agg": run["aggregations"],
+            "fused_adam": sum(run["largest_step_budgets"]),
+            "block_topk": run["rounds"] if topk else 0}
+    got = {k: n[k] for k in want}
+    if got != want:
+        raise AssertionError(f"mesh rank {rank} {run['name']}: launches "
+                             f"{got}, expected {want}")
+
+
+def mesh_phase(golden: dict, dev, data_kw: dict, model: str = "MnistCNN",
+               cfg_over: Optional[dict] = None,
+               mega_over: Optional[dict] = None,
+               timeout: float = MESH_TIMEOUT_S) -> dict:
+    """The FL mesh plane (``sharding.flmesh``) at ``MESH_SPEC``: four
+    ranks, child processes over gloo (``scripts/torch_mesh_child.py``, a
+    ``file://`` rendezvous in a temporary folder), all on ``dev`` (one
+    card: NCCL refuses two ranks on one device, so this shows the mesh
+    over gloo, the card's tensors staged through the host), each running
+    ``mesh_runs`` under deterministic algorithms. ``golden`` holds the
+    1x1 engines and main-path records of ``MESH_STRATEGIES`` at the same
+    config (``{"engines": {...}, "records": {...}}``); the held config's
+    1x1 runs are made here first, ``split_golden``'s after the ranks.
+
+    Fails unless every rank exits 0 and, on every rank: every run's host
+    trace equals its 1x1 run's; the held runs' params are within
+    PARAM_RTOL / PARAM_ATOL of theirs, and ``MESH_SPLIT_STRATEGY``'s wide
+    run's of ``split_golden``'s; every run's params equal rank 0's bit
+    for bit; the megastep pair is bit-equal with a fused round; the
+    launches are as ``check_mesh_launches`` says. The wide run is held to
+    ``split_golden`` and not to the plain 1x1 run: on the card a
+    64-lane cohort step rounds its near-zero gradients unlike the
+    128-lane one, and Adam's normalized step turns each such rounding
+    into a step of +lr or -lr (``scripts/mesh_param_drift.py``: one
+    cohort split in two at 1x1, 2e-3 after one step), so the wide runs'
+    distance from the plain 1x1 runs is reported, not held. Returns the
+    phase's record."""
+    import tempfile
+
+    cfg_over, mega_over = dict(cfg_over or {}), dict(mega_over or {})
+    runs = mesh_runs(data_kw, model, cfg_over, mega_over)
+    engines = {**golden["engines"], **held_golden(dev)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        spec = dict(mesh=MESH_SPEC, world=MESH_WORLD,
+                    init=str(tmp / "rendezvous"), out=str(tmp),
+                    device=str(dev), runs=runs)
+        (tmp / "spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        wait_ranks(start_ranks(tmp / "spec.json", tmp, MESH_WORLD), tmp,
+                   timeout)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(MESH_WORLD)]
+        params = [{run["name"]: torch.load(
+            tmp / f"rank{r}_{run['name']}.pt")["final"] for run in runs}
+            for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    split = split_golden(dev, data_kw, model, cfg_over)
+    split_s = time.perf_counter() - t0
+    gold = {name: json.loads(json.dumps(host_trace(eng)))
+            for name, eng in engines.items()}
+    drift, split_drift = {}, {}
+    for r, (rec, p) in enumerate(zip(ranks, params)):
+        if rec["coords"] != list(divmod(r, 2)):
+            raise AssertionError(f"rank {r} sits at {rec['coords']}")
+        by = {run["name"]: run for run in rec["runs"]}
+        for name, eng in engines.items():
+            if by[name]["trace"] != gold[name]:
+                raise AssertionError(f"mesh rank {r} {name}: host trace "
+                                     "differs from the 1x1 run's")
+            err = close_params(p[name], eng.params)
+            drift[name] = {"err_over_tol": err,
+                           "max_abs": max_abs_diff(p[name], eng.params)}
+            if name.startswith("held_") and err > 1.0:
+                raise AssertionError(f"mesh rank {r} {name}: params {err} x "
+                                     "the tolerance from the 1x1 run's")
+        for name, want in split.items():
+            err = close_params(p[name], want)
+            split_drift[name] = {
+                "err_over_tol": err, "max_abs": max_abs_diff(p[name], want),
+                "bit_equal": same(bits(p[name]), bits(want))}
+            if err > 1.0:
+                raise AssertionError(f"mesh rank {r} {name}: params {err} x "
+                                     "the tolerance from the split 1x1 "
+                                     "run's")
+        step, fused = by["megastep_stepwise"], by["megastep_fused"]
+        if fused["megastep_rounds"] < 1 or step["megastep_rounds"]:
+            raise AssertionError(
+                f"mesh rank {r}: {fused['megastep_rounds']} fused rounds "
+                f"({fused['megastep_fallback_reason']}), "
+                f"{step['megastep_rounds']} stepwise")
+        if fused["trace"] != step["trace"] or not same(
+                bits(p["megastep_fused"]), bits(p["megastep_stepwise"])):
+            raise AssertionError(f"mesh rank {r}: fused differs from "
+                                 "stepwise")
+        for run in rec["runs"]:
+            check_mesh_launches(r, run)
+            if not same(bits(p[run["name"]]), bits(params[0][run["name"]])):
+                raise AssertionError(f"mesh rank {r} {run['name']}: params "
+                                     "differ from rank 0's")
+            if run["mesh"] != MESH_SPEC or run["device"] != str(dev):
+                raise AssertionError(f"mesh rank {r} ran {run['mesh']} on "
+                                     f"{run['device']}")
+    per_round = lambda run, key: run[key] / max(run["rounds"], 1)
+    first = ranks[0]["runs"][0]
+    record = {
+        "mesh": MESH_SPEC, "ranks": MESH_WORLD,
+        "backend": ranks[0]["backend"], "device": str(dev),
+        "staged_through_host": ranks[0]["stages"],
+        "note": ("one card: four ranks over gloo on it, the card's tensors "
+                 "staged through the host; NCCL across cards not shown"),
+        "wall_s": wall,
+        "params_vs_1x1": drift,
+        "params_vs_split_1x1": split_drift,
+        "split_1x1_s": split_s,
+        "one_by_one_round_wall_s": {
+            name: [x["wall_s"] for x in golden["records"][name]["rounds"]]
+            for name in golden["records"]},
+        "runs": [{"rank": rec["rank"], "run": run["name"],
+                  "round_wall_s": run["round_wall_s"],
+                  "wall_s": run["wall_s"], "rounds": run["rounds"],
+                  "mesh_host_bytes_per_round": per_round(
+                      run, "mesh_host_bytes"),
+                  "collective_ms_per_round": 1e3 * per_round(
+                      run, "mesh_collective_s"),
+                  "collectives_per_round": per_round(run, "mesh_collectives"),
+                  "launches": {k: run["launches"][k] for k in (
+                      "staleness_agg", "fused_adam", "block_topk")},
+                  "megastep_rounds": run["megastep_rounds"]}
+                 for rec in ranks for run in rec["runs"]],
+        "store_tile": first["store_tile"],
+        "store_capacity": first["store_capacity"],
+        "row_width": first["row_width"]}
+    emit("mesh", **record)
+    return record
+
+
+def mesh_kernel_entry(mesh: dict, golden_record: dict, dev) -> dict:
+    """``staleness_agg`` at the mesh's tile, ``[C/2, W/2]`` of the
+    ``apodotiko`` run's store, the sweep form (a rank's launch) with the
+    tile's share of the last aggregate's rows weighted; the launches are
+    rank 0's in its ``apodotiko`` run."""
+    C, wt = mesh["store_tile"]
+    k = -(-golden_record["rounds"][-1]["n_aggregated"] // 2)
+    launches = next(r["launches"]["staleness_agg"] for r in mesh["runs"]
+                    if r["rank"] == 0 and r["run"] == "apodotiko")
+    tile = {"strategy": "apodotiko",
+            "rounds": [{"store_capacity": C, "n_aggregated": k}],
+            "row_width": wt, "launches": {"staleness_agg": launches}}
+    entry = agg_kernel_entry("staleness_agg[mesh]", tile, dev,
+                             rows_form=False)
+    entry["launches_run"] = (f"mesh phase: rank 0 of {MESH_SPEC}, "
+                             f"apodotiko, {MESH_ROUNDS} rounds")
+    return entry
 
 
 # -------------------------------------------------------------------- fleet
@@ -1168,7 +1588,8 @@ PAPER_RUNS = {
                     optimizer="adam", lr=1e-3, n_params=6_603_710),
     "speech": dict(rounds=1, local_epochs=5, batch_size=5,
                    optimizer="adam", lr=1e-3, n_params=67_267),
-    "shakespeare": dict(rounds=2, local_epochs=1, batch_size=32,
+    # 1 round: 2 until the mesh phase, cut to keep the script under 1,000 s
+    "shakespeare": dict(rounds=1, local_epochs=1, batch_size=32,
                         optimizer="sgd", lr=0.8, n_params=818_402),
 }
 PAPER_DATA_SCALE = 1.0   # the datasets' own scale (no cut)
@@ -2138,59 +2559,81 @@ MOMENTUM_RTOL = 1e-6
 BF16_ULP_PIECE = 1 << 24       # columns of the fp64 check at once
 
 
-def meta_sweep(tmp: str, groups=LAUNCH_SWEEP_GROUPS, shapes=None,
-               extra=(), timeout: float = 900.0) -> dict:
-    """The dry run's meta sweep on the abstract 16x16 mesh
+def start_meta_sweep(tmp: str, groups=LAUNCH_SWEEP_GROUPS, extra=()
+                     ) -> dict:
+    """Start the dry run's meta sweep on the abstract 16x16 mesh
     (``python -m repro_torch.launch.dryrun --cost-mode auto``: every cell
     of every arch traced on ``meta`` tensors, the ssm and hybrid families
     extrapolated from two depths), one child process a group of archs,
     all at once. The children see no card (``CUDA_VISIBLE_DEVICES``
-    empty) and write their records under ``tmp``, which is removed after;
-    a child still running when this returns or raises is killed. Checks
-    the records: every child exits 0 (the dry run exits 1 on any error
-    record), every (arch, shape) has one record, the skipped cells are
-    exactly the reference's (``long_500k`` of every arch but Mamba2 and
-    Zamba2, by ``shape_supported``) and every other cell is ok. Returns
-    the counts, the wall and one compact row a cell."""
-    import shutil
+    empty), take one thread each and write their records under ``tmp``.
+    ``meta_sweep`` collects them; a child still running at exit is
+    killed."""
+    import atexit
 
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1")
-    t0 = time.perf_counter()
-    procs = []
+    started = {"tmp": tmp, "groups": groups, "t0": time.perf_counter(),
+               "t0_wall": time.time(), "procs": []}
+    atexit.register(_stop_meta_sweep, started)
+    for i, archs in enumerate(groups):
+        out = os.path.join(tmp, f"sweep{i}.jsonl")
+        log = open(os.path.join(tmp, f"sweep{i}.log"), "w")
+        started["procs"].append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ",".join(archs), "--multi-pod", "single", "--cost-mode",
+             "auto", "--out", out, *extra], env=env, cwd=str(ROOT),
+            stdin=subprocess.DEVNULL, stdout=log,
+            stderr=subprocess.STDOUT), out, log))
+    return started
+
+
+def _stop_meta_sweep(started: dict) -> None:
+    for proc, _, log in started["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def meta_sweep(tmp: str, groups=LAUNCH_SWEEP_GROUPS, shapes=None,
+               extra=(), timeout: float = 900.0,
+               started: Optional[dict] = None) -> dict:
+    """The meta sweep (``start_meta_sweep``), started here unless
+    ``started`` is one already running, which then ran beside the card's
+    phases. Checks the records: every child exits 0 (the dry run exits 1
+    on any error record), every (arch, shape) has one record, the skipped
+    cells are exactly the reference's (``long_500k`` of every arch but
+    Mamba2 and Zamba2, by ``shape_supported``) and every other cell is
+    ok; ``tmp`` is removed after, and a child still running when this
+    returns or raises is killed. Returns the counts, the wall (from the
+    start to the last child's exit, as this wait sees it) and one
+    compact row a cell."""
+    import shutil
+
+    started = started or start_meta_sweep(tmp, groups, extra)
     try:
-        for i, archs in enumerate(groups):
-            out = os.path.join(tmp, f"sweep{i}.jsonl")
-            log = open(os.path.join(tmp, f"sweep{i}.log"), "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-                 ",".join(archs), "--multi-pod", "single", "--cost-mode",
-                 "auto", "--out", out, *extra], env=env, cwd=str(ROOT),
-                stdin=subprocess.DEVNULL, stdout=log,
-                stderr=subprocess.STDOUT), out, log))
-        rec = _check_meta_sweep(procs, [a for g in groups for a in g],
-                                shapes, t0, timeout)
+        rec = _check_meta_sweep(started, shapes, timeout)
     finally:
-        for proc, _, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-            log.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        _stop_meta_sweep(started)
+        shutil.rmtree(started["tmp"], ignore_errors=True)
     return rec
 
 
-def _check_meta_sweep(procs, archs, shapes, t0: float, timeout: float
-                      ) -> dict:
+def _check_meta_sweep(started: dict, shapes, timeout: float) -> dict:
     from repro_torch.configs.base import SHAPES
 
-    recs = []
+    procs, t0 = started["procs"], started["t0"]
+    archs = [a for g in started["groups"] for a in g]
+    recs, end = [], 0.0
     for proc, out, log in procs:
         rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
         log.flush()
         if rc:
             tail = Path(log.name).read_text()[-3000:]
             raise AssertionError(f"meta sweep child exited {rc}:\n{tail}")
+        # a child's last write ends its work, on the host's clock
+        end = max(end, os.path.getmtime(log.name), os.path.getmtime(out))
         recs += [json.loads(l) for l in Path(out).read_text().splitlines()]
     shapes = list(shapes or SHAPES)
     want_skip = {(a, "long_500k") for a in archs
@@ -2221,7 +2664,7 @@ def _check_meta_sweep(procs, archs, shapes, t0: float, timeout: float
     return {"mesh": "16x16", "cost_mode": "auto", "n_ok": len(rows),
             "n_skipped": len(skipped), "n_error": 0,
             "skipped": sorted(f"{a}:{s}" for a, s in skipped),
-            "children": len(procs), "wall_s": time.perf_counter() - t0,
+            "children": len(procs), "wall_s": end - started["t0_wall"],
             "cells": rows}
 
 
@@ -2436,13 +2879,15 @@ def momentum_card_cpu(dev, shape=MOMENTUM_SHAPE,
 
 
 def launch_phase(dev, cells=LAUNCH_CELLS, smoke=None, momentum=None,
-                 sweep=None, sweep_dir=None) -> dict:
+                 sweep=None, sweep_dir=None,
+                 started: Optional[dict] = None) -> dict:
     """The launch tooling on the card: the executed cells on the 1x1 mesh
     (``launch_cell``, each its own line), the smoke cells card against
-    CPU, momentum card against CPU, then the meta sweep (``meta_sweep``,
-    its keyword arguments ``sweep``, in ``sweep_dir`` or a new folder),
-    which runs after the card's work so that no timing shares the host
-    with it. The sizes cut it for a rehearsal. One JSON line."""
+    CPU, momentum card against CPU, then the meta sweep (``meta_sweep``):
+    the one ``started`` earlier, which ran beside the card's phases, or
+    else one started now (its keyword arguments ``sweep``, in
+    ``sweep_dir`` or a new folder). The sizes cut it for a rehearsal. One
+    JSON line."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -2450,7 +2895,7 @@ def launch_phase(dev, cells=LAUNCH_CELLS, smoke=None, momentum=None,
     smoke_rec = launch_smoke_card_cpu(dev, **(smoke or {}))
     mom_rec = momentum_card_cpu(dev, **(momentum or {}))
     sweep_rec = meta_sweep(sweep_dir or tempfile.mkdtemp(
-        prefix="chip_smoke_sweep_"), **(sweep or {}))
+        prefix="chip_smoke_sweep_"), started=started, **(sweep or {}))
     rec = {"cells": [f"{c['arch']}:{c['shape']}" for c in cells_rec],
            "smoke_card_cpu": smoke_rec, "momentum": mom_rec,
            "meta_sweep": sweep_rec, "wall_s": time.perf_counter() - t0}
@@ -2496,6 +2941,9 @@ def timed_sweep(spec, dev, workers: int = 1) -> tuple:
 # cells run on this many threads: the bench-scale ablation's four cells
 # side by side (1 and 2 workers give the same table; the smoke check)
 SWEEP_WORKERS = {"dataplane_ablation": 4}
+# BENCH_SCALE's 48 rounds halved: the script passed 1,000 s on the archive
+# with the mesh phase's split reference (1,108.7 s on one H100 host)
+SWEEP_ABLATION_ROUNDS = 24
 
 
 def sweep_specs() -> dict:
@@ -2504,10 +2952,13 @@ def sweep_specs() -> dict:
     ``apodotiko``; and at their own scales ``chaos`` (fault profiles,
     recovery armed; ``SMOKE_SCALE``), ``production_load`` (traffic
     profiles; ``PROD_SCALE``) and ``dataplane_ablation`` (device and host
-    data planes; ``BENCH_SCALE``)."""
+    data planes; ``BENCH_SCALE``, its rounds cut to
+    ``SWEEP_ABLATION_ROUNDS``)."""
     from dataclasses import replace
 
     from repro_torch.sweep import SMOKE_SCALE, get_preset
+
+    ablation = get_preset("dataplane_ablation")
 
     return {"smoke": get_preset("smoke"),
             "paper_tables": replace(get_preset("paper_tables"),
@@ -2515,7 +2966,8 @@ def sweep_specs() -> dict:
                                     scale=SMOKE_SCALE),
             "chaos": get_preset("chaos"),
             "production_load": get_preset("production_load"),
-            "dataplane_ablation": get_preset("dataplane_ablation")}
+            "dataplane_ablation": replace(ablation, scale=replace(
+                ablation.scale, rounds=SWEEP_ABLATION_ROUNDS))}
 
 
 def plane_twins_equal(table) -> bool:
@@ -4323,8 +4775,7 @@ def main() -> int:
 
     from repro_torch.data.synthetic import make_federated_dataset
     t0 = time.perf_counter()
-    data = make_federated_dataset("mnist", n_clients=200, scale=1.0, seed=SEED,
-                                  fidelity="paper")
+    data = make_federated_dataset(**MAIN_DATA)
     emit("data", seconds=time.perf_counter() - t0, X=list(data.X.shape),
          eval_n=len(data.eval_y))
     phase_s = {}
@@ -4341,6 +4792,16 @@ def main() -> int:
     topk_engine, top = run_main_path("apodotiko-topk", 3, data, dev)
     run_main_path("scaffold", 2, data, dev)
     phase_s["main_path"] = time.perf_counter() - t0
+    mesh = timed("mesh", mesh_phase, {
+        "engines": {"apodotiko": apo_engine, "apodotiko-topk": topk_engine},
+        "records": {"apodotiko": apo, "apodotiko-topk": top}}, dev,
+        MAIN_DATA)
+    # the launch phase's meta sweep needs no card: its children (one
+    # thread each) run beside the phases from here on, out of the mesh
+    # phase's way, and the launch phase collects them
+    import tempfile
+    sweep_started = start_meta_sweep(tempfile.mkdtemp(
+        prefix="chip_smoke_sweep_"))
     timed("megastep", megastep_phase, data, dev)
     profiles = timed("profiles", profiles_phase, data, dev)
     timed("durability", durability_phase, data, dev)
@@ -4369,7 +4830,7 @@ def main() -> int:
     xattn = timed("xattn", xattn_phase, dev)
     xattn_entries = timed("xattn_kernel_entries", xattn_kernel_entries,
                           xattn, dev)
-    timed("launch", launch_phase, dev)
+    timed("launch", launch_phase, dev, started=sweep_started)
     if tf32_flags() != tf32:
         raise AssertionError(f"TF32 flags {tf32_flags()} after the runs, "
                              f"{tf32} before: a scope leaked")
@@ -4413,6 +4874,7 @@ def main() -> int:
     kernels += paper_kernel_entries(paper, dev)
     kernels.append(pytree_agg_entry(profiles["pytree_run"], dev))
     kernels += lm_entries + moe_entries + ssm_entries + xattn_entries
+    kernels.append(mesh_kernel_entry(mesh, apo, dev))
     phase_s["kernel_entries"] = time.perf_counter() - t0
     for e in kernels:
         emit("kernel", **e)

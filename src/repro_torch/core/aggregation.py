@@ -7,7 +7,7 @@ with ``s`` Eq. 2 (Apodotiko) or Eq. 1 (FedLesScan), normalized as in the
 FedLess reference implementation.
 
 ``weighted_aggregate_rows`` reduces K rows of an ``UpdateStore`` buffer by
-row id. It keeps the reference's two routes and their rule:
+row id. It keeps the reference's routes and their rule:
 
   * **sweep** (``kernels.ops.aggregate_rows``): the K weights scatter over
     the whole ``[capacity]`` buffer, freed rows at weight 0, one pass;
@@ -15,7 +15,12 @@ row id. It keeps the reference's two routes and their rule:
     referenced rows are read. Taken when the reference set is a small
     fraction of a grown buffer (capacity only doubles, never shrinks), and
     as the exact recompute when the sweep's result is not finite
-    (0 * inf = nan from garbage in a freed row).
+    (0 * inf = nan from garbage in a freed row);
+  * **psum** (``kernels.ops.aggregate_rows_psum``), with a mesh: the sweep
+    over each rank's tile of a mesh-sharded store, the partials
+    all-reduced over ``data``, as the reference's mesh route, taken
+    whatever the row counts; its guard recomputes through the exact-rows
+    form on each rank's owned rows (``aggregate_rows_psum_gather``).
 
 ``weighted_aggregate`` reduces a list of K parameter trees (the blob
 update plane's transport, the reference's equivalence oracle) through
@@ -49,7 +54,8 @@ _GUARD_RECOMPUTES = 0
 
 
 def last_path() -> str:
-    """'sweep' | 'gather': the route of the most recent aggregate."""
+    """'sweep' | 'gather' | 'psum': the route of the most recent
+    aggregate."""
     return _LAST_PATH
 
 
@@ -98,15 +104,22 @@ def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,
                             spec: "kernel_ops.RavelSpec", out_dtype=None,
                             mesh=None) -> Params:
     """Reduce rows ``row_idx`` of the ``[capacity, W]`` buffer with
-    ``weights`` and unravel the flat result once into a params dict."""
+    ``weights`` and unravel the flat result once into a params dict. With
+    ``mesh``, ``buffer`` is this rank's tile of a mesh-sharded store and
+    every rank gets the whole result; the finiteness guard reads the whole
+    [W], so every rank takes the recompute alike and the ranks' collectives
+    stay in step."""
     global _LAST_PATH, _GUARD_RECOMPUTES
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded aggregation over a mesh comes with a later slice of "
-            "the port (only the 1x1 mesh is supported)")
     if len(row_idx) != len(weights) or len(row_idx) == 0:
         raise ValueError(f"{len(row_idx)} rows for {len(weights)} weights")
-    if rows_dispatch(buffer.shape[0], len(row_idx)):
+    if mesh is not None:
+        flat = kernel_ops.aggregate_rows_psum(buffer, row_idx, weights, mesh)
+        _LAST_PATH = "psum"
+        if not bool(torch.isfinite(flat).all()):
+            flat = kernel_ops.aggregate_rows_psum_gather(buffer, row_idx,
+                                                         weights, mesh)
+            _GUARD_RECOMPUTES += 1
+    elif rows_dispatch(buffer.shape[0], len(row_idx)):
         flat = kernel_ops.aggregate_rows_gather(buffer, row_idx, weights)
         _LAST_PATH = "gather"
     else:

@@ -45,6 +45,17 @@ TF32 off (``device.fp32_exact``) as the reference computes in fp32:
     the counterpart of the reference's ``cohort_fn_indexed`` program), the
     cohort as device tensors and the rows already allocated.
 
+With a mesh (``mesh=``, ``sharding.flmesh``) the cohort floor becomes
+``lcm(floor, data)``, so every ``Kp`` splits evenly over the ``data``
+axis, and data rank ``i`` trains lanes ``[i*Kp/data, (i+1)*Kp/data)``.
+Every rank draws the whole ``[Kp, max_steps, B]`` index table and slices
+its lanes' rows, so each generator advances as the 1x1 run's does and a
+lane sees the indices it sees at 1x1 (the twin of the reference's
+replicated lane-key table); the step loop runs to the cohort's largest
+budget on every rank. The trained rows land in the store's owned tiles
+(``update_store.land_lanes``), and the losses and SCAFFOLD's ``c_i'`` are
+all-gathered over ``data``, so the host sees ``[K]`` on every rank.
+
 Client-side modifications of the baselines: FedProx's proximal term, and
 SCAFFOLD's control variates. Given variates (the runtime passes them when
 its strategy needs them), every lane's raveled grads are corrected to
@@ -54,16 +65,18 @@ flat ``[W]`` rows in ``RavelSpec`` order, pad lanes zero.
 """
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.update_store import _round_up, scatter_rows
+from repro_torch.core.update_store import _round_up, land_lanes
 from repro_torch.device import fp32_exact, resolve_device
 from repro_torch.kernels.ops import BLOCK_N, RavelSpec, tree_leaves
 from repro_torch.optim import build_optimizer
+from repro_torch.sharding import flmesh
 
 Params = Any
 BatchIndices = Callable[[int, int, torch.Tensor], torch.Tensor]
@@ -90,15 +103,20 @@ class CohortTrainer:
     def __init__(self, model, *, optimizer: str, lr: float, batch_size: int,
                  prox_mu: float = 0.0, seed: int = 0,
                  cohort_floor: Optional[int] = None, device=None,
-                 batch_indices: Optional[BatchIndices] = None):
+                 batch_indices: Optional[BatchIndices] = None, mesh=None):
         self.model = model
         self.opt = build_optimizer(optimizer, lr)
         self.lr = lr
         self.batch_size = batch_size
         self.prox_mu = prox_mu
-        self.device = resolve_device(device)
-        self.cohort_floor = (DEFAULT_COHORT_FLOOR if cohort_floor is None
-                             else int(cohort_floor))
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None and device is None \
+            else resolve_device(device)
+        floor = (DEFAULT_COHORT_FLOOR if cohort_floor is None
+                 else int(cohort_floor))
+        # every bucket must split evenly over the data axis: power-of-two
+        # bucketing keeps multiples of the floor
+        self.cohort_floor = math.lcm(floor, flmesh.mesh_axes(mesh)[0])
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.batch_indices = batch_indices or self._draw_indices
         self._grad_fn = self._make_grad_fn()
@@ -126,21 +144,30 @@ class CohortTrainer:
 
     def cohort_bucket(self, K: int) -> int:
         """The padded cohort size: the next power-of-two multiple of the
-        cohort floor (2)."""
+        cohort floor (2, or ``lcm(2, data)`` under a mesh)."""
         return _bucket(K, self.cohort_floor)
 
     def _train_lanes(self, global_params: Params, store, sel_t: torch.Tensor,
                      n_t: torch.Tensor, steps_t: torch.Tensor, max_steps: int,
                      W: int, c_global: Optional[torch.Tensor] = None,
                      c_lanes: Optional[torch.Tensor] = None):
-        """The local-training loop of both entries: every lane (client
+        """The local-training loop of every entry: every lane (client
         ``sel_t`` [Kp] int64, ``n_t`` [Kp] int64 samples, ``steps_t`` [Kp]
         int32 budget, all on the device) trains from ``global_params`` for
         its budget, ``max_steps`` being the largest. With SCAFFOLD,
-        ``c_global`` [W] and ``c_lanes`` [Kp, W] are the variates. Returns
-        ``(flat [Kp, W] trained rows, mean losses [Kp], c_i' [Kp, W] or
-        None)``, all on the device."""
+        ``c_global`` [W] and ``c_lanes`` [Kp, W] are the variates. Under a
+        mesh only this data rank's lanes train. Returns ``(flat [L, W]
+        trained rows, mean losses [L], c_i' [L, W] or None)`` for those L
+        lanes (all Kp un-meshed), on the device."""
         dev = self.device
+        bidx = self.batch_indices(sel_t.shape[0], max_steps, n_t)
+        if self.mesh is not None:
+            # the whole table is drawn, so the generator moves as at 1x1
+            lanes = self._lanes(sel_t.shape[0])
+            sel_t, n_t, steps_t, bidx = (sel_t[lanes], n_t[lanes],
+                                         steps_t[lanes], bidx[lanes])
+            if c_lanes is not None:
+                c_lanes = c_lanes[lanes]
         Kp = sel_t.shape[0]
         spec = RavelSpec(global_params)
         row0 = torch.zeros(W, dtype=torch.float32, device=dev)
@@ -149,7 +176,6 @@ class CohortTrainer:
         grads = torch.zeros_like(flat)
         params, grad_views = spec.unravel_stacked(flat), spec.unravel_stacked(grads)
         opt_state = self.opt.cohort_init(flat, spec)
-        bidx = self.batch_indices(Kp, max_steps, n_t)
         sel_c = sel_t[:, None]
         losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
         with fp32_exact():
@@ -228,7 +254,8 @@ class CohortTrainer:
             steps = np.concatenate([steps, np.zeros(Kp - K, steps.dtype)])
         dev = self.device
         W = (update_sink.row_width if update_sink is not None
-             else _round_up(RavelSpec(global_params).n_params, BLOCK_N))
+             else _round_up(RavelSpec(global_params).n_params,
+                            flmesh.row_align(self.mesh, BLOCK_N)))
         c_lanes = None
         if c_global is not None:
             c_lanes = torch.zeros((Kp, W), dtype=torch.float32, device=dev)
@@ -238,19 +265,32 @@ class CohortTrainer:
             torch.as_tensor(n_i, device=dev),
             torch.as_tensor(steps.astype(np.int32), device=dev),
             int(steps.max()), W, c_global, c_lanes)
+        if self.mesh is not None:
+            # every rank's lanes, in lane order, on every rank
+            mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
+            if ci_new is not None:
+                ci_new = flmesh.all_gather_data(ci_new, self.mesh)
         mean_loss = mean_loss.cpu().numpy()[:K]
         if ci_new is not None:
             ci_new = ci_new[:K]
         if update_sink is None:
             spec = RavelSpec(global_params)
+            if self.mesh is not None:
+                flat = flmesh.all_gather_data(flat, self.mesh)
             return spec.unravel_stacked(flat[:K]), ci_new, mean_loss
         # pad lanes ran 0 steps: their rows hold the global model and are
         # recycled right away, as the reference's flat-update path does
         ids = update_sink.alloc(Kp)
-        scatter_rows(update_sink.buffer, ids, flat)
+        land_lanes(update_sink.buffer, ids, flat, self.mesh)
         if Kp != K:
             update_sink.free(ids[K:])
         return ids[:K], ci_new, mean_loss
+
+    def _lanes(self, Kp: int) -> slice:
+        """This data rank's lanes of a ``Kp``-lane cohort."""
+        share = Kp // self.mesh.data
+        return slice(self.mesh.data_index * share,
+                     (self.mesh.data_index + 1) * share)
 
     def train_cohort_rows(self, global_params: Params, store,
                           cidx: torch.Tensor, n_p: torch.Tensor,
@@ -261,10 +301,14 @@ class CohortTrainer:
         ``steps_p`` [Kp] int32 budgets, pad lanes at 0 steps) trains as
         ``train_cohort_indexed`` trains it, with the same ``batch_indices``
         draw (one host read of the step maximum), and its rows land in
-        ``buffer`` at ``row_ids`` [Kp], allocated by the caller. Returns the
-        mean losses [Kp] on the device."""
+        ``buffer`` at ``row_ids`` [Kp], allocated by the caller (under a
+        mesh, ``buffer`` is this rank's tile, and the rows land as
+        ``train_cohort_indexed`` lands them). Returns the mean losses [Kp]
+        on the device."""
+        W = buffer.shape[1] * flmesh.mesh_axes(self.mesh)[1]
         flat, mean_loss, _ = self._train_lanes(
-            global_params, store, cidx, n_p, steps_p, int(steps_p.max()),
-            buffer.shape[1])
-        scatter_rows(buffer, row_ids, flat)
+            global_params, store, cidx, n_p, steps_p, int(steps_p.max()), W)
+        land_lanes(buffer, row_ids, flat, self.mesh)
+        if self.mesh is not None:
+            mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
         return mean_loss

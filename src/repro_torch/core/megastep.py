@@ -52,6 +52,14 @@ suppressed and no device work, so every host structure ends equal to the
 stepwise run's. Loop-vs-replay cross-checks (row ids, replayed durations
 and cold/failed flags, landing order) raise rather than diverge silently.
 
+Under a mesh (``sharding.flmesh``) the loop calls the mesh forms of the
+same steps: the cohort trains this rank's lanes and its rows land in the
+owned tiles (``train_cohort_rows``), and the aggregation is the psum
+route (``aggregate_rows_traced(mesh=)``). Selection, the free stack and
+the EMA fold run alike on every rank, so every rank pops the same ids;
+``_plan`` refuses a cohort bucket or a store capacity that the ``data``
+axis does not divide, with the reference's strings.
+
 ``_plan`` is the eligibility check: it admits a run of rounds only when
 every condition above is statically provable and otherwise reports why
 (``Scheduler.metrics()['megastep_fallback_reason']``, the reference's
@@ -84,6 +92,7 @@ class MegastepPlan:
     Kp: int                 # padded cohort bucket
     top: int                # free-stack height at entry
     sparse: bool            # aggregation route (rows_dispatch)
+    mesh: Any               # sharding.flmesh mesh (None: single device)
     out_dtype: Any          # model leaf dtype (post-aggregate cast)
     beta32: np.float32      # booster promotion rate (1 + rho)
     dec32: np.float32       # EMA decay (1 - rho)
@@ -255,10 +264,19 @@ def _plan(sched) -> tuple[Optional[MegastepPlan], str]:
     if stack.size < Kp:
         return None, "update-store free list too small (would grow)"
     sparse = rows_dispatch(sched.store.capacity, K)
+    # the lane split and the row tiles need the data axis to divide both;
+    # the trainer's lcm'd floor and the store's alignment guarantee it,
+    # and a future geometry change degrades to stepwise here
+    mesh = sched.mesh
+    if mesh is not None:
+        if Kp % mesh.data:
+            return None, "cohort bucket not divisible by mesh data axis"
+        if sched.store.capacity % mesh.data:
+            return None, "store capacity not divisible by mesh data axis"
 
     _, rank_col = np.unique(d64_col, return_inverse=True)
     return MegastepPlan(
-        R=R, K=K, Kp=Kp, top=int(stack.size), sparse=sparse,
+        R=R, K=K, Kp=Kp, top=int(stack.size), sparse=sparse, mesh=mesh,
         out_dtype=out_dtype,
         beta32=np.float32(promotion_rate(cfg.adjustment_rate)),
         dec32=np.float32(fleet.decay),
@@ -317,7 +335,7 @@ def _fused_rounds(sched, plan: MegastepPlan, dev):
         w = n32_col[sel][perm]
         w = w / w.sum()
         flat = aggregate_rows_traced(buffer, rows_land, w,
-                                     sparse=plan.sparse)
+                                     sparse=plan.sparse, mesh=plan.mesh)
         params = tree_map(lambda x: x.to(plan.out_dtype),
                           spec.unravel(flat[:spec.n_params],
                                        restore_dtype=False))

@@ -41,8 +41,14 @@ plane (``device`` resident, or ``host``: per-dispatch upload), on the
 ``object`` or ``columnar`` control plane, with any fault or traffic
 profile, and the Scheduler's fused-round megastep (``megastep="fused"``,
 the default, as in the reference), durable or not, with database
-checkpoints or without. Meshes other than ``1x1`` need a later slice and
-raise ``NotImplementedError`` naming it (``_check_supported``).
+checkpoints or without. A ``"<data>x<model>"`` mesh
+(``sharding.flmesh``) runs under the caller's process group, one process
+a rank, every rank running the whole host engine: the update store
+sharded, the cohort split over ``data``, aggregation an all-reduce of the
+ranks' partial sums. Under a mesh the device planes are required
+(``ValueError`` otherwise, as in the reference), and durable runs and
+database checkpoints raise ``NotImplementedError`` naming the slice that
+will bring them (``_check_supported``).
 """
 from __future__ import annotations
 
@@ -75,6 +81,7 @@ from repro_torch.faas.faults import build_fault_model, resolve_fault_profile
 from repro_torch.faas.hardware import HardwareProfile
 from repro_torch.faas.platform import FaaSPlatform, InvocationRecord
 from repro_torch.kernels.ops import BLOCK_N, RavelSpec, tree_leaves, tree_map
+from repro_torch.sharding import flmesh
 from repro_torch.traffic import (build_traffic_schedule,
                                  resolve_traffic_profile, slo_summary)
 
@@ -145,14 +152,30 @@ def resolve_durability_sync(mode: str) -> str:
 
 
 def _check_supported(cfg: "FLConfig") -> None:
-    """Raise for every setting this slice of the port does not run."""
-    later = "comes with a later slice of the port"
+    """Raise for every setting this slice of the port does not run, and
+    for a mesh with a setting that cannot shard, before any process group
+    is read."""
     resolve_engine(cfg.engine)
     resolve_megastep(cfg.megastep)
     if _resolve(cfg.control_plane, "columnar") not in ("columnar", "object"):
         raise ValueError(f"unknown control plane {cfg.control_plane!r}")
-    if _resolve(cfg.mesh, "1x1") != "1x1":
-        raise NotImplementedError(f"mesh={cfg.mesh!r} {later}")
+    spec = flmesh.resolve_mesh(cfg.mesh)
+    if spec == "1x1":
+        return
+    update_plane = resolve_update_plane(cfg.update_plane)
+    data_plane = resolve_data_plane(cfg.data_plane)
+    if update_plane != "device" or data_plane != "device":
+        raise ValueError(
+            f"mesh {spec!r} requires the device update and data planes (got "
+            f"update_plane={update_plane!r}, data_plane={data_plane!r}): the "
+            "blob/host paths move every row through the host and cannot "
+            "shard")
+    if resolve_durability(cfg.durability) == "journal" \
+            or cfg.checkpoint_every:
+        raise NotImplementedError(
+            f"durable runs and database checkpoints under mesh {spec!r} come "
+            "with the next slice of the port (one journal writer and a "
+            "snapshot of the gathered store, restored per rank)")
 
 
 @dataclass
@@ -166,8 +189,8 @@ class FLConfig:
     The fields, their defaults and their meaning are the reference's. In
     the port an ``"auto"`` value resolves to the default the comment names
     without reading any ``REPRO_*`` environment variable. Every setting
-    runs except meshes other than ``1x1``, which raise
-    (``_check_supported``)."""
+    runs; under a mesh other than ``1x1``, durable runs and database
+    checkpoints raise (``_check_supported``)."""
 
     # -- population & schedule -------------------------------------------------
     n_clients: int = 200           # total registered clients (paper IV-A3: 200)
@@ -260,8 +283,9 @@ class FLConfig:
     durability_snap_every: int = 1  # coordinated snapshot every k closed
     #                                 rounds (journal validation covers the
     #                                 re-executed gap on resume)
-    mesh: str = "auto"             # device mesh: "1x1" (= "auto") only in
-    #                                 this slice
+    mesh: str = "auto"             # device mesh (sharding.flmesh): "1x1"
+    #                                 (= "auto") | "<data>x<model>", one
+    #                                 process a rank in the caller's group
     # -- harness ---------------------------------------------------------------
     eval_every: int = 1            # evaluate global model every k rounds
     seed: int = 0                  # RNG seed: selection, init, platform noise
@@ -340,7 +364,19 @@ class FLRuntime:
                  init_params: Optional[Params] = None,
                  strategy: Optional[Strategy] = None, device=None):
         _check_supported(cfg)
-        self.device = resolve_device(device)
+        if db is not None and flmesh.resolve_mesh(cfg.mesh) != "1x1":
+            raise NotImplementedError(
+                f"resuming under mesh {cfg.mesh!r} comes with the next slice "
+                "of the port")
+        # mesh plane: "1x1" builds nothing (mesh None, the single-device
+        # path); a wider mesh reads the caller's process group and names
+        # this rank's device
+        self.mesh_spec = flmesh.resolve_mesh(cfg.mesh)
+        self.mesh = flmesh.build_fl_mesh(self.mesh_spec, device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(device))
+        self._mesh_counters0 = (self.mesh.counters() if self.mesh is not None
+                                else None)
         self.cfg = cfg
         self.model = model
         self.data = data        # FederatedDataset (repro_torch.data)
@@ -367,11 +403,10 @@ class FLRuntime:
         self.strategy: Strategy = (
             strategy if strategy is not None
             else build_strategy(cfg.strategy, strategy_config(cfg)))
-        self.mesh_spec = "1x1"
         self.trainer = CohortTrainer(
             model, optimizer=cfg.optimizer, lr=cfg.lr,
             batch_size=cfg.batch_size, prox_mu=self.strategy.prox_mu,
-            seed=cfg.seed, device=self.device)
+            seed=cfg.seed, device=self.device, mesh=self.mesh)
 
         # control plane: a restored database's plane is authoritative (its
         # client state is stored in that representation)
@@ -439,7 +474,7 @@ class FLRuntime:
         if self.update_plane == "device":
             self.store = UpdateStore(self.spec.n_params,
                                      capacity=max(cfg.clients_per_round, 1),
-                                     device=self.device)
+                                     device=self.device, mesh=self.mesh)
             if db is not None and cfg.checkpoint_dir:
                 self._rehydrate_store()
         # data plane: the federated dataset is resident on the card, or
@@ -880,7 +915,7 @@ class FLRuntime:
                 raise RuntimeError("pending result without a row handle")
             self.params = weighted_aggregate_rows(
                 self.store.buffer, rows, weights, self.spec,
-                out_dtype=out_dtype)
+                out_dtype=out_dtype, mesh=self.mesh)
             self.store.free(rows)
         else:
             updates = [tree_map(lambda x: torch.as_tensor(x).to(self.device),
@@ -951,6 +986,10 @@ class FLRuntime:
             "device": str(self.device),
             "control_plane": self.control_plane,
             "mesh": self.mesh_spec,
+            # the mesh's collectives during this engine's life: bytes
+            # staged through the host (gloo with card tensors), host-clock
+            # seconds, calls
+            **self._mesh_metrics(),
             "update_plane": self.update_plane,
             "update_host_bytes": int(self.update_host_bytes),
             "data_plane": self.data_plane,
@@ -995,6 +1034,13 @@ class FLRuntime:
             "history": [(l.t_end, l.round, l.accuracy) for l in self.history],
         }
 
+    def _mesh_metrics(self) -> dict:
+        if self.mesh is None:
+            return {"mesh_host_bytes": 0, "mesh_collective_s": 0.0,
+                    "mesh_collectives": 0}
+        now = self.mesh.counters()
+        return {k: now[k] - self._mesh_counters0[k] for k in now}
+
     def time_to_accuracy(self, target: float) -> Optional[float]:
         """Simulated time at which an evaluation first reached ``target``
         (None if none did)."""
@@ -1010,6 +1056,10 @@ class FLRuntime:
         plane the live un-aggregated update rows beside it."""
         if not self.cfg.checkpoint_dir:
             return
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"database checkpoints under mesh {self.mesh_spec!r} come "
+                "with the next slice of the port")
         self.db.meta["update_plane"] = self.update_plane
         self.db.put_global_model(self.db.round, tree_map(
             lambda p: p.detach().cpu().numpy(), self.params))

@@ -24,6 +24,17 @@ a pytree of ``[M, ...]`` leaves; the port keeps it as ONE flat
 ``[M, W]`` fp32 tensor in ``RavelSpec`` order, the layout of the update
 rows (``RavelSpec.unravel_stacked`` gives per-leaf views), so the helpers
 act on rows.
+
+With a mesh (``UpdateStore(mesh=)``, ``sharding.flmesh``) each rank holds
+only its ``[capacity/data, W/model]`` tile of the buffer: row ``r`` lives
+on data rank ``r % data`` at local row ``r // data`` (cyclic, so a
+capacity doubling appends local rows and moves none), and its columns are
+cut into ``model`` stripes. Row ids, the free-list and the live set are
+global and equal on every rank, so ``alloc`` and ``put`` return the
+reference's ids; writes land only in the rows and stripe this rank owns;
+``gather`` assembles whole rows on every rank through the mesh's
+collectives. W aligns to ``row_align(mesh, BLOCK_N)`` and capacity to
+``capacity_align(mesh, SUBLANE)``, the 1x1 values un-meshed.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import BLOCK_N, SUBLANE
+from repro_torch.sharding import flmesh
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,14 +87,58 @@ def scatter_rows(buffer: torch.Tensor, ids, rows: torch.Tensor) -> None:
         buffer[idx, n:] = 0.0
 
 
+def _owned(mesh, ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mask, local)``: which of the row ids ``ids`` this rank's data
+    coordinate owns, and every id's local row (``id // data``)."""
+    return ids % mesh.data == mesh.data_index, ids // mesh.data
+
+
+def _stripe(tile: torch.Tensor, mesh) -> slice:
+    """The columns of a whole row that this rank's tile holds."""
+    lo = mesh.model_index * tile.shape[1]
+    return slice(lo, lo + tile.shape[1])
+
+
+def _scatter_owned(tile: torch.Tensor, mesh, ids, stripe: torch.Tensor
+                   ) -> None:
+    """``stripe`` [K, <=W/model], this rank's columns of rows ``ids``, into
+    the rows of ``tile`` that this rank owns."""
+    idx = torch.as_tensor(ids, dtype=torch.int64, device=tile.device)
+    mine, local = _owned(mesh, idx)
+    scatter_rows(tile, local[mine], stripe.to(tile.device)[mine])
+
+
+def land_lanes(buffer: torch.Tensor, ids, lanes: torch.Tensor,
+               mesh=None) -> None:
+    """Write the cohort's trained rows into ``buffer`` at row ids ``ids``
+    ([Kp]: host ids or an int64 tensor). Un-meshed, ``lanes`` is the whole
+    ``[Kp, n<=W]`` cohort and ``buffer`` the whole buffer. Under a mesh,
+    ``lanes`` is this data rank's ``[Kp/data, W]`` share of the cohort
+    (``CohortTrainer``'s lane split) and ``buffer`` this rank's tile: each
+    rank's column stripe of its lanes is all-gathered over ``data`` into
+    the cohort's ``[Kp, W/model]`` stripe, and the rows this rank owns are
+    written."""
+    if mesh is None:
+        scatter_rows(buffer, ids, lanes)
+        return
+    _scatter_owned(buffer, mesh, ids, flmesh.all_gather_data(
+        lanes[:, _stripe(buffer, mesh)].contiguous(), mesh))
+
+
 class UpdateStore:
-    """Free-listed [capacity, W] fp32 device buffer of flat client updates."""
+    """Free-listed [capacity, W] fp32 device buffer of flat client updates
+    (this rank's ``[capacity/data, W/model]`` tile of it under a mesh)."""
 
     def __init__(self, n_params: int, capacity: int = 16,
-                 dtype=torch.float32, device=None):
-        self.device = resolve_device(device)
+                 dtype=torch.float32, device=None, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None and device is None \
+            else resolve_device(device)
         self.n_params = int(n_params)
-        self.row_width = _round_up(self.n_params, BLOCK_N)
+        self.row_width = _round_up(self.n_params,
+                                   flmesh.row_align(mesh, BLOCK_N))
+        self._cap_align = flmesh.capacity_align(mesh, SUBLANE)
+        self._d, self._m = flmesh.mesh_axes(mesh)
         self.dtype = dtype
         self.capacity = 0
         self.buffer: Optional[torch.Tensor] = None
@@ -94,8 +150,9 @@ class UpdateStore:
         if capacity <= self.capacity:
             return
         # double (at least) so growth is amortized O(1) per row
-        cap = _round_up(max(capacity, 2 * self.capacity), SUBLANE)
-        grown = torch.zeros((cap - self.capacity, self.row_width),
+        cap = _round_up(max(capacity, 2 * self.capacity), self._cap_align)
+        grown = torch.zeros(((cap - self.capacity) // self._d,
+                             self.row_width // self._m),
                             dtype=self.dtype, device=self.device)
         self.buffer = (grown if self.buffer is None
                        else torch.cat([self.buffer, grown], dim=0))
@@ -110,10 +167,19 @@ class UpdateStore:
         self._live.update(int(i) for i in ids)
         return ids
 
+    def _write(self, ids: np.ndarray, rows: torch.Tensor) -> None:
+        """Whole ``[K, n<=W]`` rows, the same on every rank, into this
+        rank's rows and column stripe of them."""
+        if self.mesh is None:
+            scatter_rows(self.buffer, ids, rows)
+        else:
+            _scatter_owned(self.buffer, self.mesh, ids,
+                           rows[:, _stripe(self.buffer, self.mesh)])
+
     def put(self, rows: torch.Tensor) -> np.ndarray:
         """Write [K, n_params<=W] rows into freshly allocated slots."""
         ids = self.alloc(rows.shape[0])
-        scatter_rows(self.buffer, ids, rows)
+        self._write(ids, rows)
         return ids
 
     def write_at(self, ids: Sequence[int], rows) -> None:
@@ -133,12 +199,22 @@ class UpdateStore:
         rows = torch.as_tensor(rows)
         if rows.shape[1] > self.row_width:
             rows = rows[:, : self.row_width]
-        scatter_rows(self.buffer, ids, rows.to(self.device))
+        self._write(ids, rows.to(self.device))
 
     def gather(self, ids: Sequence[int]) -> torch.Tensor:
-        """[len(ids), W] device gather."""
-        return self.buffer[torch.as_tensor(np.asarray(ids, np.int64),
-                                           device=self.device)]
+        """[len(ids), W] device gather; under a mesh whole rows on every
+        rank, each row its owner's, each stripe its model rank's."""
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        if self.mesh is None:
+            return self.buffer[idx]
+        mine, local = _owned(self.mesh, idx)
+        part = self.buffer.new_zeros((len(idx), self.buffer.shape[1]))
+        part[mine] = self.buffer[local[mine]]
+        parts = flmesh.all_gather_data(part, self.mesh).view(
+            self._d, len(idx), -1)
+        stripe = parts[idx % self._d, torch.arange(len(idx),
+                                                   device=self.device)]
+        return flmesh.all_gather_model(stripe, self.mesh)
 
     def free(self, ids: Sequence[int]) -> None:
         """Recycle rows: a pure free-list operation, no device work."""

@@ -6,9 +6,13 @@
   - ``aggregate_rows``: the full-buffer sweep over a persistent ``[C, W]``
     row buffer (weights scattered over all C rows, free rows at 0);
   - ``aggregate_rows_gather``: the same sum over only the referenced rows;
-  - ``aggregate_rows_traced``: either route on row ids and weights already
-    on the card, with the sweep's finiteness guard (the fused-round
-    megastep's aggregation);
+  - ``aggregate_rows_psum``: the sweep over a mesh-sharded buffer, each
+    rank's tile reduced by the kernel, the partials all-reduced over the
+    mesh's ``data`` axis and the column stripes all-gathered over
+    ``model`` (``aggregate_rows_psum_gather``: its exact-rows recompute);
+  - ``aggregate_rows_traced``: any of these routes on row ids and weights
+    already on the card, with the sweep's finiteness guard (the
+    fused-round megastep's aggregation);
   - ``aggregate_pytree``: the same weighted sum over a list of parameter
     trees (ravel, stack, reduce, unravel);
   - ``masked_topk`` / ``scored_topk``: the fleet-scale top-k selection step
@@ -38,6 +42,7 @@ from repro_torch.kernels.quant8 import (  # noqa: F401
     QBLOCK, ROWS, compress_q8, dequantize_q8, quantize_q8)
 from repro_torch.kernels.staleness_agg import VEC, staleness_agg
 from repro_torch.kernels.topk import masked_topk, scored_topk  # noqa: F401
+from repro_torch.sharding import flmesh
 
 Params = Any   # nested dicts (and lists) of tensors
 BLOCK_N = 1024   # update-store row width alignment (the reference's block)
@@ -187,8 +192,61 @@ def aggregate_rows_gather(buffer: torch.Tensor, row_idx, weights
     return _gather(buffer, *_on(buffer, row_idx, weights))
 
 
+def _psum_sweep(tile: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                mesh) -> torch.Tensor:
+    """The reference's ``_psum_agg`` on this rank's ``[C/d, W/m]`` tile: the
+    ``[C]`` weight vector built alike on every rank, this rank's rows of it
+    (``data_index::data``, the store's cyclic rows), one sweep launch, the
+    partial all-reduced over ``data``, the stripes all-gathered over
+    ``model`` -> the whole [W] on every rank."""
+    d = mesh.data
+    full_w = torch.zeros(tile.shape[0] * d, dtype=torch.float32,
+                         device=tile.device)
+    full_w.index_add_(0, idx, w)
+    part = staleness_agg(_vec_pad(tile), full_w[mesh.data_index::d]
+                         .contiguous())[:tile.shape[1]]
+    return flmesh.all_gather_model(flmesh.all_reduce_data(part, mesh), mesh)
+
+
+def _psum_gather(tile: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """The exact-rows form over a mesh: each rank reduces only the
+    referenced rows it owns (one gather-form launch, padded as
+    ``_pad_rows`` pads, with zero-weight repeats of its first owned row;
+    no launch and a zero partial where it owns none), then the same
+    collectives as ``_psum_sweep``."""
+    mine = idx % mesh.data == mesh.data_index
+    if bool(mine.any()):
+        li, lw = idx[mine] // mesh.data, w[mine]
+        pad_k = (-li.shape[0]) % SUBLANE
+        if pad_k:
+            li = torch.cat([li, li[:1].repeat(pad_k)])
+            lw = torch.cat([lw, lw.new_zeros(pad_k)])
+        part = _gather(tile, li, lw)
+    else:
+        part = tile.new_zeros(tile.shape[1], dtype=torch.float32)
+    return flmesh.all_gather_model(flmesh.all_reduce_data(part, mesh), mesh)
+
+
+def aggregate_rows_psum(buffer: torch.Tensor, row_idx, weights, mesh
+                        ) -> torch.Tensor:
+    """``aggregate_rows`` over a mesh-sharded store (``buffer`` is this
+    rank's ``UpdateStore`` tile) -> the whole flat [W] on every rank. The
+    same weight-0 stale-row contract: callers guard the result (decided on
+    the whole [W], so every rank decides alike) and recompute through
+    ``aggregate_rows_psum_gather``."""
+    return _psum_sweep(buffer, *_on(buffer, row_idx, weights), mesh)
+
+
+def aggregate_rows_psum_gather(buffer: torch.Tensor, row_idx, weights, mesh
+                               ) -> torch.Tensor:
+    """The exact-rows form of ``aggregate_rows_psum``: immune to non-finite
+    garbage in freed rows."""
+    return _psum_gather(buffer, *_on(buffer, row_idx, weights), mesh)
+
+
 def aggregate_rows_traced(buffer: torch.Tensor, row_idx: torch.Tensor,
-                          weights: torch.Tensor, *, sparse: bool
+                          weights: torch.Tensor, *, sparse: bool, mesh=None
                           ) -> torch.Tensor:
     """The fused-round megastep's aggregation (twin of the reference's
     traceable ``aggregate_rows_traced``): ``row_idx`` [K] int64 and
@@ -196,14 +254,21 @@ def aggregate_rows_traced(buffer: torch.Tensor, row_idx: torch.Tensor,
     device as ``_pad_rows`` pads them (zero-weight repeats of row 0), then
     the route ``sparse`` names (``core.aggregation.rows_dispatch``): the
     gather, or the sweep with its finiteness guard, an exact-rows recompute
-    when the [W] result is not finite (one read on the host). The same
-    launches on the same values as the stepwise route, so the result is
-    equal to the bit."""
+    when the [W] result is not finite (one read on the host). With a mesh
+    the route is the psum sweep and its guard, as
+    ``weighted_aggregate_rows(mesh=)`` takes it. The same launches on the
+    same values as the stepwise route, so the result is equal to the
+    bit."""
     idx, w = row_idx.to(torch.int64), weights.to(torch.float32)
     pad_k = (-idx.shape[0]) % SUBLANE
     if pad_k:
         idx = torch.cat([idx, idx[:1].repeat(pad_k)])
         w = torch.cat([w, w.new_zeros(pad_k)])
+    if mesh is not None:
+        flat = _psum_sweep(buffer, idx, w, mesh)
+        if not bool(torch.isfinite(flat).all()):
+            flat = _psum_gather(buffer, idx, w, mesh)
+        return flat
     if sparse:
         return _gather(buffer, idx, w)
     flat = _sweep(buffer, idx, w)

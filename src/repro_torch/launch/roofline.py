@@ -13,10 +13,11 @@ FLOPs counted by ``torch.utils.flop_counter.FlopCounterMode`` and its
 bytes by a dispatch mode over every aten op. Those are the counts of the
 whole, unpartitioned program: per device they are the counts themselves on
 the card's ``1x1`` mesh, and unknown on a wider mesh without a partitioner
-(``None``, never an invented number). The port issues no collective until
-its mesh slice, so the collective term is 0 on ``1x1``.
+(``None``, never an invented number). A cell issues no collective on
+``1x1``, so the collective term is 0 there (the FL mesh plane's
+collectives, ``sharding.flmesh``, count their own bytes and time).
 ``collective_bytes_per_device``, the reference's HLO parser, is kept as
-it is for that slice.
+it is for a partitioner's per-device terms.
 
 MODEL_FLOPS (analytic useful compute) = 6*N*D for dense training,
 6*N_active*D for MoE; 2*N*D for pure forward (prefill/decode); attention

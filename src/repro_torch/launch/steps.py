@@ -32,6 +32,7 @@ from repro_torch.models import build_model, input_specs
 from repro_torch.models.api import param_axes
 from repro_torch.models.common import map_axes
 from repro_torch.optim import build_optimizer, optimizers
+from repro_torch.sharding import flmesh
 from repro_torch.sharding.rules import (DECODE_RULES, DEFAULT_RULES,
                                         LONGCTX_RULES, P, _zip_map,
                                         logical_spec, mesh_shape,
@@ -234,23 +235,33 @@ def fl_aggregate(updates: Params, weights: torch.Tensor) -> Params:
 
 def _scatter_bf16(mesh):
     """The reference's ``scatter_bf16`` variant: local fp32 partial sums,
-    then a bf16-wire psum over the data axis. A psum over one rank is the
-    identity, so on ``1x1`` it is the sum rounded through bf16; a wider
-    mesh needs the port's mesh slice."""
-    if any(n != 1 for n in mesh_shape(mesh).values()):
-        def fn(updates, weights):
-            raise NotImplementedError(
-                f"variant scatter_bf16 on mesh {mesh_shape(mesh)} needs a "
-                "psum over ranks: it comes with the mesh slice of the port")
-        return fn
+    then a bf16-wire psum over the data axis. On a process-group mesh
+    (``sharding.flmesh.FLMesh``) each rank sums its data rank's slice of
+    the cohort, ``[i*K/d, (i+1)*K/d)``, in fp32 and the bf16 partials meet
+    in an all-reduce over ``data``; the result is the rounded sum on every
+    rank. On 1x1, and on an ``AbstractMesh`` (the dry run's ``meta``
+    tensors: the traffic is recorded, nothing is launched or exchanged),
+    it is the whole cohort's sum rounded through bf16."""
+    group = isinstance(mesh, flmesh.FLMesh)
+    d = mesh_shape(mesh).get("data", 1)
 
     def fn(updates, weights):
         wf = weights.to(torch.float32)
+        if group and wf.shape[0] % d:
+            raise ValueError(f"a cohort of {wf.shape[0]} does not split "
+                             f"over the data axis of {d}")
+        share = wf.shape[0] // d if group else wf.shape[0]
+        lo = mesh.data_index * share if group else 0
+        wl = wf[lo:lo + share]
 
         def one(x):
-            wshape = (x.shape[0],) + (1,) * (x.dim() - 1)
-            part = torch.sum(x.to(torch.float32) * wf.reshape(wshape), dim=0)
-            return part.to(torch.bfloat16).to(x.dtype)
+            xl = x[lo:lo + share]
+            wshape = (xl.shape[0],) + (1,) * (xl.dim() - 1)
+            part = torch.sum(xl.to(torch.float32) * wl.reshape(wshape),
+                             dim=0).to(torch.bfloat16)
+            if group:
+                part = flmesh.all_reduce_data(part, mesh)
+            return part.to(x.dtype)
 
         return tree_map(one, updates)
 

@@ -1,3 +1,4 @@
+from repro_torch.sharding import flmesh  # noqa: F401
 from repro_torch.sharding.rules import (  # noqa: F401
     DEFAULT_RULES,
     AbstractMesh,

@@ -13,8 +13,10 @@ tuple(reference_spec)`` compares it with the reference's ``PartitionSpec``.
 The rules read a mesh's axis names and sizes through ``mesh_shape`` alone:
 an ``AbstractMesh`` (names and sizes, no devices: the production meshes
 are 256 or 512 devices, the card is one), a ``.shape`` mapping, or a
-``torch.distributed`` ``DeviceMesh``. Specs are derived, never applied:
-the port places no tensor by them until its mesh slice.
+``torch.distributed`` ``DeviceMesh`` (or the FL mesh plane's
+``flmesh.FLMesh``). Specs are derived, never applied: the FL mesh plane
+lays out its update store and cohort itself (``flmesh.ROW_SPEC``), and
+the LM cells' specs name a layout no tensor is placed by.
 
 The active (mesh, rules) pair is installed with the ``axis_rules`` context
 manager; ``shard_act`` is the identity outside it, and inside it derives
@@ -162,7 +164,7 @@ def shard_act(x, names: Sequence[Optional[str]]):
     """The identity outside ``axis_rules``; inside, derives ``x``'s spec
     from its logical names, checks that every sharded dim divides by its
     axes' product, and returns ``x`` as it is (the port applies no
-    placement until its mesh slice)."""
+    placement by a spec)."""
     st = getattr(_ctx, "state", None)
     if st is None:
         return x
@@ -219,8 +221,7 @@ def param_specs(axes_tree: Any, shapes_tree: Any, mesh,
 def make_param_sharding(axes_tree: Any, shapes_tree: Any, mesh,
                         rules: Optional[dict] = None) -> dict:
     """The params' specs keyed by the mesh they are for, ``{"mesh": mesh,
-    "specs": tree of P}``: the port has no ``NamedSharding`` until its
-    mesh slice."""
+    "specs": tree of P}``: the port has no ``NamedSharding``."""
     return {"mesh": mesh,
             "specs": param_specs(axes_tree, shapes_tree, mesh, rules)}
 

@@ -1987,10 +1987,201 @@ def test_launch_phase_fails_without_its_launches(monkeypatch, tmp_path):
 
 def test_meta_sweep_join_fails_on_an_error_record(tmp_path):
     """A child whose record is an error exits 1 and fails the sweep; its
-    folder is removed all the same."""
+    folder is removed all the same. The error: an optimizer no config
+    has (until the mesh slice, ``scatter_bf16`` on the production mesh
+    raised and served here)."""
     cs = _load()
     with pytest.raises(AssertionError, match="exited 1"):
         cs.meta_sweep(str(tmp_path), groups=(("qwen3-1.7b",),),
-                      shapes=["fl_round"], extra=(
-                          "--shape", "fl_round", "--variant", "scatter_bf16"))
+                      shapes=["train_4k"], extra=(
+                          "--shape", "train_4k", "--optimizer", "nonesuch"))
     assert not tmp_path.exists()
+
+
+def test_a_meta_sweep_started_early_is_collected_later(tmp_path):
+    """``start_meta_sweep`` runs its children while the caller works on;
+    ``meta_sweep(started=)`` joins them, checks their records, takes the
+    sweep's wall from its start to the children's last write (not to the
+    join) and removes the folder."""
+    cs = _load()
+    started = cs.start_meta_sweep(str(tmp_path), groups=(("yi-6b",),),
+                                  extra=("--shape", "long_500k"))
+    for proc, _, _ in started["procs"]:
+        proc.wait(timeout=300)
+    cs.time.sleep(1.0)
+    t_join = cs.time.time()
+    rec = cs.meta_sweep("unused", shapes=["long_500k"], started=started)
+    assert (rec["n_ok"], rec["n_skipped"], rec["n_error"]) == (0, 1, 0)
+    assert 0 < rec["wall_s"] < t_join - started["t0_wall"]
+    assert not tmp_path.exists()
+
+
+MESH_SMALL = dict(n_clients=10, clients_per_round=4, local_epochs=1,
+                  batch_size=5)
+MESH_MEGA_SMALL = dict(n_clients=10, clients_per_round=4, rounds=4,
+                       local_epochs=1, batch_size=5, base_step_time=0.5)
+# a rank that counts each plain call of the path's three kernels as the
+# launch it stands for (the children are processes: the test's patches
+# do not reach them), then runs chip_smoke's child script
+COUNTING_CHILD = """
+import runpy, sys
+import torch
+torch.set_num_threads(1)
+sys.path[:0] = [{src!r}]
+from repro_torch.kernels import fused_adam, ref, staleness_agg, topk
+for name, wrapper in (("staleness_agg", staleness_agg.staleness_agg),
+                      ("fused_adam", fused_adam.fused_adam),
+                      ("scored_topk", topk.block_topk)):
+    def counted(*a, _plain=getattr(ref, name), _wrapper=wrapper, **k):
+        _wrapper.launches += 1
+        return _plain(*a, **k)
+    setattr(ref, name, counted)
+runpy.run_path({child!r}, run_name="__main__")
+"""
+
+
+def _mesh_golden(cs):
+    """The 1x1 runs the mesh phase holds its ranks to, at the rehearsal's
+    size (ProxyCNN, 10 clients, 4 a round)."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    data_kw = dict(name="mnist", n_clients=10, scale=0.05, seed=0)
+    data = make_federated_dataset(**data_kw)
+    engines, records = {}, {}
+    for s in ("apodotiko", "apodotiko-topk"):
+        eng = build_engine(cs.paper_cfg(s, cs.MESH_ROUNDS, **MESH_SMALL),
+                           ProxyCNN(10), data, list(paper_fleet(10)),
+                           device="cpu")
+        eng.run()
+        engines[s] = eng
+        records[s] = {"rounds": [{"wall_s": 0.0,
+                                  "n_aggregated": l.n_aggregated}
+                                 for l in eng.history]}
+    return {"engines": engines, "records": records}, data_kw
+
+
+def test_mesh_phase_on_the_cpu(monkeypatch, capsys, one_torch_thread):
+    """chip_smoke's mesh phase on the CPU: four ranks at 2x2 over gloo at
+    the rehearsal's size, held to 1x1 runs of the same configs (traces
+    equal, params within 1e-4 / 1e-5, bit-equal across ranks), the
+    megastep pair bit-equal with a fused round, the launches per rank
+    (plain calls counted); then its kernel entry at the tile's shape."""
+    import types
+
+    cs = _load()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, **k: (fn(), 0.0)[1])
+    monkeypatch.setattr(cs, "device_ms", _device_ms)
+    monkeypatch.setattr(cs, "l2_flush", lambda dev: lambda: None)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    child = ROOT / "scripts" / "torch_mesh_child.py"
+    monkeypatch.setattr(cs, "MESH_CHILD_ARGV", [
+        sys.executable, "-c",
+        COUNTING_CHILD.format(src=str(ROOT / "src"), child=str(child))])
+    golden, data_kw = _mesh_golden(cs)
+    rec = cs.mesh_phase(golden, torch.device("cpu"), data_kw,
+                        model="ProxyCNN", cfg_over=MESH_SMALL,
+                        mega_over=MESH_MEGA_SMALL, timeout=300)
+    out = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [o["phase"] for o in out] == ["mesh"]
+    assert rec["backend"] == "gloo" and not rec["staged_through_host"]
+    assert len(rec["runs"]) == cs.MESH_WORLD * 6
+    assert {"held_apodotiko", "held_apodotiko-topk"} <= set(
+        rec["params_vs_1x1"])
+    assert all(d["err_over_tol"] <= 1.0
+               for d in rec["params_vs_1x1"].values())
+    assert set(rec["params_vs_split_1x1"]) == {cs.MESH_SPLIT_STRATEGY}
+    assert all(d["err_over_tol"] <= 1.0
+               for d in rec["params_vs_split_1x1"].values())
+    for run in rec["runs"]:
+        assert run["launches"]["staleness_agg"] >= 1
+        assert run["launches"]["fused_adam"] >= 1
+        assert run["collectives_per_round"] > 0
+        assert run["mesh_host_bytes_per_round"] == 0     # CPU tensors
+        if run["run"] == "megastep_fused":
+            assert run["megastep_rounds"] >= 1
+    assert rec["store_tile"] == [rec["store_capacity"] // 2,
+                                 rec["row_width"] // 2]
+    entry = cs.mesh_kernel_entry(rec, golden["records"]["apodotiko"],
+                                 torch.device("cpu"))
+    assert set(cs.KERNEL_KEYS) <= set(entry)
+    assert entry["name"] == "staleness_agg[mesh]"
+    assert entry["shape"]["C"] == rec["store_tile"][0]
+    assert entry["shape"]["W"] == rec["store_tile"][1]
+    assert entry["launches"] == cs.MESH_ROUNDS
+
+
+def test_split_golden_helpers_match_the_whole_on_the_cpu(one_torch_thread):
+    """``split_sums`` sums tile by tile what the plain sweep sums whole
+    (rows referenced on both data ranks, on one only, and a zero-weight
+    row), and ``split_lanes`` trains a cohort in halves from one drawn
+    table: on the CPU both agree with the whole to the fp32 sum's
+    rounding, the lanes to the bit on one thread, and the generator moves
+    as once."""
+    from repro_torch.core.client import CohortTrainer
+    from repro_torch.core.data_plane import DatasetStore
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.kernels import ops
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    cs = _load()
+    g = torch.Generator().manual_seed(3)
+    buf = torch.randn(16, 24, generator=g)
+    for rows in ([0, 2, 5, 7, 9], [4, 6, 10], [1, 3]):
+        w = torch.rand(len(rows), generator=g).numpy()
+        want = ops.aggregate_rows(buf, rows, w)
+        with cs.split_sums(2, 3):
+            got = ops.aggregate_rows(buf, rows, w)
+            assert torch.equal(ops.aggregate_rows_gather(buf, rows, w), got)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert ops.aggregate_rows.__name__ == "aggregate_rows"
+
+    data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
+    model = ProxyCNN(10)
+    params = model.init(torch.Generator().manual_seed(0))
+    ds = DatasetStore(data, device="cpu")
+    sel = torch.arange(4)
+    n = torch.as_tensor(data.n[:4])
+    steps = torch.tensor([3, 1, 2, 0], dtype=torch.int32)
+    W = -(-ops.RavelSpec(params).n_params // 1024) * 1024
+    out = []
+    for split in (False, True):
+        t = CohortTrainer(model, optimizer="adam", lr=1e-3, batch_size=5,
+                          seed=0, device="cpu")
+        if split:
+            cs.split_lanes(t, 2)
+        out.append(t._train_lanes(params, ds, sel, n, steps, 3, W) +
+                   (t.generator.get_state(),))
+    for a, b in zip(*out):
+        assert torch.equal(a, b) if a is not None else b is None
+
+
+def test_mesh_phase_fails_when_a_rank_exits_non_zero(monkeypatch, tmp_path):
+    """One rank exits 3 while the others would run on for a minute: the
+    phase fails at once, names the exit codes, and leaves no rank
+    running."""
+    cs = _load()
+    monkeypatch.setattr(cs, "MESH_CHILD_ARGV", [
+        sys.executable, "-c",
+        "import sys, time\n"
+        "sys.exit(3) if sys.argv[2] == '1' else time.sleep(60)"])
+    started = []
+    popen = subprocess.Popen
+
+    def recording_popen(*a, **k):
+        started.append(popen(*a, **k))
+        return started[-1]
+
+    monkeypatch.setattr(cs.subprocess, "Popen", recording_popen)
+    t0 = cs.time.perf_counter()
+    with pytest.raises(AssertionError, match=r"exited \[.*3.*\]"):
+        cs.mesh_phase({"engines": {}, "records": {}}, torch.device("cpu"),
+                      {"name": "mnist", "n_clients": 4}, timeout=50)
+    assert cs.time.perf_counter() - t0 < 40
+    assert len(started) == cs.MESH_WORLD
+    assert all(p.poll() is not None for p in started)

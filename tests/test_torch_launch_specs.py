@@ -16,6 +16,7 @@ from repro.configs.base import ARCH_IDS, SHAPES, get_config as jget
 from repro.launch import steps as jsteps
 from repro.models import build_model as jbuild
 from repro_torch.configs.base import get_config, shape_supported
+from repro_torch.kernels.ops import tree_leaves
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import build_model
@@ -151,9 +152,12 @@ def test_cells_on_2x16x16_have_the_references_specs(arch):
 
 def test_scatter_bf16_variant_specs_and_its_mesh_raise():
     """``fl_round``'s ``scatter_bf16`` variant: the reference's specs
-    (weights over data, the output as the params); its step raises on a
-    production mesh (a psum over ranks is the mesh slice's) and is the sum
-    rounded through bf16 on ``1x1``."""
+    (weights over data, the output as the params). On a production
+    ``AbstractMesh`` its step no longer raises: over ``meta`` tensors it
+    exchanges and launches nothing and gives the params' shapes in their
+    dtypes (its psum over ranks runs on a process-group mesh,
+    ``tests/test_torch_mesh_plane.py``); on ``1x1`` it is the sum rounded
+    through bf16."""
     shape = SHAPES["fl_round"]
     cell = steps.build_cell("qwen3-1.7b", shape, make_production_mesh(),
                             variant="scatter_bf16")
@@ -162,8 +166,11 @@ def test_scatter_bf16_variant_specs_and_its_mesh_raise():
                               variant="scatter_bf16")
     assert cell.in_shardings == _specs(jcell.in_shardings)
     assert cell.out_shardings == _specs(jcell.out_shardings)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        cell.fn(*cell.in_args)
+    out = cell.fn(*cell.in_args)
+    for got, want in zip(tree_leaves(out),
+                         tree_leaves(cell.in_args[0])):
+        assert got.is_meta and got.dtype == want.dtype
+        assert tuple(got.shape) == tuple(want.shape[1:])
     from repro_torch.launch.mesh import make_card_mesh
     from repro_torch.launch.dryrun import cut_shape
     small, _ = cut_shape(shape, global_batch=3)

@@ -64,7 +64,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.configs.seamless_m4t_large_v2"} <= set(mods)
     assert {"repro_torch.launch.steps", "repro_torch.launch.dryrun",
             "repro_torch.launch.mesh", "repro_torch.launch.roofline",
-            "repro_torch.sharding", "repro_torch.sharding.rules"} <= set(mods)
+            "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.sharding.flmesh"} <= set(mods)
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -88,7 +89,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
     assert PKG / "models" / "encdec.py" in files
     for mod in ("launch/steps.py", "launch/dryrun.py", "launch/mesh.py",
                 "launch/roofline.py", "sharding/rules.py",
-                "sharding/__init__.py"):
+                "sharding/__init__.py", "sharding/flmesh.py"):
         assert PKG / mod in files
     bad = {str(f.relative_to(ROOT)): FORBIDDEN.findall(f.read_text())
            for f in files}
@@ -243,13 +244,14 @@ def test_training_and_evaluation_run_inside_the_fp32_scope():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh="2x1"), "mesh"),
+    (dict(mesh="2x1", durability="journal"), "mesh"),
     (dict(optimizer="momentum"), "momentum"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
-    """Meshes other than ``1x1`` raise naming their slice. ``momentum``
-    raised too until the launch slice ported it: that case now asserts
-    that its clients train."""
+    """A durable run under a mesh other than ``1x1`` raises naming its
+    slice (meshes themselves raised until the mesh slice ported them).
+    ``momentum`` raised too until the launch slice ported it: that case
+    now asserts that its clients train."""
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
     cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1, **kw)
     if match == "momentum":
