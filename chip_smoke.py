@@ -44,8 +44,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      and per rank ``staleness_agg`` once an aggregation, ``fused_adam``
      once a local step of each cohort's largest budget and the top-k once
      a round of the top-k runs; wall s a round (and the 1x1 runs'), the
-     bytes staged through the host and the collectives' ms a round; a
-     rank that exits non-zero fails the phase;
+     bytes staged through the host and the collectives' ms a round; then,
+     in the same four ranks, durable runs at the durability phase's golden
+     config (``apodotiko``, 3 rounds, a snapshot every round; rank 0
+     alone writes the journal and the snapshots): the golden run, a run
+     killed mid-round 2 on every rank and resumed with ``resume_durable``
+     in the same group (journal bytes, params, free list, live rows and
+     generator bit-equal to the golden run on the same rank, the golden
+     params equal to rank 0's, ``staleness_agg`` once a re-executed
+     aggregation and ``fused_adam`` once a local step of each re-executed
+     cohort's largest budget), and the ``Scheduler``'s database
+     checkpoints (``checkpoint_every=1``, 2 rounds, one more checkpoint
+     with live rows) resumed at ``2x2`` and, in this process, at ``1x1``
+     (round, results, client columns, params and live rows equal to the
+     checkpoint's, one aggregate after); snapshot ms and bytes, the
+     bytes the snapshots and the checkpoint stage through the host,
+     resume ms per rank and the runs' wall; a rank that exits non-zero
+     fails the phase;
      then the megastep: the reference's megastep bench config at that
      width (``apodotiko-topk``, 100 a round, CR 1.0, no eval, instances
      never cool, on zero-variability hardware of speeds 1.0 / 1.45 / 1.9),
@@ -78,8 +93,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      then durability, at the same width under deterministic algorithms, in
      a temporary directory (``durability_phase``): an ``apodotiko`` run of
      3 rounds with ``durability="journal"`` (a snapshot every round) is
-     killed at three journal boundaries (a ``ResultLanded`` mid-round 2,
-     the record after the first round close, ``n_records - 1``) and
+     killed at two journal boundaries (a ``ResultLanded`` mid-round 2 and
+     the record after the first round close) and
      resumed with ``resume_durable``, and an ``apodotiko-topk`` run of 2
      rounds once mid-round 2: journal bytes, history, clock, params, free
      list, live rows, generator (and the fleet's booster and score state)
@@ -93,7 +108,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
      clients), resumed here bit-equal to an in-process golden run; and
      the ``Controller``'s database checkpoints (``checkpoint_every=1``, 2
      rounds, then ``Controller.resume`` to 3): round, client records,
-     results, params and live rows equal to the checkpoint's;
+     results, params and live rows equal to the checkpoint's; and the
+     mesh phase's ``2x2`` golden journal record for record equal to the
+     ``apodotiko`` golden journal (its genesis digest that of the ``2x2``
+     config), its snapshot ms, bytes, resume ms and wall beside 1x1's;
   4. fleet: the control plane at a million clients: ``select_topk(100,
      1.2)`` over a 2^20-slot ``FleetStore`` for five rounds on the card and
      on a CPU copy of the same state; selections and the device booster
@@ -857,7 +875,12 @@ MESH_SPLIT_STRATEGY = "apodotiko"
 MESH_HELD = dict(n_clients=10, clients_per_round=4, local_epochs=1,
                  batch_size=5)
 MESH_HELD_DATA = dict(name="mnist", n_clients=10, scale=0.05, seed=SEED)
-MESH_TIMEOUT_S = 240.0
+MESH_TIMEOUT_S = 360.0
+# the durable runs at MESH_SPEC (the durability phase's golden config):
+# the golden run, one crash point of ``crash_points`` resumed, and the
+# Scheduler's database checkpoints resumed at MESH_SPEC and at 1x1
+MESH_DUR_STRATEGY = "apodotiko"
+MESH_DUR_CRASH = "mid_round_2"
 MESH_CHILD_ARGV = [sys.executable, str(ROOT / "scripts" /
                                         "torch_mesh_child.py")]
 
@@ -979,7 +1002,7 @@ def split_sums(d: int, m: int):
         ops.aggregate_rows, ops.aggregate_rows_gather = sweep, gather
 
 
-def split_golden(dev, data_kw: dict, model: str, cfg_over: dict) -> dict:
+def split_golden(dev, data, model: str, cfg_over: dict) -> dict:
     """The wide runs' params reference: ``MESH_SPLIT_STRATEGY`` at
     ``paper_kw`` (stepwise, as the ranks run it) at 1x1 on ``dev`` under
     deterministic algorithms, its cohorts trained as ``split_lanes``
@@ -988,14 +1011,12 @@ def split_golden(dev, data_kw: dict, model: str, cfg_over: dict) -> dict:
     the tiles here are slices of one whole buffer, with no ``land_lanes``,
     no stripe gather and no collective."""
     from repro_torch.core.scheduler import build_engine
-    from repro_torch.data.synthetic import make_federated_dataset
     from repro_torch.faas.hardware import paper_fleet
     from repro_torch.sharding.flmesh import parse_mesh
 
     d, m = parse_mesh(MESH_SPEC)
     cfg = paper_cfg(MESH_SPLIT_STRATEGY, MESH_ROUNDS, megastep="stepwise",
                     **cfg_over)
-    data = make_federated_dataset(**data_kw)
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
     try:
@@ -1111,14 +1132,21 @@ def mesh_phase(golden: dict, dev, data_kw: dict, model: str = "MnistCNN",
     phase's record."""
     import tempfile
 
+    from repro_torch.data.synthetic import make_federated_dataset
+
     cfg_over, mega_over = dict(cfg_over or {}), dict(mega_over or {})
     runs = mesh_runs(data_kw, model, cfg_over, mega_over)
     engines = {**golden["engines"], **held_golden(dev)}
+    data = make_federated_dataset(**data_kw)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         spec = dict(mesh=MESH_SPEC, world=MESH_WORLD,
                     init=str(tmp / "rendezvous"), out=str(tmp),
-                    device=str(dev), runs=runs)
+                    device=str(dev), runs=runs,
+                    durable=dict(strategy=MESH_DUR_STRATEGY,
+                                 rounds=DUR_ROUNDS, over=cfg_over,
+                                 crash=MESH_DUR_CRASH, data=data_kw,
+                                 model=model, root=str(tmp / "durable")))
         (tmp / "spec.json").write_text(json.dumps(spec))
         t0 = time.perf_counter()
         wait_ranks(start_ranks(tmp / "spec.json", tmp, MESH_WORLD), tmp,
@@ -1129,8 +1157,9 @@ def mesh_phase(golden: dict, dev, data_kw: dict, model: str = "MnistCNN",
         params = [{run["name"]: torch.load(
             tmp / f"rank{r}_{run['name']}.pt")["final"] for run in runs}
             for r in range(MESH_WORLD)]
+        durable = mesh_durable(ranks, tmp, dev, data, model, cfg_over)
     t0 = time.perf_counter()
-    split = split_golden(dev, data_kw, model, cfg_over)
+    split = split_golden(dev, data, model, cfg_over)
     split_s = time.perf_counter() - t0
     gold = {name: json.loads(json.dumps(host_trace(eng)))
             for name, eng in engines.items()}
@@ -1205,9 +1234,89 @@ def mesh_phase(golden: dict, dev, data_kw: dict, model: str = "MnistCNN",
                  for rec in ranks for run in rec["runs"]],
         "store_tile": first["store_tile"],
         "store_capacity": first["store_capacity"],
-        "row_width": first["row_width"]}
+        "row_width": first["row_width"],
+        "durable": {k: v for k, v in durable.items() if k != "journal"}}
+    apo_run = next(run for run in ranks[0]["runs"]
+                   if run["name"] == MESH_DUR_STRATEGY)
+    record["durable"]["snapshot_mesh_host_bytes"] = (
+        durable["golden"]["mesh_host_bytes"] - apo_run["mesh_host_bytes"])
     emit("mesh", **record)
+    record["durable_journal"] = durable["journal"]
     return record
+
+
+def mesh_durable(ranks: list, tmp: Path, dev, data, model: str,
+                 cfg_over: dict) -> dict:
+    """The ranks' durable runs (``scripts/torch_mesh_child.py``'s
+    ``durable_runs``), checked: on every rank the crash's resume equal to
+    its golden run (every ``durable_state`` key and the journal's bytes)
+    with the launches its re-executed rounds must make, the golden params
+    equal to rank 0's, and the checkpoint's resume at the mesh equal to
+    the checkpoint; then that checkpoint resumed here at 1x1 on ``dev``,
+    equal to rank 0's checkpoint state, finishing its round with one
+    aggregate. Returns the runs' numbers and the golden journal's bytes."""
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.faas.hardware import paper_fleet
+
+    root = tmp / "durable"
+    first = None
+    for r, rec in enumerate(ranks):
+        dur = rec["durable"]
+        crash, ckpt = dur["crash"], dur["checkpoint"]
+        if crash["differs"]:
+            raise AssertionError(f"mesh rank {r}: the resumed durable run "
+                                 f"differs in {crash['differs']}")
+        if crash["launches"] != crash["launches_wanted"]:
+            raise AssertionError(
+                f"mesh rank {r}: the resumed durable run launched "
+                f"{crash['launches']}, want {crash['launches_wanted']}")
+        check_checkpoint(ckpt, f"mesh rank {r}")
+        if ckpt["mesh"] != MESH_SPEC:
+            raise AssertionError(f"mesh rank {r}: checkpoint resumed under "
+                                 f"{ckpt['mesh']}")
+        gold = bits(torch.load(tmp / f"rank{r}_durable_golden.pt"))
+        first = first or gold
+        if not same(gold, first):
+            raise AssertionError(f"mesh rank {r}: durable params differ "
+                                 "from rank 0's")
+    want = torch.load(tmp / "ckpt_want.pt")
+    cfg = paper_cfg(MESH_DUR_STRATEGY, 3, engine="scheduler",
+                    checkpoint_dir=str(root / "checkpoint"), **cfg_over)
+    t0 = time.perf_counter()
+    res = Scheduler.resume(cfg, mesh_model(model), data,
+                           list(paper_fleet(cfg.n_clients)), device=dev)
+    resume_s = time.perf_counter() - t0
+    differs = unequal(checkpoint_state(res), want)
+    zero_counts()
+    m = res.run()
+    elastic = {"mesh": m["mesh"], "resume_ms": resume_s * 1e3,
+               "differs": differs, "resumed_rounds": m["rounds"],
+               "final_round": res.db.round,
+               "staleness_agg": read_counts()["staleness_agg"]}
+    if differs or m["mesh"] != "1x1" or elastic["final_round"] != 3 or \
+            elastic["staleness_agg"] != 1:
+        raise AssertionError(f"mesh: the {MESH_SPEC} checkpoint resumed at "
+                             f"1x1: {elastic}")
+    golden = ranks[0]["durable"]["golden"]
+    return {"config": {"strategy": MESH_DUR_STRATEGY, "rounds": DUR_ROUNDS,
+                       **cfg_over},
+            "golden": golden,
+            "snapshot_bytes": snapshot_bytes(str(root / "golden")),
+            "per_rank": [{
+                "rank": rec["rank"], "wall_s": rec["durable"]["wall_s"],
+                "golden_wall_s": rec["durable"]["golden"]["wall_s"],
+                "snapshot_ms": rec["durable"]["golden"]["snapshot_ms"],
+                "journal_bytes": rec["durable"]["golden"]["journal_bytes"],
+                "crash": {k: rec["durable"]["crash"][k] for k in (
+                    "point", "crash_after", "snapshot_round",
+                    "journal_replayed", "resume_ms", "launches",
+                    "live_rows")},
+                "checkpoint": {k: rec["durable"]["checkpoint"][k] for k in (
+                    "live_rows", "save_ms", "save_mesh_host_bytes",
+                    "resume_ms", "staleness_agg")}}
+                for rec in ranks],
+            "checkpoint_at_1x1": elastic,
+            "journal": (root / "golden" / "journal.wal").read_bytes()}
 
 
 def mesh_kernel_entry(mesh: dict, golden_record: dict, dev) -> dict:
@@ -3415,10 +3524,11 @@ def read_bytes(path) -> bytes:
 
 
 def crash_points(records: list) -> dict:
-    """Three boundaries of a golden journal, as ``crash_after`` values
-    (the count of records the killed run processes): the middle
-    ``ResultLanded`` of the second round, the record right after the first
-    ``round_close`` (the snapshot boundary), and ``n_records - 1``."""
+    """Two boundaries of a golden journal, as ``crash_after`` values (the
+    count of records the killed run processes): the middle
+    ``ResultLanded`` of the second round and the record right after the
+    first ``round_close`` (the snapshot boundary). The script's time
+    leaves the others to the CPU tests, which crash at every boundary."""
     landed = [r["q"] for r in records
               if r["k"] == "ResultLanded" and r["r"] == 1]
     closes = [r["q"] for r in records if r["k"] == "round_close"]
@@ -3426,8 +3536,7 @@ def crash_points(records: list) -> dict:
         raise AssertionError("the golden journal has no ResultLanded in "
                              "round 2 or no round_close")
     return {"mid_round_2": landed[len(landed) // 2] + 1,
-            "after_round_close": closes[0] + 2,
-            "n_records_minus_1": len(records) - 1}
+            "after_round_close": closes[0] + 2}
 
 
 def resume_launches(eng, n_invocations: int, snap_round: int) -> dict:
@@ -3529,7 +3638,8 @@ def golden_crash_series(strategy: str, rounds: int, points, model, data,
     """One golden durable run of ``strategy`` and a crash-and-resume at each
     boundary ``points(records)`` names (``after_golden()``, if given, is
     called between the two); each resumed run's directory is removed after
-    its comparison, the golden one at the end."""
+    its comparison, the golden one at the end. Returns (the series'
+    record, the golden journal's bytes)."""
     import shutil
 
     from repro_torch.core.journal import Journal
@@ -3560,7 +3670,7 @@ def golden_crash_series(strategy: str, rounds: int, points, model, data,
         gc.collect()            # an engine and its manager hold each other
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return out
+    return out, gold_journal
 
 
 def start_child(dev, tmp: str) -> tuple:
@@ -3618,22 +3728,43 @@ def sigkill_child(started: tuple, dev, tmp: str) -> dict:
             "differs": differ}
 
 
-def checkpoint_resume(model, data, dev, tmp: str, **size) -> dict:
-    """The poll loop's database checkpoints: ``apodotiko`` on the
-    ``Controller`` with ``checkpoint_every=1`` for 2 rounds, its stragglers
-    landed and one more ``checkpoint()`` (so the checkpoint holds live
-    rows), then ``Controller.resume`` with ``rounds=3``: the round counter,
-    client records, results, params and live update rows (ids and bits)
-    equal the checkpoint's, and the resumed run finishes its round with one
-    aggregate."""
+def checkpoint_state(eng) -> dict:
+    """What a database checkpoint restores: the round counter, the results,
+    the client records (the fleet's host columns on the columnar plane),
+    the params (their bits) and the pending update rows (ids, and bits cut
+    to the model's params: another mesh pads rows to another width)."""
+    live = sorted(r.update_row for r in eng.db.results if not r.aggregated)
+    out = durable_state(eng)
+    clients = out["fleet_host"] if eng.db.columnar else {
+        c: asdict(r) for c, r in eng.db.clients.items()}
+    rows = eng.store.gather(live)[:, :eng.spec.n_params].contiguous()
+    return {"round": eng.db.round,
+            "results": [asdict(r) for r in eng.db.results],
+            "clients": clients, "params": out["params"],
+            "pending_rows": live, "rows": rows.view(torch.int32).cpu()}
+
+
+def checkpoint_resume(model, data, dev, tmp: str, engine: str = "legacy",
+                      **over) -> tuple:
+    """Database checkpoints: ``apodotiko`` on the ``engine`` with
+    ``checkpoint_every=1`` for 2 rounds, its stragglers landed and one more
+    ``checkpoint()`` (so the checkpoint holds live rows), then the engine's
+    ``resume`` with ``rounds=3``: the round counter, client records,
+    results, params and live update rows (ids and bits) equal the
+    checkpoint's (``checkpoint_state``), and the resumed run finishes its
+    round with one aggregate. ``over`` sets other fields (a size, a
+    mesh). Returns (the record, the checkpoint's state); the checkpoint
+    stays in ``tmp/checkpoint``."""
     from repro_torch.core.controller import Controller
+    from repro_torch.core.scheduler import Scheduler
     from repro_torch.faas.hardware import paper_fleet
 
+    cls = {"legacy": Controller, "scheduler": Scheduler}[engine]
     root = os.path.join(tmp, "checkpoint")
-    cfg = paper_cfg("apodotiko", 2, engine="legacy", checkpoint_every=1,
-                    checkpoint_dir=root, **size)
+    cfg = paper_cfg("apodotiko", 2, engine=engine, checkpoint_every=1,
+                    checkpoint_dir=root, **over)
     fleet = list(paper_fleet(cfg.n_clients))
-    ctl = Controller(cfg, model, data, list(fleet), device=dev)
+    ctl = cls(cfg, model, data, list(fleet), device=dev)
     cadence, checkpoint = [], ctl.checkpoint
 
     def counted():
@@ -3644,48 +3775,80 @@ def checkpoint_resume(model, data, dev, tmp: str, **size) -> dict:
     ctl.run()
     while ctl.loop.step():      # land the stragglers: live rows to save
         pass
+    mesh0 = ctl.mesh.counters() if ctl.mesh is not None else None
     t0 = time.perf_counter()
     checkpoint()
     save_s = time.perf_counter() - t0
-
-    def state(eng):
-        live = sorted(r.update_row for r in eng.db.results
-                      if not r.aggregated)
-        out = durable_state(eng)
-        clients = out["fleet_host"] if eng.db.columnar else {
-            c: asdict(r) for c, r in eng.db.clients.items()}
-        return {"round": eng.db.round, "results": [
-                    asdict(r) for r in eng.db.results],
-                "clients": clients, "params": out["params"],
-                "pending_rows": live,
-                "rows": eng.store.gather(live).view(torch.int32).cpu()}
-
-    want = state(ctl)
+    mesh_bytes = (ctl.mesh.counters()["mesh_host_bytes"]
+                  - mesh0["mesh_host_bytes"] if mesh0 else 0)
+    want = checkpoint_state(ctl)
     del ctl
     t0 = time.perf_counter()
-    res = Controller.resume(paper_cfg("apodotiko", 3, engine="legacy",
-                                      checkpoint_dir=root, **size),
-                            model, data, list(fleet), device=dev)
+    res = cls.resume(paper_cfg("apodotiko", 3, engine=engine,
+                               checkpoint_dir=root, **over),
+                     model, data, list(fleet), device=dev)
     resume_s = time.perf_counter() - t0
-    got = state(res)
+    got = checkpoint_state(res)
     zero_counts()
     m = res.run()
     launches = read_counts()
-    return {"cadence": cadence, "checkpoint_round": want["round"],
+    return {"engine": engine, "mesh": m["mesh"], "cadence": cadence,
+            "checkpoint_round": want["round"],
             "live_rows": len(want["pending_rows"]), "save_ms": save_s * 1e3,
+            "save_mesh_host_bytes": mesh_bytes,
             "resume_ms": resume_s * 1e3, "differs": unequal(got, want),
             "resumed_rounds": m["rounds"], "final_round": res.db.round,
-            "staleness_agg": launches["staleness_agg"]}
+            "staleness_agg": launches["staleness_agg"]}, want
 
 
-def durability_phase(data, dev, model=None, **size) -> dict:
+def check_checkpoint(rec: dict, where: str) -> None:
+    """A ``checkpoint_resume`` record: every equality, the cadence, the
+    round reached and one aggregate."""
+    if rec["differs"] or rec["cadence"] != [1, 2] or \
+            rec["final_round"] != 3 or rec["staleness_agg"] != 1:
+        raise AssertionError(f"{where}: the checkpoint resume: {rec}")
+
+
+def mesh_journal_check(mesh_journal: bytes, gold_journal: bytes,
+                       mesh_cfg) -> dict:
+    """A durable run's journal at a mesh against the same config's 1x1
+    journal, record for record (``q``, ``k``, ``t``, ``r``, ``p`` and
+    ``g``: nothing in a record depends on the params). The one exception
+    is the genesis digest, which hashes the mesh: it must equal
+    ``config_digest(mesh_cfg)``. ``differs`` lists the first differing
+    record's sequence number and its keys that differ."""
+    from repro_torch.core.journal import decode_line
+    from repro_torch.durability import config_digest
+
+    got = [decode_line(l) for l in mesh_journal.splitlines()]
+    want = [decode_line(l) for l in gold_journal.splitlines()]
+    digest = config_digest(mesh_cfg)
+    differs = []
+    if not got or got[0]["k"] != "genesis" or \
+            got[0]["p"]["config"] != digest:
+        differs.append("genesis digest")
+    else:
+        got[0] = {**got[0], "p": {**got[0]["p"],
+                                  "config": want[0]["p"]["config"]}}
+    if len(got) != len(want):
+        differs.append(f"{len(got)} records, {len(want)} at 1x1")
+    for g, w in zip(got, want):
+        if g != w:
+            differs.append({"q": w["q"], "keys": sorted(
+                k for k in set(g) | set(w) if g.get(k) != w.get(k))})
+            break
+    return {"records": len(got), "genesis_digest": digest,
+            "differs": differs}
+
+
+def durability_phase(data, dev, model=None, mesh=None, **size) -> dict:
     """Durable runs at the paper's MNIST width (``paper_cfg``; MnistCNN
     unless ``model`` is given, ``size`` cuts the config for a rehearsal),
     under ``torch.use_deterministic_algorithms(True)`` (restored after), in
     a temporary directory removed at the end:
 
       1. ``apodotiko``, 3 rounds, ``durability="journal"``, a snapshot every
-         round: the golden run, then three runs killed (``crash_after``)
+         round: the golden run, then two runs killed (``crash_after``)
          at the boundaries of ``crash_points`` and resumed
          (``resume_durable``) on the card: journal bytes, history, clock,
          params, free list, live rows and generator equal the golden
@@ -3703,7 +3866,10 @@ def durability_phase(data, dev, model=None, **size) -> dict:
          ``scripts/torch_durable_crash_child.py`` on the card, started
          after the golden run (so it perturbs no wall of the overhead)
          and run beside the crash runs, resumed here;
-      4. ``checkpoint_resume``.
+      4. ``checkpoint_resume``;
+      5. with ``mesh`` (``mesh_phase``'s record), its durable golden
+         run's journal against 1.'s golden journal (``mesh_journal_check``),
+         and its snapshot ms and bytes, resume ms and wall beside 1.'s.
 
     Any difference fails the phase."""
     import shutil
@@ -3721,16 +3887,16 @@ def durability_phase(data, dev, model=None, **size) -> dict:
         off_eng, m_off, wall_off = timed_durable_run(
             paper_cfg("apodotiko", DUR_ROUNDS, **size), model, data, dev)
         del off_eng
-        apo = golden_crash_series(
+        apo, apo_journal = golden_crash_series(
             "apodotiko", DUR_ROUNDS, crash_points, model, data, dev, tmp,
             after_golden=lambda: started.append(start_child(dev, tmp)),
             **size)
-        topk = golden_crash_series(
+        topk, _ = golden_crash_series(
             "apodotiko-topk", DUR_TOPK_ROUNDS,
             lambda recs: {"mid_round_2": crash_points(recs)["mid_round_2"]},
             model, data, dev, tmp, **size)
         child = sigkill_child(started[0], dev, tmp)
-        ckpt = checkpoint_resume(model, data, dev, tmp, **size)
+        ckpt, _ = checkpoint_resume(model, data, dev, tmp, **size)
     finally:
         for proc, _, _ in started:      # stop the child on any failure
             if proc.poll() is None:
@@ -3753,7 +3919,33 @@ def durability_phase(data, dev, model=None, **size) -> dict:
                            "durability_off": m_off["durability"]},
               "sigkill": child, "checkpoint": ckpt,
               "seconds": time.perf_counter() - t_phase}
+    if mesh is not None:
+        record["mesh_journal"] = mesh_journal_check(
+            mesh["durable_journal"], apo_journal, durable_cfg(
+                MESH_DUR_STRATEGY, DUR_ROUNDS, "", mesh=mesh["mesh"],
+                **size))
+        dur = mesh["durable"]
+        record["mesh_vs_1x1"] = {
+            "mesh": mesh["mesh"],
+            "snapshot_ms": {"1x1": apo["snapshot_ms"], mesh["mesh"]: [
+                r["snapshot_ms"] for r in dur["per_rank"]]},
+            "snapshot_bytes": {"1x1": apo["snapshot_bytes"],
+                               mesh["mesh"]: dur["snapshot_bytes"]},
+            "snapshot_mesh_host_bytes": dur["snapshot_mesh_host_bytes"],
+            "checkpoint_mesh_host_bytes": [
+                r["checkpoint"]["save_mesh_host_bytes"]
+                for r in dur["per_rank"]],
+            "resume_ms": {"1x1": apo["crashes"][MESH_DUR_CRASH]["resume_ms"],
+                          mesh["mesh"]: [r["crash"]["resume_ms"]
+                                         for r in dur["per_rank"]]},
+            "golden_wall_s": {"1x1": apo["wall_s"], mesh["mesh"]: [
+                r["golden_wall_s"] for r in dur["per_rank"]]},
+            "mesh_durable_wall_s": [r["wall_s"] for r in dur["per_rank"]]}
     emit("durability", **record)
+    if mesh is not None and record["mesh_journal"]["differs"]:
+        raise AssertionError(f"durability: the {mesh['mesh']} journal "
+                             f"differs from the 1x1 golden journal: "
+                             f"{record['mesh_journal']}")
     for name, series in (("apodotiko", apo), ("apodotiko-topk", topk)):
         for point, c in series["crashes"].items():
             if c["differs"]:
@@ -3767,9 +3959,7 @@ def durability_phase(data, dev, model=None, **size) -> dict:
         raise AssertionError(f"durability: the SIGKILL child's resume "
                              f"differs in {child['differs']} "
                              f"({child['records_on_disk']} records on disk)")
-    if ckpt["differs"] or ckpt["cadence"] != [1, 2] or \
-            ckpt["final_round"] != 3 or ckpt["staleness_agg"] != 1:
-        raise AssertionError(f"durability: the checkpoint resume: {ckpt}")
+    check_checkpoint(ckpt, "durability")
     if m_off["durability"] != "off":
         raise AssertionError("durability: the off run journaled")
     return record
@@ -4804,7 +4994,7 @@ def main() -> int:
         prefix="chip_smoke_sweep_"))
     timed("megastep", megastep_phase, data, dev)
     profiles = timed("profiles", profiles_phase, data, dev)
-    timed("durability", durability_phase, data, dev)
+    timed("durability", durability_phase, data, dev, mesh=mesh)
     main_m = topk_engine.db.fleet.capacity
     main_selection = main_path_selection(topk_engine)
     fleet, fleet_state = timed("fleet", fleet_phase, dev)

@@ -13,10 +13,22 @@ and reads them just after, and writes to SPEC's ``out`` directory one JSON
 record a rank (``rank<R>.json``: host trace, launches, each round's
 largest step budget, wall seconds a round, the mesh's collective
 counters) and the params (``rank<R>_<run>.pt``, on the CPU: the final
-ones, and after each round of a run timed a round). Any
-failure raises: the exit code is non-zero and the parent fails the phase.
-Imports neither ``jax`` nor ``repro``; the kernels are the ones the parent
-built into ``build/kernels/``.
+ones, and after each round of a run timed a round).
+
+Then SPEC's ``durable`` runs, in folders under its ``root`` (rank 0
+writes the files, every rank reads them): the golden durable run (its
+params in ``rank<R>_durable_golden.pt``), one run killed at a journal
+boundary on every rank and resumed in this process and group
+(``chip_smoke.crash_and_resume``: the launches of the re-executed rounds,
+and every ``durable_state`` key and the journal's bytes against the
+golden run's on this rank), and the Scheduler's database checkpoints
+resumed at this mesh (``chip_smoke.checkpoint_resume``; rank 0 writes the
+checkpoint's state to ``ckpt_want.pt`` for the parent's 1x1 resume).
+Their record is the ``durable`` entry of ``rank<R>.json``.
+
+Any failure raises: the exit code is non-zero and the parent fails the
+phase. Imports neither ``jax`` nor ``repro``; the kernels are the ones the
+parent built into ``build/kernels/``.
 """
 import json
 import sys
@@ -90,6 +102,56 @@ def one_run(run: dict, spec: dict, datasets: dict, dev) -> tuple:
     return rec, params
 
 
+def durable_runs(spec: dict, datasets: dict, dev, out: Path,
+                 rank: int) -> dict:
+    """SPEC's ``durable`` runs on this rank: their record."""
+    from repro_torch.core.journal import Journal
+
+    dur = spec["durable"]
+    key = json.dumps(dur["data"], sort_keys=True)
+    if key not in datasets:
+        from repro_torch.data.synthetic import make_federated_dataset
+        datasets[key] = make_federated_dataset(**dur["data"])
+    data, model = datasets[key], cs.mesh_model(dur["model"])
+    root = Path(dur["root"])
+
+    def cfg(name: str):
+        return cs.durable_cfg(dur["strategy"], dur["rounds"],
+                              str(root / name), mesh=spec["mesh"],
+                              **dur["over"])
+
+    t0 = time.perf_counter()
+    cs.zero_counts()
+    eng, m, wall = cs.timed_durable_run(cfg("golden"), model, data, dev)
+    launches = cs.read_counts()
+    gold = cs.durable_state(eng)
+    torch.save({k: v.detach().cpu() for k, v in eng.params.items()},
+               out / f"rank{rank}_durable_golden.pt")
+    golden = {"wall_s": wall, "rounds": len(eng.history),
+              "launches": {k: launches[k] for k in ("staleness_agg",
+                                                    "fused_adam")},
+              "snapshot_ms": m["snapshot_s"] / max(m["n_snapshots"], 1)
+              * 1e3,
+              **{k: m[k] for k in ("journal_records", "journal_bytes",
+                                   "journal_fsyncs", "n_snapshots",
+                                   "mesh_host_bytes", "mesh_collectives",
+                                   "megastep_fallback_reason")}}
+    del eng
+    gold_journal = (root / "golden" / "journal.wal").read_bytes()
+    records, _ = Journal.read(str(root / "golden" / "journal.wal"))
+    k = cs.crash_points(records)[dur["crash"]]
+    crash = cs.crash_and_resume(cfg(dur["crash"]), model, data, dev, k,
+                                gold, gold_journal)
+    crash["point"] = dur["crash"]
+    ckpt, want = cs.checkpoint_resume(model, data, dev, str(root),
+                                      engine="scheduler", mesh=spec["mesh"],
+                                      **dur["over"])
+    if rank == 0:
+        torch.save(want, out / "ckpt_want.pt")
+    return {"golden": golden, "crash": crash, "checkpoint": ckpt,
+            "wall_s": time.perf_counter() - t0}
+
+
 def main() -> int:
     spec = json.loads(Path(sys.argv[1]).read_text())
     rank = int(sys.argv[2])
@@ -110,6 +172,8 @@ def main() -> int:
                                            mesh.model_index],
                   "mesh": repr(mesh), "backend": mesh.backend,
                   "stages": mesh.stages, "runs": records}
+        if "durable" in spec:
+            result["durable"] = durable_runs(spec, datasets, dev, out, rank)
     finally:
         dist.destroy_process_group()
     (out / f"rank{rank}.json").write_text(json.dumps(result))

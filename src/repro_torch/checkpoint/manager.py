@@ -16,8 +16,13 @@ dtype ``"bfloat16"`` in ``meta.json``, as the reference writes it. numpy
 has no bfloat16, so ``restore_pytree`` returns numpy arrays, except that a
 bfloat16 leaf comes back as a CPU ``torch.bfloat16`` tensor.
 
-The reference's multi-host shard layout (``host_<i>``) belongs to meshes,
-which the port does not run yet.
+Under an FL mesh (``sharding.flmesh``, one process a rank) the update
+store's checkpoint is written once: every rank joins the gather of the
+live rows from its tile, and rank 0 alone saves them (``save_update_store``),
+so no two ranks race on one ``.tmp`` / ``.old`` directory. The files are
+the un-meshed layout, whole rows, so a checkpoint written under one mesh
+resumes under another. The reference's multi-host shard layout
+(``host_<i>``) is not written.
 """
 from __future__ import annotations
 
@@ -30,6 +35,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.sharding import flmesh
 
 Pytree = Any
 
@@ -145,12 +152,15 @@ def save_update_store(store, row_ids, directory: str) -> None:
     ``UpdateStore`` so an async run can resume with its in-flight updates
     intact. Only the referenced rows are written — one device-to-host copy
     per checkpoint, not per round — together with their ids so record
-    handles (``ResultRecord.update_row``) stay valid after rehydration."""
+    handles (``ResultRecord.update_row``) stay valid after rehydration.
+    Under a mesh every rank calls it (the gather is a collective) and rank
+    0 alone writes."""
     ids = np.asarray(row_ids, np.int64)
     rows = (store.gather(ids).cpu().numpy() if ids.size
             else np.zeros((0, store.row_width), np.float32))
-    save_pytree({"ids": ids, "rows": rows,
-                 "n_params": np.int64(store.n_params)}, directory)
+    if flmesh.is_writer(store.mesh):
+        save_pytree({"ids": ids, "rows": rows,
+                     "n_params": np.int64(store.n_params)}, directory)
 
 
 def restore_update_store(directory: str) -> tuple[np.ndarray, np.ndarray, int]:

@@ -46,9 +46,12 @@ checkpoints or without. A ``"<data>x<model>"`` mesh
 a rank, every rank running the whole host engine: the update store
 sharded, the cohort split over ``data``, aggregation an all-reduce of the
 ranks' partial sums. Under a mesh the device planes are required
-(``ValueError`` otherwise, as in the reference), and durable runs and
-database checkpoints raise ``NotImplementedError`` naming the slice that
-will bring them (``_check_supported``).
+(``ValueError`` otherwise, as in the reference). Durable runs and database
+checkpoints run under a mesh with one writer, rank 0: it alone appends to
+the journal and writes snapshots, the database and the update store's
+live rows, which every rank gathers from its tile first; every rank
+restores its own tile, and a database checkpoint resumes under another
+mesh than the one that wrote it (the rows are saved whole).
 """
 from __future__ import annotations
 
@@ -152,9 +155,9 @@ def resolve_durability_sync(mode: str) -> str:
 
 
 def _check_supported(cfg: "FLConfig") -> None:
-    """Raise for every setting this slice of the port does not run, and
-    for a mesh with a setting that cannot shard, before any process group
-    is read."""
+    """Raise for an unknown engine, megastep mode or control plane, and
+    for a mesh with a plane that cannot shard, before any process group is
+    read."""
     resolve_engine(cfg.engine)
     resolve_megastep(cfg.megastep)
     if _resolve(cfg.control_plane, "columnar") not in ("columnar", "object"):
@@ -170,12 +173,6 @@ def _check_supported(cfg: "FLConfig") -> None:
             f"update_plane={update_plane!r}, data_plane={data_plane!r}): the "
             "blob/host paths move every row through the host and cannot "
             "shard")
-    if resolve_durability(cfg.durability) == "journal" \
-            or cfg.checkpoint_every:
-        raise NotImplementedError(
-            f"durable runs and database checkpoints under mesh {spec!r} come "
-            "with the next slice of the port (one journal writer and a "
-            "snapshot of the gathered store, restored per rank)")
 
 
 @dataclass
@@ -189,8 +186,8 @@ class FLConfig:
     The fields, their defaults and their meaning are the reference's. In
     the port an ``"auto"`` value resolves to the default the comment names
     without reading any ``REPRO_*`` environment variable. Every setting
-    runs; under a mesh other than ``1x1``, durable runs and database
-    checkpoints raise (``_check_supported``)."""
+    runs, under any mesh (a mesh other than ``1x1`` needs the device
+    update and data planes)."""
 
     # -- population & schedule -------------------------------------------------
     n_clients: int = 200           # total registered clients (paper IV-A3: 200)
@@ -364,10 +361,6 @@ class FLRuntime:
                  init_params: Optional[Params] = None,
                  strategy: Optional[Strategy] = None, device=None):
         _check_supported(cfg)
-        if db is not None and flmesh.resolve_mesh(cfg.mesh) != "1x1":
-            raise NotImplementedError(
-                f"resuming under mesh {cfg.mesh!r} comes with the next slice "
-                "of the port")
         # mesh plane: "1x1" builds nothing (mesh None, the single-device
         # path); a wider mesh reads the caller's process group and names
         # this rank's device
@@ -530,7 +523,10 @@ class FLRuntime:
     def _rehydrate_store(self) -> None:
         """Resume path: reload the live un-aggregated update rows saved at
         checkpoint time, at their original ids so ResultRecord handles in
-        the restored database stay valid."""
+        the restored database stay valid. Under a mesh each rank writes
+        its own tile of the saved whole rows; rows saved by a store of
+        another W (another mesh's alignment) are trimmed or zero-padded
+        to this one's by ``write_at``."""
         from repro_torch.checkpoint import restore_update_store
         d = os.path.join(self.cfg.checkpoint_dir, UPDATE_STORE_DIRNAME)
         if not os.path.isdir(d):
@@ -1053,17 +1049,17 @@ class FLRuntime:
     def checkpoint(self) -> None:
         """Save the database (client records, results, round, the global
         model as host arrays) to ``cfg.checkpoint_dir``, and on the device
-        plane the live un-aggregated update rows beside it."""
+        plane the live un-aggregated update rows beside it. Under a mesh
+        every rank calls it and keeps the same database; rank 0 alone
+        writes, every rank joins the gather of the live rows, and all meet
+        at a barrier once the files are written."""
         if not self.cfg.checkpoint_dir:
             return
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"database checkpoints under mesh {self.mesh_spec!r} come "
-                "with the next slice of the port")
         self.db.meta["update_plane"] = self.update_plane
         self.db.put_global_model(self.db.round, tree_map(
             lambda p: p.detach().cpu().numpy(), self.params))
-        self.db.save(self.cfg.checkpoint_dir)
+        if flmesh.is_writer(self.mesh):
+            self.db.save(self.cfg.checkpoint_dir)
         if self.update_plane == "device":
             # persist the live un-aggregated rows so the async in-flight
             # state survives a crash bit-exactly (handles stay valid)
@@ -1073,13 +1069,18 @@ class FLRuntime:
             save_update_store(
                 self.store, ids,
                 os.path.join(self.cfg.checkpoint_dir, UPDATE_STORE_DIRNAME))
+        if self.mesh is not None:
+            flmesh.barrier(self.mesh)
 
     @classmethod
     def resume(cls, cfg: FLConfig, model, data, fleet, device=None):
         """Rebuild an engine from the database ``checkpoint`` saved in
         ``cfg.checkpoint_dir`` (on the card unless ``device`` says
-        otherwise)."""
-        db = Database.load(cfg.checkpoint_dir, device=resolve_device(device))
+        otherwise), under ``cfg.mesh``, whichever mesh wrote it: each rank
+        loads the database onto its own device."""
+        mesh = flmesh.build_fl_mesh(flmesh.resolve_mesh(cfg.mesh), device)
+        device = mesh.device if mesh is not None else resolve_device(device)
+        db = Database.load(cfg.checkpoint_dir, device=device)
         return cls(cfg, model, data, fleet, db=db, device=device)
 
     @staticmethod

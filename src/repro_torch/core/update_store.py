@@ -211,7 +211,7 @@ class UpdateStore:
         part = self.buffer.new_zeros((len(idx), self.buffer.shape[1]))
         part[mine] = self.buffer[local[mine]]
         parts = flmesh.all_gather_data(part, self.mesh).view(
-            self._d, len(idx), -1)
+            self._d, len(idx), self.buffer.shape[1])
         stripe = parts[idx % self._d, torch.arange(len(idx),
                                                    device=self.device)]
         return flmesh.all_gather_model(stripe, self.mesh)

@@ -22,6 +22,15 @@ with ``SimulatedCrash`` for in-process fuzzing; ``"sigkill"`` delivers a
 real ``SIGKILL`` for subprocess fuzzing. Unlike the reference, no
 environment variable arms it.
 
+Under a mesh (``sharding.flmesh``: one process a rank, each running the
+whole host engine, so each emits the same records) rank 0 alone opens the
+journal and appends to it. Every rank builds each record, counts it,
+validates a resumed tail against it and crashes at the same
+``crash_after``, so the ranks stay in step through every collective. In
+``"sigkill"`` mode only the calling process dies: its peers would wait in
+their next collective, so the launcher (``torchrun``, or whatever started
+the group) must tear the group down.
+
 The journal equals the reference's for the same config and seed, record
 for record, except the generator fingerprint ``g["k"]``: the reference
 records its JAX PRNG key, the port ``zlib.crc32`` of the
@@ -41,6 +50,7 @@ from dataclasses import asdict
 from typing import Optional, Sequence
 
 from repro_torch.core.journal import JOURNAL_NAME, Journal, encode_event
+from repro_torch.sharding import flmesh
 
 #: FLConfig fields excluded from the genesis digest: identity of the
 #: run, not of the experiment (a resume points at the same directory;
@@ -102,7 +112,10 @@ class DurabilityManager:
         self.root = cfg.checkpoint_dir
         self.sync = resolve_durability_sync(cfg.durability_sync)
         self.snap_every = max(int(cfg.durability_snap_every), 1)
-        self.journal = Journal(os.path.join(self.root, JOURNAL_NAME))
+        self.mesh = runtime.mesh
+        # the one journal writer: rank 0 under a mesh
+        self.journal = (Journal(os.path.join(self.root, JOURNAL_NAME))
+                        if flmesh.is_writer(self.mesh) else None)
         self._expected = collections.deque(expected or ())
         self._seq = next_seq
         self.n_records = 0
@@ -138,7 +151,10 @@ class DurabilityManager:
 
     def finish(self) -> None:
         self._record("run_end", {}, round_=self.rt.db.round, fsync=True)
-        self.journal.close()
+        if self.journal is not None:
+            self.journal.close()
+        if self.mesh is not None:
+            flmesh.barrier(self.mesh)   # the whole journal is on disk
 
     # ---------------------------------------------------------- appends
     def _record(self, kind: str, payload: dict, *, round_: int,
@@ -148,8 +164,7 @@ class DurabilityManager:
                          {"config": self._config_digest,
                           "engine": self.rt.engine_name, "version": 1},
                          round_=0, fsync=True)
-        rec = {"q": self._seq, "k": kind, "t": self.rt.loop.now,
-               "r": round_, "p": payload, "g": self._fingerprint(kind)}
+        rec = self._next_record(kind, payload, round_)
         if self._expected:
             exp = self._expected.popleft()
             if exp != rec:
@@ -158,16 +173,22 @@ class DurabilityManager:
                     f"  journal: {json.dumps(exp, sort_keys=True)}\n"
                     f"  replay:  {json.dumps(rec, sort_keys=True)}")
             self.n_replayed += 1
-        else:
+        elif self.journal is not None:
             self.journal.append(rec, fsync=fsync)
         self._seq += 1
         self.n_records += 1
         if self.crash_after is not None and self._seq >= self.crash_after:
             self._crash()
 
+    def _next_record(self, kind: str, payload: dict, round_: int) -> dict:
+        """The record at ``self._seq``, the same on every rank."""
+        return {"q": self._seq, "k": kind, "t": self.rt.loop.now,
+                "r": round_, "p": payload, "g": self._fingerprint(kind)}
+
     def _crash(self) -> None:
-        self.journal.flush()
-        self.journal.close()
+        if self.journal is not None:
+            self.journal.flush()
+            self.journal.close()
         if self.crash_mode == "sigkill":
             os.kill(os.getpid(), signal.SIGKILL)
         raise SimulatedCrash(
@@ -193,13 +214,18 @@ class DurabilityManager:
 
     # ---------------------------------------------------------- metrics
     def metrics(self) -> dict:
+        """The journal's and the snapshots' counters. Under a mesh every
+        rank reports the same ``journal_records``, ``journal_replayed``
+        and ``n_snapshots``; ``journal_bytes`` and ``journal_fsyncs`` are
+        the writer's, 0 on every other rank."""
+        j = self.journal
         return {
             "durability": "journal",
             "durability_sync": self.sync,
             "journal_records": self.n_records,
             "journal_replayed": self.n_replayed,
-            "journal_bytes": self.journal.bytes_written,
-            "journal_fsyncs": self.journal.n_fsyncs,
+            "journal_bytes": j.bytes_written if j is not None else 0,
+            "journal_fsyncs": j.n_fsyncs if j is not None else 0,
             "n_snapshots": self.n_snapshots,
             "snapshot_s": self.snapshot_s,
         }

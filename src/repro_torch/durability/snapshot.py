@@ -36,6 +36,11 @@ columnar fleet's device score state comes back there too
 (``FleetStore.from_state``). Blob-plane payloads are host numpy trees and
 stay on the host.
 
+Under a mesh (``sharding.flmesh``) rank 0 alone writes a snapshot: the
+live rows are gathered whole from every rank's tile first, and every rank
+restores its own tile of them (``install_snapshot``). The free list and
+live set are global, the same on every rank.
+
 Atomicity: files land in the final ``snap_<seq>`` directory, but the
 manifest — with per-file size + CRC32 — is written last (tmp +
 ``os.replace``). A directory without a valid manifest, or whose files
@@ -60,6 +65,7 @@ from repro_torch.core.database import Database, _flatten, _treedef, _unflatten
 from repro_torch.core.services import Inflight, _Payload
 from repro_torch.core.update_store import UpdateStore
 from repro_torch.faas.hardware import HardwareProfile
+from repro_torch.sharding import flmesh
 
 SNAP_PREFIX = "snap_"
 MANIFEST = "MANIFEST.json"
@@ -230,16 +236,41 @@ def snapshot_dir(root: str, seq: int) -> str:
 def write_snapshot(rt, root: str, seq: int, *, keep: int = 2) -> bool:
     """Write the coordinated snapshot for journal seq ``seq``. Returns
     False (untouched) if a manifest already exists for it — a resumed
-    run re-reaches the same boundary idempotently."""
+    run re-reaches the same boundary idempotently.
+
+    Under a mesh every rank calls this at the same boundary: rank 0
+    decides whether the manifest exists and broadcasts it, every rank
+    joins the gather of the live rows (each holds only its tile), rank 0
+    alone writes the files, and all ranks meet at a barrier once the
+    manifest is durable."""
+    mesh = rt.mesh
+    writer = flmesh.is_writer(mesh)
     d = snapshot_dir(root, seq)
-    if os.path.exists(os.path.join(d, MANIFEST)):
+    exists = writer and os.path.exists(os.path.join(d, MANIFEST))
+    if mesh is not None:
+        exists = flmesh.broadcast_object(exists, mesh)
+    if exists:
         return False
-    os.makedirs(d, exist_ok=True)
 
     rt.db.meta["update_plane"] = rt.update_plane
+    state, blob_arrays = capture_state(rt)
+    rows = None
+    if state["store"] is not None and state["store"]["ids"]:
+        rows = rt.store.gather(state["store"]["ids"]).cpu().numpy()
+    if writer:
+        _write_files(rt, d, seq, state, blob_arrays, rows)
+        _gc_snapshots(root, keep)
+    if mesh is not None:
+        flmesh.barrier(mesh)
+    return True
+
+
+def _write_files(rt, d: str, seq: int, state: dict, blob_arrays: dict,
+                 rows) -> None:
+    """The snapshot's files in ``d``, its manifest last."""
+    os.makedirs(d, exist_ok=True)
     rt.db.save(os.path.join(d, "db"))
     save_pytree(rt.params, os.path.join(d, "params"))
-    state, blob_arrays = capture_state(rt)
     if rt.c_global is not None:
         save_pytree({"c_global": rt.c_global, "c_buf": rt.c_buf},
                     os.path.join(d, "scaffold"))
@@ -249,8 +280,7 @@ def write_snapshot(rt, root: str, seq: int, *, keep: int = 2) -> bool:
     if blob_arrays:
         with open(os.path.join(d, "inflight_blobs.npz"), "wb") as f:
             np.savez(f, **blob_arrays)
-    if state["store"] is not None and state["store"]["ids"]:
-        rows = rt.store.gather(state["store"]["ids"]).cpu().numpy()
+    if rows is not None:
         with open(os.path.join(d, "rows.npz"), "wb") as f:
             np.savez(f, rows=rows, n_params=np.int64(rt.spec.n_params))
     with open(os.path.join(d, "runtime.json"), "w") as f:
@@ -276,8 +306,6 @@ def write_snapshot(rt, root: str, seq: int, *, keep: int = 2) -> bool:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(d, MANIFEST))
-    _gc_snapshots(root, keep)
-    return True
 
 
 def _gc_snapshots(root: str, keep: int) -> None:
@@ -397,11 +425,12 @@ def install_snapshot(rt, state: dict, path: str) -> None:
         rt._c_cap = int(state["c_cap"])
 
     # update store: exact capacity and free-list order so future allocs
-    # pop the same ids the uncrashed run would
+    # pop the same ids the uncrashed run would; under a mesh each rank
+    # writes only its own tile of the saved whole rows
     st = state["store"]
     if st is not None:
         store = UpdateStore(rt.spec.n_params, capacity=st["capacity"],
-                            device=rt.device)
+                            device=rt.device, mesh=rt.mesh)
         if store.capacity != st["capacity"]:
             raise ValueError("update-store capacity mismatch on restore")
         ids = [int(i) for i in st["ids"]]

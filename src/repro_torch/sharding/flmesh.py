@@ -35,16 +35,20 @@ rank's smaller lane batch rounds near-zero gradients differently, which
 Adam's normalized first steps magnify to +-lr.
 
 The collectives live here and nowhere else: ``all_reduce_data``,
-``all_gather_data``, ``all_gather_model``. A group whose backend for CUDA
-tensors is gloo gets a CUDA tensor through an explicit host copy (gloo
-does not take CUDA tensors for every collective); those bytes are counted
-in ``FLMesh.host_bytes``. The route is chosen by the group's backend,
-never by a ``try``.
+``all_gather_data``, ``all_gather_model``, and for durable runs and
+database checkpoints (one writer, rank 0) ``barrier`` and
+``broadcast_object``. A group whose backend for CUDA tensors is gloo gets
+a CUDA tensor through an explicit host copy (gloo does not take CUDA
+tensors for every collective); those bytes are counted in
+``FLMesh.host_bytes``, as are the bytes of a broadcast object on such a
+group (gloo carries them through the host). The route is chosen by the
+group's backend, never by a ``try``.
 """
 from __future__ import annotations
 
 import math
 import os
+import pickle
 import time
 from typing import Optional
 
@@ -272,3 +276,44 @@ def all_gather_model(x: torch.Tensor, mesh: FLMesh) -> torch.Tensor:
     """Every model rank's ``x``, concatenated along the last dim in model
     order: column stripes back into whole rows."""
     return _all_gather(x, mesh, mesh.model_group, mesh.model, -1)
+
+
+def is_writer(mesh: Optional[FLMesh]) -> bool:
+    """Whether this process writes a run's files: always without a mesh,
+    rank 0 alone under one."""
+    return mesh is None or mesh.rank == 0
+
+
+def _on_card(mesh: FLMesh) -> bool:
+    """Whether the group runs this rank's collectives on its card (NCCL),
+    not on the host."""
+    return mesh.device.type == "cuda" and _cuda_backend(mesh.world) == "nccl"
+
+
+def barrier(mesh: FLMesh) -> None:
+    """Every rank waits here until all have arrived: no rank passes a
+    commit point (a snapshot's manifest, a checkpoint, the journal's last
+    record) before rank 0 has made it durable."""
+    t0 = time.perf_counter()
+    if _on_card(mesh):
+        dist.barrier(group=mesh.world, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(group=mesh.world)
+    mesh.collective_s += time.perf_counter() - t0
+    mesh.n_collectives += 1
+
+
+def broadcast_object(obj, mesh: FLMesh):
+    """Rank 0's ``obj`` (a small picklable host object: a decision, a
+    snapshot's sequence number) on every rank; the other ranks' ``obj`` is
+    ignored. Carried on the host for gloo (its pickled bytes counted in
+    ``host_bytes`` when the mesh stages), on the card for NCCL."""
+    t0 = time.perf_counter()
+    box = [obj if mesh.rank == 0 else None]
+    dist.broadcast_object_list(box, src=0, group=mesh.world, device=(
+        mesh.device if _on_card(mesh) else torch.device("cpu")))
+    if mesh.stages:
+        mesh.host_bytes += len(pickle.dumps(box[0]))
+    mesh.collective_s += time.perf_counter() - t0
+    mesh.n_collectives += 1
+    return box[0]

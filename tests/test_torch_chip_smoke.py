@@ -3,11 +3,13 @@ prints on stdout is one JSON object, the last two are the kernel list and
 the result line, and without a card (or outside a checkout) it fails and
 prints no result."""
 import ast
+import dataclasses
 import importlib.util
 import json
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -1101,7 +1103,7 @@ def _durability_rehearsal(cs, monkeypatch):
 
 @pytest.mark.usefixtures("one_torch_thread")
 def test_durability_phase_on_the_cpu(monkeypatch, capsys):
-    """The phase's contract: three crash points of the apodotiko run and
+    """The phase's contract: two crash points of the apodotiko run and
     one of the apodotiko-topk run resume bit-equal to their golden runs
     with the launches a re-executed round must make, the SIGKILL child
     resumes, the checkpoint resume restores what it saved, the overhead
@@ -1114,13 +1116,12 @@ def test_durability_phase_on_the_cpu(monkeypatch, capsys):
     lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert [l["phase"] for l in lines] == ["durability"]
     apo, topk = rec["apodotiko"], rec["apodotiko_topk"]
-    assert set(apo["crashes"]) == {"mid_round_2", "after_round_close",
-                                   "n_records_minus_1"}
+    assert set(apo["crashes"]) == {"mid_round_2", "after_round_close"}
     assert set(topk["crashes"]) == {"mid_round_2"}
     assert apo["rounds"] == cs.DUR_ROUNDS
     assert topk["rounds"] == cs.DUR_TOPK_ROUNDS
-    n = apo["journal_records"]
-    assert apo["crashes"]["n_records_minus_1"]["crash_after"] == n - 1
+    records = apo["journal_records"]
+    assert 1 < apo["crashes"]["after_round_close"]["crash_after"] < records
     for series in (apo, topk):
         assert series["n_snapshots"] == series["rounds"]
         assert series["snapshot_bytes"] and min(series["snapshot_bytes"]) > 0
@@ -2068,10 +2069,20 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys, one_torch_thread):
     the rehearsal's size, held to 1x1 runs of the same configs (traces
     equal, params within 1e-4 / 1e-5, bit-equal across ranks), the
     megastep pair bit-equal with a fused round, the launches per rank
-    (plain calls counted); then its kernel entry at the tile's shape."""
+    (plain calls counted); the durable runs in the same ranks (a crash
+    resumed bit-equal with its launches, the checkpoint resumed at 2x2
+    and at 1x1), and their journal equal to a 1x1 durable run's of the
+    same config, genesis digest apart; then its kernel entry at the
+    tile's shape."""
     import types
 
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.proxy_models import ProxyCNN
+
     cs = _load()
+    _count_plain_calls(monkeypatch)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     monkeypatch.setattr(cs, "time_ms", lambda fn, **k: (fn(), 0.0)[1])
     monkeypatch.setattr(cs, "device_ms", _device_ms)
@@ -2107,6 +2118,33 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys, one_torch_thread):
             assert run["megastep_rounds"] >= 1
     assert rec["store_tile"] == [rec["store_capacity"] // 2,
                                  rec["row_width"] // 2]
+    dur = rec["durable"]
+    assert dur["golden"]["n_snapshots"] == cs.DUR_ROUNDS
+    assert dur["golden"]["megastep_fallback_reason"] == \
+        "durability journal active"
+    assert len(dur["snapshot_bytes"]) == 2 and min(dur["snapshot_bytes"]) > 0
+    assert dur["snapshot_mesh_host_bytes"] == 0          # CPU tensors
+    for r in dur["per_rank"]:
+        assert (r["journal_bytes"] > 0) == (r["rank"] == 0)
+        crash = r["crash"]
+        assert crash["point"] == "mid_round_2"
+        assert crash["snapshot_round"] == 1 and crash["journal_replayed"] > 0
+        assert crash["launches"]["staleness_agg"] == cs.DUR_ROUNDS - 1
+        assert crash["launches"]["fused_adam"] > 0
+        assert r["checkpoint"]["live_rows"] > 0
+        assert r["checkpoint"]["staleness_agg"] == 1
+    assert dur["checkpoint_at_1x1"]["differs"] == []
+    assert dur["checkpoint_at_1x1"]["mesh"] == "1x1"
+    # the 2x2 golden journal against a 1x1 durable run of its config
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cs.durable_cfg(cs.MESH_DUR_STRATEGY, cs.DUR_ROUNDS, tmp,
+                             **MESH_SMALL)
+        build_engine(cfg, ProxyCNN(10), make_federated_dataset(**data_kw),
+                     list(paper_fleet(10)), device="cpu").run()
+        gold = (Path(tmp) / "journal.wal").read_bytes()
+    check = cs.mesh_journal_check(rec["durable_journal"], gold,
+                                  dataclasses.replace(cfg, mesh="2x2"))
+    assert check["differs"] == [] and check["records"] > 10
     entry = cs.mesh_kernel_entry(rec, golden["records"]["apodotiko"],
                                  torch.device("cpu"))
     assert set(cs.KERNEL_KEYS) <= set(entry)
@@ -2114,6 +2152,39 @@ def test_mesh_phase_on_the_cpu(monkeypatch, capsys, one_torch_thread):
     assert entry["shape"]["C"] == rec["store_tile"][0]
     assert entry["shape"]["W"] == rec["store_tile"][1]
     assert entry["launches"] == cs.MESH_ROUNDS
+
+
+def test_mesh_journal_check_finds_a_planted_difference(tmp_path,
+                                                       one_torch_thread):
+    """``mesh_journal_check`` passes a journal held to itself under its own
+    config; it names a record whose clock differs, a missing record, and a
+    genesis digest that is not the mesh config's."""
+    from repro_torch.core.scheduler import build_engine
+    from repro_torch.data.synthetic import make_federated_dataset
+    from repro_torch.faas.hardware import paper_fleet
+    from repro_torch.models.proxy_models import ProxyCNN
+
+    cs = _load()
+    cfg = cs.durable_cfg("apodotiko", 2, str(tmp_path), **MESH_SMALL)
+    build_engine(cfg, ProxyCNN(10), make_federated_dataset(
+        "mnist", n_clients=10, scale=0.05, seed=0), list(paper_fleet(10)),
+        device="cpu").run()
+    gold = (tmp_path / "journal.wal").read_bytes()
+    ok = cs.mesh_journal_check(gold, gold, cfg)
+    assert ok["differs"] == [] and ok["records"] > 3
+    lines = gold.splitlines(keepends=True)
+    rec = json.loads(lines[3].rpartition(b"|")[0])
+    rec["t"] += 1.0
+    from repro_torch.core.journal import encode_line
+    planted = b"".join(lines[:3] + [encode_line(rec)] + lines[4:])
+    assert cs.mesh_journal_check(planted, gold, cfg)["differs"] == [
+        {"q": 3, "keys": ["t"]}]
+    short = cs.mesh_journal_check(b"".join(lines[:-1]), gold, cfg)
+    assert short["differs"][0] == f"{len(lines) - 1} records, " \
+                                  f"{len(lines)} at 1x1"
+    meshed = cs.mesh_journal_check(gold, gold, dataclasses.replace(
+        cfg, mesh="2x2"))
+    assert meshed["differs"] == ["genesis digest"]
 
 
 def test_split_golden_helpers_match_the_whole_on_the_cpu(one_torch_thread):

@@ -1124,6 +1124,65 @@ def test_controller_checkpoint_resume_on_the_card(card, tmp_path):
     assert m["rounds"] >= 1 and res.db.round == 3
 
 
+@pytest.mark.cuda
+def test_a_2x1_group_on_the_card_resumes_a_crash(card, tmp_path):
+    """Two ranks at ``2x1`` over gloo on the one card
+    (``tests/torch_mesh_durability_worker.py``, under deterministic
+    algorithms, the card's tensors staged through the host): the
+    harness's durable Scheduler run, and the same run killed mid round 2
+    on both ranks and resumed in the group. The resumed journal's bytes
+    equal the golden run's, and each rank's state (history, clock,
+    params, free list, live rows, generator, fleet columns) its golden
+    run's and rank 0's, bit for bit."""
+    import json
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch_mesh_durability_worker as worker
+
+    here = Path(__file__).resolve().parent
+    kw = {k: v for k, v in DURABLE_KW.items() if k != "durability"}
+    spec = dict(mesh="2x1", world=2, init=str(tmp_path / "rendezvous"),
+                out=str(tmp_path), root=str(tmp_path / "runs"),
+                cfg=dict(kw, rounds=2), device=f"cuda:{card.index or 0}",
+                cases=["sched"], points=["mid_round_2"], checkpoints=False)
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_mesh_durability_worker.py"),
+         str(tmp_path / "spec.json"), str(r)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], [o[-2000:] for o in outs]
+    recs = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            recs.append(pickle.load(f))
+    runs = tmp_path / "runs" / "sched"
+    assert (runs / "mid_round_2" / "journal.wal").read_bytes() == \
+        (runs / "golden" / "journal.wal").read_bytes()
+
+    def state(rec):
+        return {k: rec[k] for k in worker.STATE_KEYS if k in rec}
+
+    first = recs[0]["sched_mid_round_2"]
+    assert first["snapshot_round"] == 1 and first["replayed"] > 0
+    for rec in recs:
+        got = rec["sched_mid_round_2"]
+        worker.bit_equal(state(got), state(rec["sched_golden"]), "golden")
+        worker.bit_equal(state(got), state(first), "rank 0")
+        assert rec["sched_golden"]["metrics"]["mesh_host_bytes"] > 0
+
+
 # -- the dense decoder LM -----------------------------------------------------
 
 

@@ -8,7 +8,7 @@ import pytest
 from repro.sharding import flmesh as jflmesh
 from repro_torch.core.controller import Controller
 from repro_torch.core.scheduler import build_engine
-from repro_torch.core.services import FLConfig
+from repro_torch.core.services import FLConfig, _check_supported
 from repro_torch.data.synthetic import make_federated_dataset
 from repro_torch.faas.hardware import paper_fleet
 from repro_torch.models.proxy_models import ProxyCNN
@@ -97,10 +97,15 @@ def test_the_oracle_planes_refuse_a_mesh(over):
                                   dict(checkpoint_every=1,
                                        checkpoint_dir="unused")])
 def test_durable_runs_and_checkpoints_under_a_mesh_raise(over):
+    """A durable run and database checkpoints pass ``_check_supported``
+    under a mesh and reach the process-group check: without a group, the
+    ``ValueError`` naming torchrun (the runs themselves are in
+    ``tests/test_torch_mesh_durability.py``)."""
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
     cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1, mesh="2x1",
                    **over)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    _check_supported(cfg)
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         build_engine(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
                      device="cpu")
 

@@ -248,10 +248,10 @@ def test_training_and_evaluation_run_inside_the_fp32_scope():
     (dict(optimizer="momentum"), "momentum"),
 ])
 def test_left_out_settings_raise_naming_a_later_slice(kw, match):
-    """A durable run under a mesh other than ``1x1`` raises naming its
-    slice (meshes themselves raised until the mesh slice ported them).
-    ``momentum`` raised too until the launch slice ported it: that case
-    now asserts that its clients train."""
+    """Both settings raised naming a later slice until it ported them: a
+    durable run under a mesh other than ``1x1`` now reaches the mesh's
+    process-group check (without a group, the ``ValueError`` naming
+    torchrun), and ``momentum``'s clients train."""
     data = make_federated_dataset("mnist", n_clients=4, scale=0.05, seed=0)
     cfg = FLConfig(n_clients=4, clients_per_round=2, rounds=1, **kw)
     if match == "momentum":
@@ -261,10 +261,10 @@ def test_left_out_settings_raise_naming_a_later_slice(kw, match):
         assert np.isfinite(ctl.run()["total_time"])
         assert all(torch.isfinite(p).all() for p in ctl.params.values())
         return
-    with pytest.raises(NotImplementedError, match=match) as err:
+    with pytest.raises(ValueError, match=match) as err:
         Controller(cfg, ProxyCNN(10), data, list(paper_fleet(4)),
                    device="cpu")
-    assert "slice" in str(err.value)
+    assert "torchrun" in str(err.value)
 
 
 def test_adafactor_clients_run():
