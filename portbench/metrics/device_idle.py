@@ -1,0 +1,9 @@
+"""Share of the traced window in which no kernel or copy ran on the card:
+one minus the union of the profiler's device intervals over the window."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if not tr or tr["window_s"] <= 0 or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
