@@ -115,7 +115,7 @@ def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,
     if mesh is not None:
         flat = kernel_ops.aggregate_rows_psum(buffer, row_idx, weights, mesh)
         _LAST_PATH = "psum"
-        if not bool(torch.isfinite(flat).all()):
+        if not kernel_ops.all_finite(flat):
             flat = kernel_ops.aggregate_rows_psum_gather(buffer, row_idx,
                                                          weights, mesh)
             _GUARD_RECOMPUTES += 1
@@ -126,7 +126,7 @@ def weighted_aggregate_rows(buffer: torch.Tensor, row_idx, weights,
         flat = kernel_ops.aggregate_rows(buffer, row_idx, weights)
         _LAST_PATH = "sweep"
         # the guard reads the [W] result, not the buffer
-        if not bool(torch.isfinite(flat).all()):
+        if not kernel_ops.all_finite(flat):
             flat = kernel_ops.aggregate_rows_gather(buffer, row_idx, weights)
             _GUARD_RECOMPUTES += 1
     out = spec.unravel(flat[:spec.n_params], restore_dtype=False)

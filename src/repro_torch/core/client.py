@@ -45,6 +45,20 @@ TF32 off (``device.fp32_exact``) as the reference computes in fp32:
     the counterpart of the reference's ``cohort_fn_indexed`` program), the
     cohort as device tensors and the rows already allocated.
 
+Each cohort adds to four counters (host integers, once a cohort):
+``local_steps`` (loop iterations run), ``lane_steps_run`` (lanes times
+steps run, on this rank), ``lane_steps_useful`` (the real lanes' budgets)
+and ``lane_steps_pad`` (pad lanes times steps run). The loop runs every
+lane to the cohort's largest budget, so run less useful less pad is the
+lane-steps past a lane's budget. ``train_cohort_rows`` has its budgets on
+the device only and counts ``local_steps`` alone, so the three lane-step
+counters cover the same cohorts. The loop's host time is
+in ``repro_torch.tracing`` spans: ``cohort`` around the loop and its
+entry's tail, with ``cohort.draw`` (the index draw and set-up),
+``step`` (one a local step: ``step.grad``, the gather, gradients and
+their copy into the grad views; ``step.opt``, the optimizer),
+``cohort.wait`` (the losses' copy to the host) and ``cohort.land``.
+
 With a mesh (``mesh=``, ``sharding.flmesh``) the cohort floor becomes
 ``lcm(floor, data)``, so every ``Kp`` splits evenly over the ``data``
 axis, and data rank ``i`` trains lanes ``[i*Kp/data, (i+1)*Kp/data)``.
@@ -72,6 +86,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.update_store import _round_up, land_lanes
 from repro_torch.device import fp32_exact, resolve_device
 from repro_torch.kernels.ops import BLOCK_N, RavelSpec, tree_leaves
@@ -121,6 +136,10 @@ class CohortTrainer:
         self.batch_indices = batch_indices or self._draw_indices
         self._grad_fn = self._make_grad_fn()
         self.data_h2d_bytes = 0   # training-input bytes uploaded (host plane)
+        self.local_steps = 0      # the loop's counters (module docstring)
+        self.lane_steps_run = 0
+        self.lane_steps_useful = 0
+        self.lane_steps_pad = 0
 
     def _make_grad_fn(self):
         model, mu = self.model, self.prox_mu
@@ -160,37 +179,45 @@ class CohortTrainer:
         trained rows, mean losses [L], c_i' [L, W] or None)`` for those L
         lanes (all Kp un-meshed), on the device."""
         dev = self.device
-        bidx = self.batch_indices(sel_t.shape[0], max_steps, n_t)
-        if self.mesh is not None:
-            # the whole table is drawn, so the generator moves as at 1x1
-            lanes = self._lanes(sel_t.shape[0])
-            sel_t, n_t, steps_t, bidx = (sel_t[lanes], n_t[lanes],
-                                         steps_t[lanes], bidx[lanes])
-            if c_lanes is not None:
-                c_lanes = c_lanes[lanes]
-        Kp = sel_t.shape[0]
-        spec = RavelSpec(global_params)
-        row0 = torch.zeros(W, dtype=torch.float32, device=dev)
-        row0[:spec.n_params] = spec.ravel(global_params)
-        flat = row0.repeat(Kp, 1)
-        grads = torch.zeros_like(flat)
-        params, grad_views = spec.unravel_stacked(flat), spec.unravel_stacked(grads)
-        opt_state = self.opt.cohort_init(flat, spec)
-        sel_c = sel_t[:, None]
-        losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
+        with tracing.span("cohort.draw"):
+            bidx = self.batch_indices(sel_t.shape[0], max_steps, n_t)
+            if self.mesh is not None:
+                # the whole table is drawn, so the generator moves as at 1x1
+                lanes = self._lanes(sel_t.shape[0])
+                sel_t, n_t, steps_t, bidx = (sel_t[lanes], n_t[lanes],
+                                             steps_t[lanes], bidx[lanes])
+                if c_lanes is not None:
+                    c_lanes = c_lanes[lanes]
+            Kp = sel_t.shape[0]
+            spec = RavelSpec(global_params)
+            row0 = torch.zeros(W, dtype=torch.float32, device=dev)
+            row0[:spec.n_params] = spec.ravel(global_params)
+            flat = row0.repeat(Kp, 1)
+            grads = torch.zeros_like(flat)
+            params = spec.unravel_stacked(flat)
+            grad_views = spec.unravel_stacked(grads)
+            opt_state = self.opt.cohort_init(flat, spec)
+            sel_c = sel_t[:, None]
+            losses = torch.zeros(Kp, dtype=torch.float32, device=dev)
+        self.local_steps += max_steps
         with fp32_exact():
             for s in range(max_steps):
-                idx = bidx[:, s]
-                g, loss = self._grad_fn(params, store.X[sel_c, idx],
-                                        store.y[sel_c, idx], global_params)
-                for view, leaf in zip(tree_leaves(grad_views),
-                                      tree_leaves(g)):
-                    view.copy_(leaf)
-                if c_global is not None:
-                    # (g - c_i) + c, the reference's order of roundings
-                    grads.sub_(c_lanes).add_(c_global)
-                self.opt.cohort_step(flat, opt_state, grads, steps_t, s)
-                losses += torch.where(steps_t > s, loss, 0.0)
+                with tracing.span("step"):
+                    with tracing.span("step.grad"):
+                        idx = bidx[:, s]
+                        g, loss = self._grad_fn(
+                            params, store.X[sel_c, idx], store.y[sel_c, idx],
+                            global_params)
+                        for view, leaf in zip(tree_leaves(grad_views),
+                                              tree_leaves(g)):
+                            view.copy_(leaf)
+                        if c_global is not None:
+                            # (g - c_i) + c, the reference's order of roundings
+                            grads.sub_(c_lanes).add_(c_global)
+                    with tracing.span("step.opt"):
+                        self.opt.cohort_step(flat, opt_state, grads, steps_t,
+                                             s)
+                    losses += torch.where(steps_t > s, loss, 0.0)
         mean_loss = losses / torch.clamp(steps_t, min=1)
         ci_new = None
         if c_global is not None:
@@ -260,30 +287,41 @@ class CohortTrainer:
         if c_global is not None:
             c_lanes = torch.zeros((Kp, W), dtype=torch.float32, device=dev)
             c_lanes[:K] = c_clients
-        flat, mean_loss, ci_new = self._train_lanes(
-            global_params, store, torch.as_tensor(sel, device=dev),
-            torch.as_tensor(n_i, device=dev),
-            torch.as_tensor(steps.astype(np.int32), device=dev),
-            int(steps.max()), W, c_global, c_lanes)
-        if self.mesh is not None:
-            # every rank's lanes, in lane order, on every rank
-            mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
-            if ci_new is not None:
-                ci_new = flmesh.all_gather_data(ci_new, self.mesh)
-        mean_loss = mean_loss.cpu().numpy()[:K]
-        if ci_new is not None:
-            ci_new = ci_new[:K]
-        if update_sink is None:
-            spec = RavelSpec(global_params)
+        max_steps = int(steps.max())
+        # this rank's lanes (all of them un-meshed); pad lanes budget 0
+        mine = np.arange(Kp)[self._lanes(Kp) if self.mesh is not None
+                             else slice(None)]
+        self.lane_steps_run += len(mine) * max_steps
+        self.lane_steps_useful += int(steps[mine].sum())
+        self.lane_steps_pad += int((mine >= K).sum()) * max_steps
+        with tracing.span("cohort"):
+            flat, mean_loss, ci_new = self._train_lanes(
+                global_params, store, torch.as_tensor(sel, device=dev),
+                torch.as_tensor(n_i, device=dev),
+                torch.as_tensor(steps.astype(np.int32), device=dev),
+                max_steps, W, c_global, c_lanes)
             if self.mesh is not None:
-                flat = flmesh.all_gather_data(flat, self.mesh)
-            return spec.unravel_stacked(flat[:K]), ci_new, mean_loss
-        # pad lanes ran 0 steps: their rows hold the global model and are
-        # recycled right away, as the reference's flat-update path does
-        ids = update_sink.alloc(Kp)
-        land_lanes(update_sink.buffer, ids, flat, self.mesh)
-        if Kp != K:
-            update_sink.free(ids[K:])
+                # every rank's lanes, in lane order, on every rank
+                mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
+                if ci_new is not None:
+                    ci_new = flmesh.all_gather_data(ci_new, self.mesh)
+            with tracing.span("cohort.wait"):
+                mean_loss = mean_loss.cpu().numpy()[:K]
+            if ci_new is not None:
+                ci_new = ci_new[:K]
+            if update_sink is None:
+                spec = RavelSpec(global_params)
+                if self.mesh is not None:
+                    flat = flmesh.all_gather_data(flat, self.mesh)
+                return spec.unravel_stacked(flat[:K]), ci_new, mean_loss
+            # pad lanes ran 0 steps: their rows hold the global model and
+            # are recycled right away, as the reference's flat-update path
+            # does
+            with tracing.span("cohort.land"):
+                ids = update_sink.alloc(Kp)
+                land_lanes(update_sink.buffer, ids, flat, self.mesh)
+                if Kp != K:
+                    update_sink.free(ids[K:])
         return ids[:K], ci_new, mean_loss
 
     def _lanes(self, Kp: int) -> slice:
@@ -304,11 +342,18 @@ class CohortTrainer:
         ``buffer`` at ``row_ids`` [Kp], allocated by the caller (under a
         mesh, ``buffer`` is this rank's tile, and the rows land as
         ``train_cohort_indexed`` lands them). Returns the mean losses [Kp]
-        on the device."""
+        on the device. The budgets are device tensors here, so the cohort
+        counts ``local_steps`` alone: counting lane-steps would take another
+        host read, so the three lane-step counters cover the host-side
+        entries' cohorts."""
         W = buffer.shape[1] * flmesh.mesh_axes(self.mesh)[1]
-        flat, mean_loss, _ = self._train_lanes(
-            global_params, store, cidx, n_p, steps_p, int(steps_p.max()), W)
-        land_lanes(buffer, row_ids, flat, self.mesh)
-        if self.mesh is not None:
-            mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
+        with tracing.span("cohort"):
+            with tracing.span("cohort.wait"):
+                max_steps = int(steps_p.max())
+            flat, mean_loss, _ = self._train_lanes(
+                global_params, store, cidx, n_p, steps_p, max_steps, W)
+            with tracing.span("cohort.land"):
+                land_lanes(buffer, row_ids, flat, self.mesh)
+            if self.mesh is not None:
+                mean_loss = flmesh.all_gather_data(mean_loss, self.mesh)
         return mean_loss

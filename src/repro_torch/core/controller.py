@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+from repro_torch import tracing
 from repro_torch.core.services import FLConfig, FLRuntime, RoundLog  # noqa: F401
 
 
@@ -60,7 +61,8 @@ class Controller(FLRuntime):
                     # the poll loop has no RoundStarted event; the marker
                     # gives its journal the same open boundary
                     self.durability.record_marker("round_open", round_)
-            selection = strat.select(self.db, round_)
+            with tracing.span("selection"):
+                selection = strat.select(self.db, round_)
             if not selection:
                 # every client busy: advance until something completes, or,
                 # when the fleet is empty under open-loop traffic, jump to

@@ -52,6 +52,7 @@ import itertools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+from repro_torch import tracing
 from repro_torch.core.controller import Controller
 from repro_torch.core.database import Database
 from repro_torch.core.megastep import try_megastep
@@ -105,6 +106,7 @@ class Scheduler(FLRuntime):
         self._done = False
         self._invoked_this_round = False
         self._progress: Optional[Callable[[RoundLog], None]] = None
+        self._round_span = None         # tracing's token for the open round
         self.n_events = 0               # protocol events dispatched
         self.n_coalesced = 0            # actions merged into batched dispatches
         # fused-round megastep (core.megastep): runs of quiescent rounds
@@ -340,12 +342,14 @@ class Scheduler(FLRuntime):
                 self._apply_due_traffic()
         self._t0 = self.loop.now
         self._invoked_this_round = False
+        self._round_span = tracing.begin("round", round=self.db.round)
         self._dispatch(RoundStarted(t=self.loop.now, round=self.db.round))
 
     def _close_round(self) -> None:
         """Execute ``Aggregate``: aggregate, evaluate, log, advance the
         round, and either terminate or dispatch the next ``RoundStarted``
-        (the poll loop's tail, round for round)."""
+        (the poll loop's tail, round for round). The ``round`` span, open
+        since ``RoundStarted``, ends here before the next round opens."""
         cfg = self.cfg
         round_ = self.db.round
         n_agg, n_stale, _ = self.aggregate_round(round_)
@@ -361,13 +365,15 @@ class Scheduler(FLRuntime):
                 self._progress(log)
         self.db.round = round_ + 1
         self._durability_round_closed()
+        reached = False
         if n_agg:
             if cfg.checkpoint_every and self.db.round % cfg.checkpoint_every == 0:
                 self.checkpoint()
-            if cfg.target_accuracy and self._acc >= cfg.target_accuracy:
-                self._done = True
-                return
-        if self.db.round >= cfg.rounds or self.loop.now >= cfg.max_sim_time:
+            reached = bool(cfg.target_accuracy
+                           and self._acc >= cfg.target_accuracy)
+        tracing.end(self._round_span)
+        if (reached or self.db.round >= cfg.rounds
+                or self.loop.now >= cfg.max_sim_time):
             self._done = True
             return
         self._open_round()

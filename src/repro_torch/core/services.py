@@ -62,6 +62,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.aggregation import (weighted_aggregate,
                                           weighted_aggregate_rows)
 from repro_torch.core.client import CohortTrainer
@@ -888,51 +889,52 @@ class FLRuntime:
 
     # ------------------------------------------------- aggregation service
     def aggregate_round(self, round_: int) -> tuple[int, int, float]:
-        strat = self.strategy
-        pending = [r for r in self.db.pending_results(self.cfg.max_staleness, round_)
-                   if strat.usable(r, round_)]
-        if not pending:
-            return 0, 0, float("nan")
-        weights = np.array([strat.result_weight(r, round_) for r in pending],
-                           np.float64)
-        total = weights.sum()
-        if not np.isfinite(total) or total <= 0:
-            # e.g. Eq. 1 zeroes round-0 updates at T=1: fall back to
-            # cardinality weighting so the aggregation stays well-defined
-            weights = np.array([r.n_samples for r in pending], np.float64)
-            total = weights.sum() or 1.0
-        # cast THEN normalize in f32, as the reference does
-        weights = weights.astype(np.float32)
-        weights = weights / weights.sum()
-        out_dtype = tree_leaves(self.params)[0].dtype
-        if self.update_plane == "device":
-            rows = [r.update_row for r in pending]
-            if any(r < 0 for r in rows):
-                raise RuntimeError("pending result without a row handle")
-            self.params = weighted_aggregate_rows(
-                self.store.buffer, rows, weights, self.spec,
-                out_dtype=out_dtype, mesh=self.mesh)
-            self.store.free(rows)
-        else:
-            updates = [tree_map(lambda x: torch.as_tensor(x).to(self.device),
-                                self.db.blobs[r.update_key])
-                       for r in pending]
-            self.update_host_bytes += sum(
-                l.nbytes for r in pending
-                for l in tree_leaves(self.db.blobs[r.update_key]))
-            self.params = weighted_aggregate(updates, weights,
-                                             out_dtype=out_dtype)
-        n_stale = sum(1 for r in pending if r.round < round_)
-        mean_dur = float(np.mean([r.train_duration for r in pending]))
-        self.db.mark_aggregated(pending)
-        # prune: results too stale to ever be usable again
-        drop = [r for r in self.db.results
-                if not r.aggregated and round_ - r.round >= self.cfg.max_staleness]
-        if self.update_plane == "device":
-            self.store.free([r.update_row for r in drop
-                             if r.update_row >= 0])
-        self.db.mark_aggregated(drop)
-        return len(pending), n_stale, mean_dur
+        with tracing.span("aggregation"):
+            strat = self.strategy
+            pending = [r for r in self.db.pending_results(self.cfg.max_staleness, round_)
+                       if strat.usable(r, round_)]
+            if not pending:
+                return 0, 0, float("nan")
+            weights = np.array([strat.result_weight(r, round_) for r in pending],
+                               np.float64)
+            total = weights.sum()
+            if not np.isfinite(total) or total <= 0:
+                # e.g. Eq. 1 zeroes round-0 updates at T=1: fall back to
+                # cardinality weighting so the aggregation stays well-defined
+                weights = np.array([r.n_samples for r in pending], np.float64)
+                total = weights.sum() or 1.0
+            # cast THEN normalize in f32, as the reference does
+            weights = weights.astype(np.float32)
+            weights = weights / weights.sum()
+            out_dtype = tree_leaves(self.params)[0].dtype
+            if self.update_plane == "device":
+                rows = [r.update_row for r in pending]
+                if any(r < 0 for r in rows):
+                    raise RuntimeError("pending result without a row handle")
+                self.params = weighted_aggregate_rows(
+                    self.store.buffer, rows, weights, self.spec,
+                    out_dtype=out_dtype, mesh=self.mesh)
+                self.store.free(rows)
+            else:
+                updates = [tree_map(lambda x: torch.as_tensor(x).to(self.device),
+                                    self.db.blobs[r.update_key])
+                           for r in pending]
+                self.update_host_bytes += sum(
+                    l.nbytes for r in pending
+                    for l in tree_leaves(self.db.blobs[r.update_key]))
+                self.params = weighted_aggregate(updates, weights,
+                                                 out_dtype=out_dtype)
+            n_stale = sum(1 for r in pending if r.round < round_)
+            mean_dur = float(np.mean([r.train_duration for r in pending]))
+            self.db.mark_aggregated(pending)
+            # prune: results too stale to ever be usable again
+            drop = [r for r in self.db.results
+                    if not r.aggregated and round_ - r.round >= self.cfg.max_staleness]
+            if self.update_plane == "device":
+                self.store.free([r.update_row for r in drop
+                                 if r.update_row >= 0])
+            self.db.mark_aggregated(drop)
+            return len(pending), n_stale, mean_dur
 
     # -------------------------------------------------- evaluation service
     @torch.no_grad()
@@ -943,31 +945,34 @@ class FLRuntime:
         the constant n into a multiply by its fp32 reciprocal. So
         accuracies (and a ``target_accuracy`` stop) are the reference's to
         the bit. TF32 is off for the pass (``device.fp32_exact``)."""
-        xs = torch.as_tensor(np.asarray(self.data.eval_x))
-        ys = torch.as_tensor(np.asarray(self.data.eval_y)).long()
-        n, bs = len(xs), 256
-        if not hasattr(self.model, "predict"):
-            # a model with only ``accuracy`` (the LM adapter, which masks
-            # its targets) takes the reference's per-batch loop: each
-            # batch's fp32 accuracy weighted by its size, summed in float64
-            total = 0.0
+        with tracing.span("evaluation"):
+            xs = torch.as_tensor(np.asarray(self.data.eval_x))
+            ys = torch.as_tensor(np.asarray(self.data.eval_y)).long()
+            n, bs = len(xs), 256
+            if not hasattr(self.model, "predict"):
+                # a model with only ``accuracy`` (the LM adapter, which masks
+                # its targets) takes the reference's per-batch loop: each
+                # batch's fp32 accuracy weighted by its size, summed in float64
+                total = 0.0
+                with fp32_exact():
+                    for i in range(0, n, bs):
+                        batch = {"x": xs[i:i + bs].to(self.device),
+                                 "y": ys[i:i + bs].to(self.device)}
+                        total += float(self.model.accuracy(self.params, batch)
+                                       ) * len(batch["x"])
+                return total / max(n, 1)
+            correct = torch.zeros((), dtype=torch.int64, device=self.device)
             with fp32_exact():
                 for i in range(0, n, bs):
-                    batch = {"x": xs[i:i + bs].to(self.device),
-                             "y": ys[i:i + bs].to(self.device)}
-                    total += float(self.model.accuracy(self.params, batch)
-                                   ) * len(batch["x"])
-            return total / max(n, 1)
-        correct = torch.zeros((), dtype=torch.int64, device=self.device)
-        with fp32_exact():
-            for i in range(0, n, bs):
-                xb = xs[i:i + bs].to(self.device)
-                yb = ys[i:i + bs].to(self.device)
-                pred = torch.argmax(self.model.predict(self.params, xb),
-                                    dim=-1)
-                correct += (pred == yb).sum()
-        recip = float(np.float32(1.0) / np.float32(max(n, 1)))
-        return float((correct.to(torch.float32) * recip).item())
+                    xb = xs[i:i + bs].to(self.device)
+                    yb = ys[i:i + bs].to(self.device)
+                    pred = torch.argmax(self.model.predict(self.params, xb),
+                                        dim=-1)
+                    correct += (pred == yb).sum()
+            recip = float(np.float32(1.0) / np.float32(max(n, 1)))
+            acc = correct.to(torch.float32) * recip
+            with tracing.span("evaluation.wait"):
+                return float(acc.item())
 
     # ---------------------------------------------------------------- metrics
     def metrics(self) -> dict:
@@ -992,6 +997,13 @@ class FLRuntime:
             # per-dispatch training-input uploads (0 on the device plane:
             # the dataset is resident, see data_resident_bytes)
             "data_host_bytes": int(self.trainer.data_h2d_bytes),
+            # the local-training loop (core.client): steps run; of the
+            # host-side entries' cohorts, lanes x steps run, the real
+            # lanes' budgets, pad lanes x steps
+            "local_steps": self.trainer.local_steps,
+            "lane_steps_run": self.trainer.lane_steps_run,
+            "lane_steps_useful": self.trainer.lane_steps_useful,
+            "lane_steps_pad": self.trainer.lane_steps_pad,
             "data_resident_bytes": (self.dataset.resident_bytes
                                     if self.dataset is not None else 0),
             "rounds": len(self.history),

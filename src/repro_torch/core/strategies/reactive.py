@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.protocol import (Action, Aggregate, ClientJoined, ClientLeft,
                                  DatabaseView, EndRun, Event, Hedge, Invoke,
                                  InvocationFailed, LoopDrained, ReactivePolicy,
@@ -86,7 +87,8 @@ class LegacyStrategyAdapter(ReactivePolicy):
     def _open(self, view: DatabaseView) -> list[Action]:
         """Round start (or re-select once a client went idle)."""
         s = self.strategy
-        selection = s.select(view.db, view.round)
+        with tracing.span("selection"):
+            selection = s.select(view.db, view.round)
         if not selection:
             self._phase = "selecting"
             return []

@@ -49,6 +49,7 @@ import zlib
 from dataclasses import asdict
 from typing import Optional, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.journal import JOURNAL_NAME, Journal, encode_event
 from repro_torch.sharding import flmesh
 
@@ -144,10 +145,15 @@ class DurabilityManager:
         self._record("round_close", {}, round_=rt.db.round, fsync=True)
         if rt.db.round % self.snap_every == 0:
             from repro_torch.durability.snapshot import write_snapshot
-            t0 = time.perf_counter()
-            if write_snapshot(rt, self.root, self._seq - 1):
+            # one pair of clock reads times snapshot_s and the span
+            t0 = time.perf_counter_ns()
+            span = tracing.begin("snapshot", at=t0)
+            wrote = write_snapshot(rt, self.root, self._seq - 1)
+            t1 = time.perf_counter_ns()
+            tracing.end(span, at=t1)
+            if wrote:
                 self.n_snapshots += 1
-                self.snapshot_s += time.perf_counter() - t0
+                self.snapshot_s += (t1 - t0) / 1e9
 
     def finish(self) -> None:
         self._record("run_end", {}, round_=self.rt.db.round, fsync=True)

@@ -60,6 +60,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint import restore_pytree, save_pytree
 from repro_torch.core.database import Database, _flatten, _treedef, _unflatten
 from repro_torch.core.services import Inflight, _Payload
@@ -253,13 +254,15 @@ def write_snapshot(rt, root: str, seq: int, *, keep: int = 2) -> bool:
         return False
 
     rt.db.meta["update_plane"] = rt.update_plane
-    state, blob_arrays = capture_state(rt)
-    rows = None
-    if state["store"] is not None and state["store"]["ids"]:
-        rows = rt.store.gather(state["store"]["ids"]).cpu().numpy()
+    with tracing.span("snapshot.gather"):
+        state, blob_arrays = capture_state(rt)
+        rows = None
+        if state["store"] is not None and state["store"]["ids"]:
+            rows = rt.store.gather(state["store"]["ids"]).cpu().numpy()
     if writer:
-        _write_files(rt, d, seq, state, blob_arrays, rows)
-        _gc_snapshots(root, keep)
+        with tracing.span("snapshot.write"):
+            _write_files(rt, d, seq, state, blob_arrays, rows)
+            _gc_snapshots(root, keep)
     if mesh is not None:
         flmesh.barrier(mesh)
     return True

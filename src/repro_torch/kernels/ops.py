@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.quant8 import (  # noqa: F401
@@ -245,6 +246,13 @@ def aggregate_rows_psum_gather(buffer: torch.Tensor, row_idx, weights, mesh
     return _psum_gather(buffer, *_on(buffer, row_idx, weights), mesh)
 
 
+def all_finite(flat: torch.Tensor) -> bool:
+    """Aggregation's finiteness guard on a weighted sum: the host waits on
+    the card for one flag, in an ``aggregation.wait`` span."""
+    with tracing.span("aggregation.wait"):
+        return bool(torch.isfinite(flat).all())
+
+
 def aggregate_rows_traced(buffer: torch.Tensor, row_idx: torch.Tensor,
                           weights: torch.Tensor, *, sparse: bool, mesh=None
                           ) -> torch.Tensor:
@@ -266,13 +274,13 @@ def aggregate_rows_traced(buffer: torch.Tensor, row_idx: torch.Tensor,
         w = torch.cat([w, w.new_zeros(pad_k)])
     if mesh is not None:
         flat = _psum_sweep(buffer, idx, w, mesh)
-        if not bool(torch.isfinite(flat).all()):
+        if not all_finite(flat):
             flat = _psum_gather(buffer, idx, w, mesh)
         return flat
     if sparse:
         return _gather(buffer, idx, w)
     flat = _sweep(buffer, idx, w)
-    if not bool(torch.isfinite(flat).all()):
+    if not all_finite(flat):
         flat = _gather(buffer, idx, w)
     return flat
 

@@ -46,6 +46,7 @@ group's backend, never by a ``try``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import pickle
@@ -55,6 +56,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.device import resolve_device
 from repro_torch.sharding.rules import P
 
@@ -218,6 +220,19 @@ def capacity_align(mesh: Optional[FLMesh], base: int) -> int:
 
 
 # ------------------------------------------------------------ collectives
+@contextlib.contextmanager
+def _timed(mesh: FLMesh):
+    """Count one collective and its host-clock time in ``collective_s``,
+    the same clock reads bounding its ``mesh.collective`` span."""
+    t0 = time.perf_counter_ns()
+    span = tracing.begin("mesh.collective", at=t0)
+    yield
+    t1 = time.perf_counter_ns()
+    tracing.end(span, at=t1)
+    mesh.collective_s += (t1 - t0) / 1e9
+    mesh.n_collectives += 1
+
+
 def _collective(mesh: FLMesh, x: torch.Tensor, run) -> torch.Tensor:
     """Run ``run(host_or_device_tensor) -> tensor`` on ``x``, staged through
     the host when the group's backend cannot take ``x`` on its device, and
@@ -227,16 +242,14 @@ def _collective(mesh: FLMesh, x: torch.Tensor, run) -> torch.Tensor:
     staged = mesh.stages and x.is_cuda
     if staged:
         torch.cuda.synchronize(x.device)
-    t0 = time.perf_counter()
-    if staged:
-        out = run(x.cpu())
-        mesh.host_bytes += x.numel() * x.element_size()
-        mesh.host_bytes += out.numel() * out.element_size()
-        out = out.to(x.device)
-    else:
-        out = run(x.contiguous())
-    mesh.collective_s += time.perf_counter() - t0
-    mesh.n_collectives += 1
+    with _timed(mesh):
+        if staged:
+            out = run(x.cpu())
+            mesh.host_bytes += x.numel() * x.element_size()
+            mesh.host_bytes += out.numel() * out.element_size()
+            out = out.to(x.device)
+        else:
+            out = run(x.contiguous())
     return out
 
 
@@ -294,13 +307,11 @@ def barrier(mesh: FLMesh) -> None:
     """Every rank waits here until all have arrived: no rank passes a
     commit point (a snapshot's manifest, a checkpoint, the journal's last
     record) before rank 0 has made it durable."""
-    t0 = time.perf_counter()
-    if _on_card(mesh):
-        dist.barrier(group=mesh.world, device_ids=[mesh.device.index])
-    else:
-        dist.barrier(group=mesh.world)
-    mesh.collective_s += time.perf_counter() - t0
-    mesh.n_collectives += 1
+    with _timed(mesh):
+        if _on_card(mesh):
+            dist.barrier(group=mesh.world, device_ids=[mesh.device.index])
+        else:
+            dist.barrier(group=mesh.world)
 
 
 def broadcast_object(obj, mesh: FLMesh):
@@ -308,12 +319,10 @@ def broadcast_object(obj, mesh: FLMesh):
     snapshot's sequence number) on every rank; the other ranks' ``obj`` is
     ignored. Carried on the host for gloo (its pickled bytes counted in
     ``host_bytes`` when the mesh stages), on the card for NCCL."""
-    t0 = time.perf_counter()
-    box = [obj if mesh.rank == 0 else None]
-    dist.broadcast_object_list(box, src=0, group=mesh.world, device=(
-        mesh.device if _on_card(mesh) else torch.device("cpu")))
-    if mesh.stages:
-        mesh.host_bytes += len(pickle.dumps(box[0]))
-    mesh.collective_s += time.perf_counter() - t0
-    mesh.n_collectives += 1
+    with _timed(mesh):
+        box = [obj if mesh.rank == 0 else None]
+        dist.broadcast_object_list(box, src=0, group=mesh.world, device=(
+            mesh.device if _on_card(mesh) else torch.device("cpu")))
+        if mesh.stages:
+            mesh.host_bytes += len(pickle.dumps(box[0]))
     return box[0]
